@@ -1,0 +1,95 @@
+"""Carry state between :mod:`lifeapi_tpu` and this port, through numpy.
+
+The system has no learned weights: what crosses over is boards, targets,
+control masks and MPC problems, and what comes back for comparison is
+boards and results.  Every function here takes numpy arrays, or objects
+whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
+of JAX arrays), so this module never imports jax.
+
+Board layouts: the JAX package packs a board as ``uint32[..., 64, 2]``
+with word 0 = bits y 0..31 and word 1 = bits y 32..63 of column x; the
+port holds the same 64 bits as one ``int64`` word per column,
+``int64[..., 64]``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .mpc.cost import CostWeights
+from .mpc.solver import MPCProblem
+from .target import LifeTarget
+
+
+def board_from_packed(packed, device=None):
+    """JAX packed ``uint32[..., 64, 2]`` -> port board ``int64[..., 64]``."""
+    a = np.asarray(packed, dtype=np.uint32)
+    if a.shape[-2:] != (64, 2):
+        raise ValueError(f"expected a packed board [..., 64, 2], got {a.shape}")
+    words = a[..., 0].astype(np.uint64) | (a[..., 1].astype(np.uint64) << np.uint64(32))
+    return torch.from_numpy(words.view(np.int64)).to(device)
+
+
+def board_to_packed(board):
+    """Port board ``int64[..., 64]`` -> JAX packed ``uint32[..., 64, 2]``."""
+    if board.dtype != torch.int64 or board.shape[-1:] != (64,):
+        raise ValueError(f"expected int64[..., 64], got {board.dtype} {tuple(board.shape)}")
+    w = board.detach().cpu().contiguous().numpy().view(np.uint64)
+    lo = (w & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    hi = (w >> np.uint64(32)).astype(np.uint32)
+    return np.stack([lo, hi], axis=-1)
+
+
+def target_from_jax(target, device=None):
+    """A JAX ``LifeTarget`` (or any object with packed ``wanted`` and
+    ``unwanted``) -> the port's :class:`LifeTarget`."""
+    return LifeTarget(
+        board_from_packed(target.wanted, device),
+        board_from_packed(target.unwanted, device),
+    )
+
+
+def dense_mask(mask, device=None):
+    """A dense ``bool[64, 64]`` mask indexed ``[x, y]`` as a torch tensor."""
+    return torch.from_numpy(np.array(mask, dtype=bool)).to(device)
+
+
+def problem_from_jax(problem, device=None):
+    """A JAX ``MPCProblem`` (initial, target, horizon, control_mask,
+    protected, background, weights, tau) -> the port's
+    :class:`~lifeapi_tpu_torch.mpc.solver.MPCProblem` on ``device``."""
+    return MPCProblem(
+        initial=board_from_packed(problem.initial, device),
+        target=target_from_jax(problem.target, device),
+        horizon=int(problem.horizon),
+        control_mask=dense_mask(problem.control_mask, device),
+        protected=(None if problem.protected is None
+                   else dense_mask(problem.protected, device)),
+        background=(None if problem.background is None
+                    else board_from_packed(problem.background, device)),
+        weights=CostWeights(*(float(w) for w in problem.weights)),
+        tau=float(problem.tau),
+    )
+
+
+def solution_to_numpy(solution):
+    """Port ``MPCSolution`` -> dict of numpy arrays in the JAX layouts."""
+    return {
+        "controls": board_to_packed(solution.controls),
+        "control_probs": solution.control_probs.detach().cpu().numpy(),
+        "final_board": board_to_packed(solution.final_board),
+        "cost": solution.cost.detach().cpu().numpy(),
+        "all_costs": solution.all_costs.detach().cpu().numpy(),
+    }
+
+
+def placement_to_numpy(result):
+    """Port ``PlacementResult`` -> dict of numpy arrays in the JAX layouts."""
+    return {
+        "offsets": result.offsets.cpu().numpy(),
+        "interacted": result.interacted.cpu().numpy(),
+        "recovered": result.recovered.cpu().numpy(),
+        "reaction_changed": result.reaction_changed.cpu().numpy(),
+        "final": board_to_packed(result.final),
+    }

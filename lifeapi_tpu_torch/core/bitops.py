@@ -1,0 +1,54 @@
+"""Word-level bit tricks on 64-bit columns held as ``torch.int64``.
+
+Counterpart of :mod:`lifeapi_tpu.core.bitops`.  A column is one int64 word,
+bit y = cell y.  torch's ``>>`` on int64 is arithmetic (sign-extending), so
+every right shift here is masked to make it logical, and torch has no
+tensor popcount, so :func:`popcount64` is SWAR.
+"""
+
+from __future__ import annotations
+
+import torch
+
+_INT64_MAX = 0x7FFFFFFFFFFFFFFF
+
+
+def shr64(x, s):
+    """Logical right shift of int64 words by ``s`` (int in [1, 63] or an
+    int64 tensor with values in [1, 63])."""
+    return (x >> s) & (_INT64_MAX >> (s - 1))
+
+
+def rotl64(x, k):
+    """Rotate each 64-bit word left (towards higher y) by ``k``
+    (``std::rotl``).  ``k`` is a Python int or an integer tensor that
+    broadcasts against ``x``; any value is taken mod 64."""
+    if isinstance(k, int):
+        k %= 64
+        if k == 0:
+            return x
+        return (x << k) | shr64(x, 64 - k)
+    k = torch.remainder(k.to(torch.int64), 64)
+    right = shr64(x, torch.where(k == 0, 1, 64 - k))
+    return torch.where(k == 0, x, (x << k) | right)
+
+
+def rotr64(x, k):
+    """Rotate each 64-bit word right by ``k``."""
+    return rotl64(x, -k)
+
+
+def _popcount32(x):
+    """SWAR population count of int64 words holding values in [0, 2**32)."""
+    x = x - ((x >> 1) & 0x55555555)
+    x = (x & 0x33333333) + ((x >> 2) & 0x33333333)
+    x = (x + (x >> 4)) & 0x0F0F0F0F
+    x = x + (x >> 8)
+    x = x + (x >> 16)
+    return x & 0x3F
+
+
+def popcount64(x):
+    """Population count of each int64 word, as int64.  Counted on the two
+    32-bit halves: both are non-negative, so no step can overflow."""
+    return _popcount32(x & 0xFFFFFFFF) + _popcount32(shr64(x, 32))

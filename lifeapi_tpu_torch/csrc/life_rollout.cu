@@ -1,0 +1,213 @@
+// Bit-exact B3/S23 rollouts of 64x64 torus boards, hand-written for Hopper
+// (sm_90a).  Built by lifeapi_tpu_torch/ops/_build.py with nvcc into a
+// shared library with a plain C interface and called through ctypes from
+// lifeapi_tpu_torch/ops/step_cuda.py, which holds each kernel's plain
+// PyTorch twin.
+//
+// Board layout in device memory: int64[B, 64], one 64-bit word per column x,
+// bit y = cell (x, y) (the reference's LifeState layout).
+//
+// Design, shared by the three kernels:
+//  * One warp steps one board.  Lane l keeps columns l and l + 32 in two
+//    64-bit registers for the whole horizon, so device-memory traffic is one
+//    read and one write of the board per rollout; only the controlled kernel
+//    streams more (its toggles).  This is what the TPU kernels get from
+//    holding the batch tile in VMEM.
+//  * Vertical neighbours are native 64-bit rotates of the lane's own words;
+//    the TPU's even/odd interleave (lifeapi_tpu/core/bitops.py
+//    interleave_split) only saved 32-bit funnel shifts and is not used.
+//  * Horizontal neighbours come from __shfl_sync of the vertical 3-sums; at
+//    the warp's ends (lanes 0 and 31) the torus wrap swaps the two registers.
+//  * Bound: integer-ALU and shuffle issue per board-step (about 50 64-bit
+//    logic ops and 8 64-bit shuffles per lane per generation); the board
+//    never leaves registers, so bytes are not the limit for T >> 1.
+//  * No padding: the B % 128 batch padding of the TPU wrappers goes away.  A
+//    warp whose board index is past B leaves at once, as a whole, so every
+//    shuffle in the warps that remain has all 32 lanes.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// unsigned long long, not uint64_t (unsigned long here): it is the type the
+// __shfl_sync and __ldg overloads are declared for.
+using u64 = unsigned long long;
+
+namespace {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+constexpr int kWarpsPerBlock = 8;
+constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
+
+__device__ __forceinline__ u64 rotl1(u64 x) { return (x << 1) | (x >> 63); }
+__device__ __forceinline__ u64 rotr1(u64 x) { return (x >> 1) | (x << 63); }
+
+// Column x - 1 of the lane's columns (l, l + 32).  Lane 0 wraps: column 0
+// takes column 63 (lane 31's hi) and column 32 takes column 31 (lane 31's lo).
+__device__ __forceinline__ void from_left(u64 lo, u64 hi, int lane,
+                                          u64& out_lo, u64& out_hi) {
+  const int src = (lane + 31) & 31;
+  const u64 a = __shfl_sync(kFullMask, lo, src);
+  const u64 b = __shfl_sync(kFullMask, hi, src);
+  out_lo = lane == 0 ? b : a;
+  out_hi = lane == 0 ? a : b;
+}
+
+// Column x + 1.  Lane 31 wraps: column 31 takes column 32 (lane 0's hi) and
+// column 63 takes column 0 (lane 0's lo).
+__device__ __forceinline__ void from_right(u64 lo, u64 hi, int lane,
+                                           u64& out_lo, u64& out_hi) {
+  const int src = (lane + 1) & 31;
+  const u64 a = __shfl_sync(kFullMask, lo, src);
+  const u64 b = __shfl_sync(kFullMask, hi, src);
+  out_lo = lane == 31 ? b : a;
+  out_hi = lane == 31 ? a : b;
+}
+
+// Rokicki's next-state formula (reference LifeAPI.hpp:837-848) for one
+// column a: (s0, s1) is the sum of its two vertical neighbours, (u0, u1) and
+// (b0, b1) the vertical 3-sums of the columns to its left and right.
+__device__ __forceinline__ u64 rokicki(u64 a, u64 s0, u64 s1, u64 u0, u64 u1,
+                                       u64 b0, u64 b1) {
+  const u64 ts0 = b0 ^ u0;
+  const u64 ts1 = (b0 & u0) | (ts0 & s0);
+  return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | a);
+}
+
+// One generation of the warp's board: the CSA netlist of
+// lifeapi_tpu_torch/core/step.py step(), bit for bit.
+__device__ __forceinline__ void life_step(u64& lo, u64& hi, int lane) {
+  const u64 wl = rotl1(lo), el = rotr1(lo);
+  const u64 wh = rotl1(hi), eh = rotr1(hi);
+  const u64 s0l = wl ^ el, s1l = wl & el;
+  const u64 s0h = wh ^ eh, s1h = wh & eh;
+  // vertical 3-sums (count_rows) as bit planes c0, c1
+  const u64 c0l = s0l ^ lo, c1l = (s0l & lo) | s1l;
+  const u64 c0h = s0h ^ hi, c1h = (s0h & hi) | s1h;
+  u64 u0l, u0h, u1l, u1h, b0l, b0h, b1l, b1h;
+  from_left(c0l, c0h, lane, u0l, u0h);
+  from_left(c1l, c1h, lane, u1l, u1h);
+  from_right(c0l, c0h, lane, b0l, b0h);
+  from_right(c1l, c1h, lane, b1l, b1h);
+  lo = rokicki(lo, s0l, s1l, u0l, u1l, b0l, b1l);
+  hi = rokicki(hi, s0h, s1h, u0h, u1h, b0h, b1h);
+}
+
+// Replaces lifeapi_tpu/ops/step_pallas.py rollout_eo (_rollout_kernel_eo):
+// T generations of every board.  Bound: integer-ALU and shuffle issue per
+// board-step; device memory sees 1 KB per board per rollout, whatever T is.
+// The design keeps the board in registers for the whole horizon and gives
+// the card B warps to hide each step's shuffle latency behind other warps.
+__global__ void __launch_bounds__(kThreadsPerBlock)
+rollout_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+               int B, int T) {
+  const int lane = threadIdx.x & 31;
+  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (board >= B) return;
+  const size_t at = static_cast<size_t>(board) * 64 + lane;
+  u64 lo = in[at], hi = in[at + 32];
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) life_step(lo, hi, lane);
+  out[at] = lo;
+  out[at + 32] = hi;
+}
+
+// Replaces lifeapi_tpu/ops/step_pallas.py controlled_rollout_eo
+// (_controlled_kernel_eo): at each generation t, XOR toggles[t] into the
+// board, then step.  toggles: [T, B, 64].  The toggle stream is the only
+// traffic that grows with T: 512 bytes per board-step, read coalesced, so
+// at small T or large B the bound can move from the ALUs to these bytes.
+// The design reads each toggle word once, straight into the XOR.
+__global__ void __launch_bounds__(kThreadsPerBlock)
+controlled_kernel(const u64* __restrict__ in,
+                  const u64* __restrict__ toggles,
+                  u64* __restrict__ out, int B, int T) {
+  const int lane = threadIdx.x & 31;
+  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (board >= B) return;
+  const size_t at = static_cast<size_t>(board) * 64 + lane;
+  const size_t stride = static_cast<size_t>(B) * 64;
+  u64 lo = in[at], hi = in[at + 32];
+  const u64* tog = toggles + at;
+  for (int t = 0; t < T; ++t, tog += stride) {
+    lo ^= tog[0];
+    hi ^= tog[32];
+    life_step(lo, hi, lane);
+  }
+  out[at] = lo;
+  out[at + 32] = hi;
+}
+
+// Replaces lifeapi_tpu/ops/step_pallas.py catalyst_rollout_eo
+// (_catalyst_kernel_eo): step the placed boards; after step t + 1 OR
+// (board ^ (base_traj[t] | placed)) & placed_zoi into an accumulator, where
+// base_traj[t] is the baseline reaction after t + 1 generations, shared by
+// every board ([T, 64], read through the read-only cache).  The accumulator
+// is reduced to one flag per board in-kernel (the TPU kernel wrote its acc
+// planes out and search.py reduced them).  Bound: integer-ALU work per
+// board-step, as for rollout_kernel, plus 4 logic ops per word; base_traj
+// (T x 512 bytes) is shared by every warp, so it stays in L1/L2 and adds no
+// device-memory traffic per board.
+__global__ void __launch_bounds__(kThreadsPerBlock)
+catalyst_kernel(const u64* __restrict__ in,
+                const u64* __restrict__ placed,
+                const u64* __restrict__ placed_zoi,
+                const u64* __restrict__ base_traj,
+                u64* __restrict__ out_final,
+                uint8_t* __restrict__ out_interacted, int B, int T) {
+  const int lane = threadIdx.x & 31;
+  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (board >= B) return;
+  const size_t at = static_cast<size_t>(board) * 64 + lane;
+  u64 lo = in[at], hi = in[at + 32];
+  const u64 p_lo = placed[at], p_hi = placed[at + 32];
+  const u64 z_lo = placed_zoi[at], z_hi = placed_zoi[at + 32];
+  u64 acc = 0;
+  const u64* base = base_traj + lane;
+  for (int t = 0; t < T; ++t, base += 64) {
+    life_step(lo, hi, lane);
+    acc |= ((lo ^ (__ldg(base) | p_lo)) & z_lo) |
+           ((hi ^ (__ldg(base + 32) | p_hi)) & z_hi);
+  }
+  out_final[at] = lo;
+  out_final[at + 32] = hi;
+  const bool interacted = __any_sync(kFullMask, acc != 0);
+  if (lane == 0) out_interacted[board] = interacted ? 1 : 0;
+}
+
+inline dim3 grid_for(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
+
+}  // namespace
+
+// The launchers run on the caller's stream, do not synchronise, allocate
+// nothing, and return the launch's cudaError_t (0 on success).  B must be
+// positive and T non-negative.
+
+extern "C" cudaError_t life_rollout(const u64* in, u64* out, int B,
+                                    int T, cudaStream_t stream) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  rollout_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(in, out, B, T);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t life_controlled_rollout(const u64* in,
+                                               const u64* toggles,
+                                               u64* out, int B, int T,
+                                               cudaStream_t stream) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  controlled_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(in, toggles,
+                                                                   out, B, T);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t life_catalyst_rollout(const u64* in,
+                                             const u64* placed,
+                                             const u64* placed_zoi,
+                                             const u64* base_traj,
+                                             u64* out_final,
+                                             uint8_t* out_interacted, int B,
+                                             int T, cudaStream_t stream) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  catalyst_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
+      in, placed, placed_zoi, base_traj, out_final, out_interacted, B, T);
+  return cudaGetLastError();
+}

@@ -1,0 +1,159 @@
+"""Fused multi-step Life rollouts: hand-written CUDA kernels and their plain
+PyTorch twins.
+
+Counterpart of :mod:`lifeapi_tpu.ops.step_pallas`.  Each entry point takes
+boards as ``int64[B, 64]`` (one 64-bit word per column, bit y = cell y)
+and dispatches on the device: a CUDA tensor launches the kernel in
+``csrc/life_rollout.cu`` on the current stream, a CPU tensor takes the
+plain twin.  A CUDA tensor never falls back to the twin: anything the
+kernel does not take raises.
+
+``LAUNCHES`` counts kernel launches per entry point, so a run can show
+that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import board as B
+from ..core import step as S
+from . import _build
+
+LAUNCHES = {"rollout": 0, "controlled_rollout": 0, "catalyst_rollout": 0}
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check(name, t, shape, dtype=torch.int64, device=None):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"{name}: expected a tensor, got {type(t).__name__}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: expected shape {tuple(shape)}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name}: on {t.device}, the boards are on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _batch(boards):
+    if not isinstance(boards, torch.Tensor) or boards.dim() != 2:
+        raise ValueError("boards: expected int64[B, 64]")
+    b = boards.shape[0]
+    if not 0 < b < 2**31 // 64:
+        raise ValueError(f"boards: batch {b} out of range")
+    _check("boards", boards, (b, 64))
+    return b
+
+
+def _launch(fn, *args):
+    """Call a C launcher; it returns the launch's cudaError_t."""
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"{fn.__name__} failed with cudaError_t {err}")
+
+
+def _stream(device):
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+# ---------------------------------------------------------------------------
+# rollout (replaces step_pallas.rollout_eo)
+# ---------------------------------------------------------------------------
+
+
+def rollout_plain(boards, steps):
+    """T generations of every board, in plain PyTorch."""
+    return S.step_n(boards, steps)
+
+
+def rollout(boards, steps):
+    """Advance ``int64[B, 64]`` boards ``steps`` generations."""
+    b = _batch(boards)
+    steps = int(steps)
+    if not 0 <= steps < 2**31:
+        raise ValueError(f"steps {steps} out of range")
+    if not boards.is_cuda:
+        return rollout_plain(boards, steps)
+    out = torch.empty_like(boards)
+    with torch.cuda.device(boards.device):
+        _launch(_build.library().life_rollout, boards.data_ptr(),
+                out.data_ptr(), b, steps, _stream(boards.device))
+    LAUNCHES["rollout"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# controlled rollout (replaces step_pallas.controlled_rollout_eo)
+# ---------------------------------------------------------------------------
+
+
+def controlled_rollout_plain(boards, toggles):
+    """At each generation t: XOR ``toggles[t]``, then step."""
+    for tog in toggles:
+        boards = S.step(boards ^ tog)
+    return boards
+
+
+def controlled_rollout(boards, toggles):
+    """``int64[B, 64]`` boards and generation-major toggles
+    ``int64[T, B, 64]`` -> the boards after T controlled generations
+    (bit-exact with :func:`lifeapi_tpu_torch.mpc.soft.hard_rollout`)."""
+    b = _batch(boards)
+    if not isinstance(toggles, torch.Tensor) or toggles.dim() != 3:
+        raise ValueError("toggles: expected int64[T, B, 64]")
+    steps = toggles.shape[0]
+    _check("toggles", toggles, (steps, b, 64), device=boards.device)
+    if not boards.is_cuda:
+        return controlled_rollout_plain(boards, toggles)
+    out = torch.empty_like(boards)
+    with torch.cuda.device(boards.device):
+        _launch(_build.library().life_controlled_rollout, boards.data_ptr(),
+                toggles.data_ptr(), out.data_ptr(), b, steps, _stream(boards.device))
+    LAUNCHES["controlled_rollout"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# catalyst rollout (replaces step_pallas.catalyst_rollout_eo)
+# ---------------------------------------------------------------------------
+
+
+def catalyst_rollout_plain(boards, placed, placed_zoi, base_traj):
+    """Step the placed boards; after step t + 1, a board has interacted
+    once ``(board ^ (base_traj[t] | placed)) & placed_zoi`` is nonempty."""
+    interacted = torch.zeros(boards.shape[0], dtype=torch.bool,
+                             device=boards.device)
+    for base in base_traj:
+        boards = S.step(boards)
+        interacted |= ~B.is_empty((boards ^ (base | placed)) & placed_zoi)
+    return boards, interacted
+
+
+def catalyst_rollout(boards, placed, placed_zoi, base_traj):
+    """``int64[B, 64]`` boards, placed catalysts and their ZOIs, and the
+    baseline reaction ``int64[T, 64]`` after each of T generations ->
+    (final boards ``int64[B, 64]``, interacted ``bool[B]``)."""
+    b = _batch(boards)
+    _check("placed", placed, (b, 64), device=boards.device)
+    _check("placed_zoi", placed_zoi, (b, 64), device=boards.device)
+    if not isinstance(base_traj, torch.Tensor) or base_traj.dim() != 2:
+        raise ValueError("base_traj: expected int64[T, 64]")
+    steps = base_traj.shape[0]
+    _check("base_traj", base_traj, (steps, 64), device=boards.device)
+    if not boards.is_cuda:
+        return catalyst_rollout_plain(boards, placed, placed_zoi, base_traj)
+    final = torch.empty_like(boards)
+    interacted = torch.empty(b, dtype=torch.bool, device=boards.device)
+    with torch.cuda.device(boards.device):
+        _launch(_build.library().life_catalyst_rollout, boards.data_ptr(),
+                placed.data_ptr(), placed_zoi.data_ptr(), base_traj.data_ptr(),
+                final.data_ptr(), interacted.data_ptr(), b, steps,
+                _stream(boards.device))
+    LAUNCHES["catalyst_rollout"] += 1
+    return final, interacted

@@ -1,0 +1,39 @@
+"""The port never imports jax or the JAX package."""
+
+import pathlib
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "lifeapi_tpu_torch"
+SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+
+
+def _module(path):
+    return path[:-len(".py")].replace("/", ".").removesuffix(".__init__")
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = [_module(p) for p in SOURCES] + ["chip_smoke"]
+    code = "\n".join([
+        "import importlib, sys",
+        "sys.modules['jax'] = None",
+        "sys.modules['lifeapi_tpu'] = None",
+        f"for m in {mods!r}:",
+        "    importlib.import_module(m)",
+        "bad = [m for m in sys.modules if m.startswith(('jax.', 'lifeapi_tpu.'))]",
+        "assert not bad, bad",
+    ])
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
+def test_source_names_no_jax(path):
+    text = (ROOT / path).read_text()
+    for word in ("import jax", "from jax", "import lifeapi_tpu\n", "from lifeapi_tpu ",
+                 "from lifeapi_tpu.", "import lifeapi_tpu.", "torch.compile"):
+        assert word not in text, (path, word)
