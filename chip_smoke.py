@@ -15,7 +15,16 @@ Phases, each printing what it saw:
    (bit-exact), the rollout against an independent numpy B3/S23 oracle,
    the MPC demo at Hamming 0, the known catalyst hit counts, and every
    kernel launched by the main path;
-4. timings on the card (CUDA events, medians after a warm-up).
+4. the still-life solver's path ([stable]), with its own counters set to 0
+   just before: the beam completion of the bench problem (8192 problems,
+   frontier 4, 24 rounds), the queued beam over 131,072 problems, and the
+   propagate fixpoint of 4096 boards through its three entries; then each
+   of the four solver kernels against its twin (bit-exact, on the bench
+   shapes and on random, seeded and bounded instances), the known answers
+   (pop-7 eater on every problem, 49 -> 40 unknowns, a lone cell proved
+   inconsistent, bound 7 finds nothing) and every board found checked to be
+   a still life;
+5. timings on the card (CUDA events, medians after a warm-up).
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -23,6 +32,7 @@ CUDA, or when any check fails, the script exits non-zero.
 """
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -31,12 +41,24 @@ import time
 import numpy as np
 import torch
 
-SOURCE = "lifeapi_tpu_torch/csrc/life_rollout.cu"
+ROLLOUT_SOURCE = "lifeapi_tpu_torch/csrc/life_rollout.cu"
+STABLE_SOURCE = "lifeapi_tpu_torch/csrc/life_stable.cu"
 REPLACES = {
     "rollout": "lifeapi_tpu/ops/step_pallas.py:340",
     "controlled_rollout": "lifeapi_tpu/ops/step_pallas.py:160",
     "catalyst_rollout": "lifeapi_tpu/ops/step_pallas.py:243",
 }
+STABLE_REPLACES = {
+    "propagate_step": "lifeapi_tpu/ops/stable_pallas.py:441",
+    "propagate_fixpoint": "lifeapi_tpu/ops/stable_pallas.py:487",
+    "propagate_fixpoint_priorities": "lifeapi_tpu/ops/stable_pallas.py:519",
+    "beam_search": "lifeapi_tpu/ops/stable_pallas.py:906",
+}
+# the solver's bench shapes (bench.py): beam, queued beam, fixpoint
+BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
+QUEUED_CHUNKS = 16
+FIX_B = 4096
+EATER_RLE = "2b2o$bobo$bo$2o!"
 HEADLINE_B, HEADLINE_T = 8192, 512
 GLIDER = [(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)]
 EATER = [(24, 21), (24, 22), (25, 21), (25, 23), (26, 23), (27, 23), (27, 24)]
@@ -74,14 +96,135 @@ def oracle_step(g):
     return ((count == 3) | ((g == 1) & (count == 2))).astype(np.uint8)
 
 
-def max_cell_err(a, b):
-    """Largest |a - b| over the cells of two board tensors (0 or 1)."""
-    return float((oracle_dense(a.cpu().numpy()) != oracle_dense(b.cpu().numpy())).max())
+def kernel_label(mangled):
+    """``beam_kernel<256>`` from an entry function's mangled name (an
+    identifier is mangled as its length, then its letters)."""
+    for m in re.finditer(r"\d+", mangled):
+        digits, rest = m.group(), mangled[m.end():]
+        for i in range(len(digits)):
+            n = int(digits[i:])
+            if n <= len(rest) and rest[:n].endswith("_kernel"):
+                arg = re.match(r"IL[ib](\d+)E", rest[n:])
+                return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+    return mangled
+
+
+def ptxas_report(log):
+    """(kernel, registers, spill bytes) per entry function in nvcc's
+    ``-Xptxas -v`` output."""
+    rows, name, spill = [], None, 0
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = kernel_label(line.split("'")[1])
+        elif "spill stores" in line:
+            spill = int(line.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in line and "registers" in line and name:
+            rows.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
+            name = None
+    return rows
+
+
+def max_err(got, want):
+    """Largest |got - want|: over the cells for int64 boards (0 or 1), over
+    the values otherwise."""
+    if got.dtype == torch.int64 and got.shape[-1:] == (64,):
+        return float((got != want).any())
+    return float((got.double() - want.double()).abs().max()) if got.numel() else 0.0
+
+
+# ---------------------------------------------------------------------------
+# Still-life solver inputs (numpy-seeded, as tests/test_stable_pallas.py)
+# ---------------------------------------------------------------------------
+
+
+def block_instances(n, seed, n_blocks, lo, hi, p_hide, ring2):
+    """n partial still lifes made of 2x2 blocks, some cells hidden, with
+    the 1- or 2-ring around them unknown; dense numpy (state, unknown)."""
+    from lifeapi_tpu_torch.stable import host as H
+
+    rng = np.random.default_rng(seed)
+    states, unknowns = [], []
+    for _ in range(n):
+        truth = np.zeros((64, 64), bool)
+        for _ in range(n_blocks):
+            x, y = rng.integers(lo, hi, 2)
+            truth[x:x + 2, y:y + 2] = True
+        hide = (rng.random((64, 64)) < p_hide) & H.zoi(truth)
+        ring = H.zoi(H.zoi(truth)) if ring2 else H.zoi(truth)
+        states.append(truth & ~hide)
+        unknowns.append(hide | (ring & ~truth))
+    return np.stack(states), np.stack(unknowns)
+
+
+def planes_of(states, unknowns, dev):
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.stable import bitplane as BP
+
+    bst = BP.make(state=B.from_dense(torch.from_numpy(states)).to(dev),
+                  unknown=B.from_dense(torch.from_numpy(unknowns)).to(dev))
+    return BP.to_planes(bst).contiguous()
+
+
+def eater_problem(dev, hide_cells=((20, 20), (21, 20)), ring2=False):
+    """The solver bench's problem: the eater at (20, 20) with the given
+    cells hidden and its 1- or 2-ring unknown -> (known ON, unknown)."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+
+    eater = B.move(rle.parse(EATER_RLE, device=dev), 20, 20)
+    hide = B.from_cells(list(hide_cells), device=dev)
+    ring = B.zoi(B.zoi(eater)) if ring2 else B.zoi(eater)
+    return eater & ~hide, (ring & ~eater) | hide
+
+
+def kernel_vs_plain(name, args, kwargs, err):
+    """Run a solver kernel and its twin on the same card inputs; fail
+    unless they agree bit for bit.  Returns the kernel's outputs."""
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+
+    got = getattr(SC, name)(*args, **kwargs)
+    want = getattr(SC, f"{name}_plain")(*args, **kwargs)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        err[name] = max(err[name], max_err(g, w))
+        check(g.dtype == w.dtype and torch.equal(g, w), f"{name} kernel != plain twin")
+    return got
+
+
+def check_still_lifes(res, known, unknown, what):
+    """Every found board is a still life (one generation leaves it as it
+    is), keeps the known ON cells and lies inside known | unknown."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.ops import step_cuda
+
+    f = res.found
+    best = res.best[f].contiguous()
+    if best.shape[0]:
+        check(torch.equal(step_cuda.rollout(best, 1), best), f"{what}: a found board is not a still life")
+    check(bool(B.is_empty(known.expand_as(res.best)[f] & ~best).all()),
+          f"{what}: a found board lost a known ON cell")
+    check(bool(B.is_empty(best & ~(known | unknown).expand_as(res.best)[f]).all()),
+          f"{what}: a found board sets a cell that was known OFF")
 
 
 # ---------------------------------------------------------------------------
 # Timing
 # ---------------------------------------------------------------------------
+
+
+def profiled_device_ms(fn, kernel, n=20):
+    """Mean device milliseconds per call of fn spent in kernels whose name
+    contains ``kernel`` ("" for every kernel), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
+    return total_us / n / 1e3
 
 
 def paired_ms(kernel_fn, plain_fn, reps):
@@ -100,6 +243,202 @@ def paired_ms(kernel_fn, plain_fn, reps):
             end.synchronize()
             times[fn].append(start.elapsed_time(end))
     return statistics.median(times[kernel_fn]), statistics.median(times[plain_fn])
+
+
+# ---------------------------------------------------------------------------
+# The still-life solver's path
+# ---------------------------------------------------------------------------
+
+
+def stable_phase(dev):
+    """Drive the solver's path with its counters set to 0 just before,
+    then check every solver kernel against its twin and the known answers.
+    Returns (launches, errors, the inputs the timings reuse)."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import complete as C
+
+    known, unknown = eater_problem(dev)
+    beam_bst = BP.make(state=known.expand(BEAM_B, 64), unknown=unknown.expand(BEAM_B, 64))
+    # the queue: the bench problem at every torus offset in turn
+    n_queued = QUEUED_CHUNKS * BEAM_B
+    shift = torch.arange(n_queued, device=dev)
+    q_known = B.move_dyn(known, shift % 64, (shift // 64) % 64)
+    q_unknown = B.move_dyn(unknown, shift % 64, (shift // 64) % 64)
+    queue_bst = BP.make(state=q_known, unknown=q_unknown)
+    fix_known, fix_unknown = eater_problem(dev, hide_cells=(), ring2=True)
+    fix_bst = BP.make(state=fix_known.expand(FIX_B, 64), unknown=fix_unknown.expand(FIX_B, 64))
+
+    torch.cuda.synchronize()
+    SC.reset_launches()
+    t0 = time.perf_counter()
+    beam = C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
+                                  minimise=True, dense=False)
+    queued = C.complete_stable_beam_queued(queue_bst, chunk=BEAM_B, frontier=BEAM_F,
+                                           iters=BEAM_ITERS)
+    fix = SC.propagate_fused_inkernel(fix_bst)
+    fix_loop = SC.propagate_fused(fix_bst)
+    fix_prio, levels = SC.propagate_fused_beam(fix_bst)
+    torch.cuda.synchronize()
+    launches = dict(SC.LAUNCHES)
+    print(f"[stable] solver path ran in {time.perf_counter() - t0:.2f} s; launches {launches}")
+    check(all(launches[name] > 0 for name in STABLE_REPLACES),
+          f"a solver kernel was never launched: {launches}")
+    err = dict.fromkeys(STABLE_REPLACES, 0.0)
+
+    # known answers of the path
+    check(bool(beam.found.all()) and bool((beam.best_pop == 7).all()),
+          "bench beam: not every problem found the pop-7 eater")
+    check(not beam.proved_inconsistent.any(), "bench beam: a problem proved inconsistent")
+    check_still_lifes(beam, known, unknown, "bench beam")
+    check(bool(queued.found.all()) and bool((queued.best_pop == 7).all()),
+          "queued beam: not every problem found a pop-7 completion")
+    beam_kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
+    for k in (0, QUEUED_CHUNKS // 2, QUEUED_CHUNKS - 1):
+        part = slice(k * BEAM_B, (k + 1) * BEAM_B)
+        chunk = BP.BitStable(queue_bst.state[part], queue_bst.unknown[part],
+                             tuple(r[part] for r in queue_bst.ruled))
+        ref = C.complete_stable_beam(chunk, frontier=BEAM_F, iters=BEAM_ITERS,
+                                     return_boards=False)
+        _, p_pop, p_found, p_complete, p_exhausted = SC.beam_search_plain(
+            BP.to_planes(chunk).contiguous(), **beam_kw)
+        plain = dict(found=p_found, best_pop=p_pop,
+                     proved_inconsistent=p_exhausted & p_complete & ~p_found)
+        for key in ("found", "best_pop", "proved_inconsistent"):
+            got = getattr(queued, key)[part]
+            check(torch.equal(got, getattr(ref, key)),
+                  f"queued beam {key} != the per-chunk call on chunk {k}")
+            err["beam_search"] = max(err["beam_search"], max_err(got, plain[key]))
+            check(torch.equal(got, plain[key]),
+                  f"queued beam {key} != the plain twin on chunk {k}")
+    check(bool(fix.consistent.all()), "fixpoint: a bench board came back inconsistent")
+    unk_before = int(B.population(fix_unknown))
+    unk_after = B.population(fix.stable.unknown)
+    check(unk_before == 49 and bool((unk_after == 40).all()),
+          f"fixpoint: unknowns {unk_before} -> {unk_after.unique().tolist()}, not 49 -> 40")
+    for other in (fix_loop, fix_prio):
+        check(torch.equal(BP.to_planes(other.stable), BP.to_planes(fix.stable))
+              and torch.equal(other.consistent, fix.consistent),
+              "the three fixpoint entries disagree")
+    print(f"[stable] bench beam B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}: found "
+          f"{int(beam.found.sum())}/{BEAM_B}, best_pop {beam.best_pop.unique().tolist()}, "
+          f"every board a still life; queued {n_queued}: found {int(queued.found.sum())}, "
+          f"== per-chunk calls on 3 chunks; fixpoint B={FIX_B}: unknowns "
+          f"{unk_before} -> {unk_after.unique().tolist()}, consistent")
+
+    # every kernel against its twin, first at the shapes of the path
+    fix_planes = BP.to_planes(fix_bst).contiguous()
+    for name in ("propagate_step", "propagate_fixpoint", "propagate_fixpoint_priorities"):
+        kernel_vs_plain(name, (fix_planes,), {}, err)
+    bench_planes = BP.to_planes(beam_bst).contiguous()
+    kernel_vs_plain("beam_search", (bench_planes,), beam_kw, err)
+    rand = planes_of(*block_instances(1024, 0, 5, 4, 56, 0.3, ring2=True), dev)
+    _, _, abort = kernel_vs_plain("propagate_step", (rand,), {}, err)
+    _, consistent, _, _ = kernel_vs_plain("propagate_fixpoint_priorities", (rand,), {}, err)
+    kernel_vs_plain("propagate_fixpoint", (rand,), {}, err)
+    n_abort = int((~B.is_empty(abort)).sum())
+    n_incons = int((~consistent).sum())
+    check(n_abort > 0 and n_incons > 0, "the random instances gave no inconsistent board")
+    beam_rand = planes_of(*block_instances(1024, 2, 3, 8, 52, 0.35, ring2=False), dev)
+    for minimise in (True, False):
+        kernel_vs_plain("beam_search", (beam_rand,),
+                        dict(frontier=8, iters=12, minimise=minimise), err)
+    s_known, s_unknown = eater_problem(dev, hide_cells=((20, 20), (21, 20), (22, 21)),
+                                       ring2=True)
+    seeded = BP.to_planes(BP.make(state=s_known.expand(64, 64),
+                                  unknown=s_unknown.expand(64, 64))).contiguous()
+    kernel_vs_plain("beam_search", (seeded,),
+                    dict(beam_kw, seed=s_known.expand(64, 64).contiguous()), err)
+    bounded = bench_planes[:64]
+    for bound in (7, 8):
+        b = torch.full((bounded.shape[0],), bound, dtype=torch.int32, device=dev)
+        _, best_pop, found, _, _ = kernel_vs_plain(
+            "beam_search", (bounded,), dict(beam_kw, bound=b), err)
+        check(bool(found.all()) is (bound == 8) and bool(found.any()) is (bound == 8)
+              and bool((best_pop == 7).all()), f"init_bound {bound}: wrong answer")
+    lone = BP.make(state=B.from_cells([(40, 40)], batch=(2,), device=dev))
+    lone_res = C.complete_stable_beam(lone, frontier=8, iters=16, minimise=False)
+    check(bool(lone_res.proved_inconsistent.all()), "a lone ON cell was not proved inconsistent")
+    print(f"[stable] kernels == plain twins: step, fixpoint and priorities on the "
+          f"{FIX_B} fixpoint boards and on 1024 random instances ({n_abort} abort "
+          f"their first step, {n_incons} inconsistent); beam on all {BEAM_B} bench "
+          f"problems, the queued results on 3 chunks of {BEAM_B}, 1024 random "
+          f"instances at F=8 (both minimise values), seeded and bounded (7: nothing "
+          f"found, 8: pop 7) at B=64; lone cell proved inconsistent")
+    print(f"[counters] {launches}")
+    return launches, err, (beam_bst, queue_bst, fix_bst)
+
+
+def stable_timings(inputs, ms, plain_ms, card):
+    """Kernel against twin at the bench shapes, in turns, and the solver's
+    end-to-end rates."""
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import complete as C
+
+    beam_bst, queue_bst, fix_bst = inputs
+    fix_planes = BP.to_planes(fix_bst).contiguous()
+    beam_planes = BP.to_planes(beam_bst).contiguous()
+    for name, reps in (("propagate_step", 10), ("propagate_fixpoint", 5),
+                       ("propagate_fixpoint_priorities", 5)):
+        ms[name], plain_ms[name] = paired_ms(
+            lambda: getattr(SC, name)(fix_planes),
+            lambda: getattr(SC, f"{name}_plain")(fix_planes), reps=reps)
+    kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
+    ms["beam_search"], plain_ms["beam_search"] = paired_ms(
+        lambda: SC.beam_search(beam_planes, **kw),
+        lambda: SC.beam_search_plain(beam_planes, **kw), reps=2)
+    device_ms = {
+        "propagate_step": profiled_device_ms(lambda: SC.propagate_step(fix_planes), "step_kernel"),
+        "propagate_fixpoint": profiled_device_ms(lambda: SC.propagate_fixpoint(fix_planes),
+                                                 "fixpoint_kernel"),
+        "propagate_fixpoint_priorities": profiled_device_ms(
+            lambda: SC.propagate_fixpoint_priorities(fix_planes), "fixpoint_kernel"),
+        "beam_search": profiled_device_ms(lambda: SC.beam_search(beam_planes, **kw),
+                                          "beam_kernel"),
+    }
+    print(f"[time] card: {card}")
+    for name, shape in (("propagate_step", f"B={FIX_B}"), ("propagate_fixpoint", f"B={FIX_B}"),
+                        ("propagate_fixpoint_priorities", f"B={FIX_B}"),
+                        ("beam_search", f"B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}")):
+        print(f"[time] {name} {shape}: kernel {ms[name]:.4f} ms a call "
+              f"({device_ms[name]:.4f} ms of it on the device, profiler), "
+              f"plain {plain_ms[name]:.4f} ms")
+
+    def wall(fn, n):
+        samples = []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            samples.append(time.perf_counter() - t0)
+        return statistics.median(samples)
+
+    beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
+                                               dense=False)
+    beam_s = wall(beam_call, 5)
+    busy = profiled_device_ms(beam_call, "", n=5) / (wall(beam_call, 5) * 1e3)
+    queued_s = wall(lambda: C.complete_stable_beam_queued(
+        queue_bst, chunk=BEAM_B, frontier=BEAM_F, iters=BEAM_ITERS), 3)
+    n_queued = queue_bst.state.shape[0]
+    chunks = [BP.BitStable(queue_bst.state[lo:lo + BEAM_B], queue_bst.unknown[lo:lo + BEAM_B],
+                           tuple(r[lo:lo + BEAM_B] for r in queue_bst.ruled))
+              for lo in range(0, n_queued, BEAM_B)]
+    chunked_s = wall(lambda: [C.complete_stable_beam(c, frontier=BEAM_F, iters=BEAM_ITERS,
+                                                     return_boards=False)
+                              for c in chunks], 3)
+    fix_s = wall(lambda: SC.propagate_fused_inkernel(fix_bst), 10)
+    print(f"[time] complete_stable_beam end to end, {BEAM_B} problems: median "
+          f"{beam_s * 1e3:.3f} ms ({BEAM_B / beam_s:.6g} solves/s) over 5; the device "
+          f"is busy {busy:.1%} of a call (profiler)")
+    print(f"[time] complete_stable_beam_queued end to end, {n_queued} problems: median "
+          f"{queued_s * 1e3:.3f} ms ({n_queued / queued_s:.6g} solves/s) over 3; "
+          f"{len(chunks)} complete_stable_beam calls of {BEAM_B} on the same problems: "
+          f"median {chunked_s * 1e3:.3f} ms ({n_queued / chunked_s:.6g} solves/s) over 3")
+    print(f"[time] propagate_fused_inkernel end to end, {FIX_B} boards: median "
+          f"{fix_s * 1e3:.4f} ms ({FIX_B / fix_s:.6g} fixpoints/s) over 10")
 
 
 def main():
@@ -126,9 +465,8 @@ def main():
     lib_path = _build.library_path()
     _build.library()
     print(f"[env] built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
-    for line in lib_path.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"[env] ptxas: {line.strip()}")
+    for name, regs, spill in ptxas_report(lib_path.with_suffix(".log").read_text()):
+        print(f"[env] ptxas: {name}: {regs} registers, {spill} bytes spill stores")
 
     # -- inputs of the main path ----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -177,7 +515,7 @@ def main():
 
     # -- 3a. rollout ----------------------------------------------------------
     plain = step_cuda.rollout_plain(boards, HEADLINE_T)
-    err["rollout"] = max_cell_err(rolled, plain)
+    err["rollout"] = max_err(rolled, plain)
     check(torch.equal(rolled, plain), "rollout kernel != plain twin")
     g = oracle_dense(boards[:64].cpu().numpy())
     for _ in range(HEADLINE_T):
@@ -186,7 +524,7 @@ def main():
           "rollout kernel != numpy oracle")
     ragged = B.random(gen, (1000,), device=dev)
     got, want = step_cuda.rollout(ragged, 37), step_cuda.rollout_plain(ragged, 37)
-    err["rollout"] = max(err["rollout"], max_cell_err(got, want))
+    err["rollout"] = max(err["rollout"], max_err(got, want))
     check(torch.equal(got, want), "ragged rollout kernel != plain twin")
     print(f"[rollout] B={HEADLINE_B} T={HEADLINE_T}: kernel == plain on all "
           f"boards, == numpy oracle on 64; ragged B=1000 T=37 kernel == plain")
@@ -203,7 +541,7 @@ def main():
     finals_p = step_cuda.controlled_rollout_plain(starts, toggles)
     costs_k = solver.hard_cost(finals_k, toggles, bench)
     costs_p = solver.hard_cost(finals_p, toggles, bench)
-    err["controlled_rollout"] = max_cell_err(finals_k, finals_p)
+    err["controlled_rollout"] = max_err(finals_k, finals_p)
     check(torch.equal(finals_k, finals_p), "controlled kernel != plain twin")
     check(torch.equal(costs_k, costs_p), "MPC hard costs: kernel != plain twin")
     check(torch.equal(costs_k, bench_sol.all_costs), "MPC rescoring is not reproducible")
@@ -218,7 +556,7 @@ def main():
     inputs = search.rollout_inputs(glider, eater, full_grid, 64)
     final_k, inter_k = step_cuda.catalyst_rollout(*inputs)
     final_p, inter_p = step_cuda.catalyst_rollout_plain(*inputs)
-    err["catalyst_rollout"] = max(max_cell_err(final_k, final_p),
+    err["catalyst_rollout"] = max(max_err(final_k, final_p),
                                   float((inter_k != inter_p).any()))
     check(torch.equal(final_k, final_p) and torch.equal(inter_k, inter_p),
           "catalyst kernel != plain twin on the card")
@@ -232,7 +570,10 @@ def main():
     check(example_hits == 13, "example grid did not give 13 hits")
     print(f"[counters] {launches}")
 
-    # -- 4. timings ---------------------------------------------------------------
+    # -- 4. the still-life solver ------------------------------------------------
+    stable_launches, stable_err, stable_inputs = stable_phase(dev)
+
+    # -- 5. timings ---------------------------------------------------------------
     ms, plain_ms = {}, {}
     ms["rollout"], plain_ms["rollout"] = paired_ms(
         lambda: step_cuda.rollout(boards, HEADLINE_T),
@@ -274,13 +615,17 @@ def main():
         solve_s.append(time.perf_counter() - t0)
     print(f"[time] MPC bench config (64 candidates, horizon 32, 100 iterations): "
           f"median {statistics.median(solve_s):.3f} s per solve over {len(solve_s)}")
+    stable_timings(stable_inputs, ms, plain_ms, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [
-        {"name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-         "launches": launches[name], "max_abs_err": err[name],
+        {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
+         "launches": counts[name], "max_abs_err": errors[name],
          "ms": ms[name], "plain_ms": plain_ms[name]}
-        for name in REPLACES
+        for source, replaces, counts, errors in (
+            (ROLLOUT_SOURCE, REPLACES, launches, err),
+            (STABLE_SOURCE, STABLE_REPLACES, stable_launches, stable_err))
+        for name in replaces
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

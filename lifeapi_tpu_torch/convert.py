@@ -1,8 +1,8 @@
 """Carry state between :mod:`lifeapi_tpu` and this port, through numpy.
 
 The system has no learned weights: what crosses over is boards, targets,
-control masks and MPC problems, and what comes back for comparison is
-boards and results.  Every function here takes numpy arrays, or objects
+control masks, MPC problems and partial still lifes, and what comes back
+for comparison is boards and results.  Every function here takes numpy arrays, or objects
 whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
 of JAX arrays), so this module never imports jax.
 
@@ -19,6 +19,8 @@ import torch
 
 from .mpc.cost import CostWeights
 from .mpc.solver import MPCProblem
+from .stable.bitplane import BitStable
+from .stable.propagate import Stable
 from .target import LifeTarget
 
 
@@ -92,4 +94,44 @@ def placement_to_numpy(result):
         "recovered": result.recovered.cpu().numpy(),
         "reaction_changed": result.reaction_changed.cpu().numpy(),
         "final": board_to_packed(result.final),
+    }
+
+
+def bitstable_from_jax(bst, device=None):
+    """A JAX ``BitStable`` (packed ``uint32[..., 64, 2]`` state, unknown and
+    8 ruled planes) -> the port's :class:`~lifeapi_tpu_torch.stable.bitplane.
+    BitStable` of ``int64[..., 64]`` planes."""
+    return BitStable(board_from_packed(bst.state, device),
+                     board_from_packed(bst.unknown, device),
+                     tuple(board_from_packed(r, device) for r in bst.ruled))
+
+
+def bitstable_to_jax(bst):
+    """Port ``BitStable`` -> ``(state, unknown, ruled)`` packed numpy planes;
+    ``lifeapi_tpu.stable.bitplane.BitStable(*out)`` rebuilds the JAX one."""
+    return (board_to_packed(bst.state), board_to_packed(bst.unknown),
+            tuple(board_to_packed(r) for r in bst.ruled))
+
+
+def stable_from_jax(st, device=None):
+    """A JAX dense ``Stable`` (bool state and unknown, uint8 ruled, all
+    ``[..., 64, 64]`` indexed ``[x, y]``) -> the port's
+    :class:`~lifeapi_tpu_torch.stable.propagate.Stable`."""
+    return Stable(dense_mask(st.state, device), dense_mask(st.unknown, device),
+                  torch.from_numpy(np.array(st.ruled, dtype=np.uint8)).to(device))
+
+
+def beam_result_to_numpy(result):
+    """Port ``BeamResult`` -> dict of numpy arrays in the JAX layouts:
+    ``best`` stays dense ``bool[B, 64, 64]`` or becomes packed
+    ``uint32[B, 64, 2]`` (from ``dense=False``), or None."""
+    best = result.best
+    if best is not None:
+        best = (best.cpu().numpy() if best.dtype == torch.bool
+                else board_to_packed(best))
+    return {
+        "found": result.found.cpu().numpy(),
+        "best": best,
+        "best_pop": result.best_pop.cpu().numpy(),
+        "proved_inconsistent": result.proved_inconsistent.cpu().numpy(),
     }

@@ -17,7 +17,8 @@
 //    the TPU's even/odd interleave (lifeapi_tpu/core/bitops.py
 //    interleave_split) only saved 32-bit funnel shifts and is not used.
 //  * Horizontal neighbours come from __shfl_sync of the vertical 3-sums; at
-//    the warp's ends (lanes 0 and 31) the torus wrap swaps the two registers.
+//    the warp's ends (lanes 0 and 31) the torus wrap swaps the two registers
+//    (warp_board.cuh).
 //  * Bound: integer-ALU and shuffle issue per board-step (about 50 64-bit
 //    logic ops and 8 64-bit shuffles per lane per generation); the board
 //    never leaves registers, so bytes are not the limit for T >> 1.
@@ -25,43 +26,18 @@
 //    warp whose board index is past B leaves at once, as a whole, so every
 //    shuffle in the warps that remain has all 32 lanes.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-// unsigned long long, not uint64_t (unsigned long here): it is the type the
-// __shfl_sync and __ldg overloads are declared for.
-using u64 = unsigned long long;
+#include "warp_board.cuh"
 
 namespace {
 
-constexpr unsigned kFullMask = 0xffffffffu;
+using warp_board::from_left;
+using warp_board::from_right;
+using warp_board::kFullMask;
+using warp_board::rotl1;
+using warp_board::rotr1;
+
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
-
-__device__ __forceinline__ u64 rotl1(u64 x) { return (x << 1) | (x >> 63); }
-__device__ __forceinline__ u64 rotr1(u64 x) { return (x >> 1) | (x << 63); }
-
-// Column x - 1 of the lane's columns (l, l + 32).  Lane 0 wraps: column 0
-// takes column 63 (lane 31's hi) and column 32 takes column 31 (lane 31's lo).
-__device__ __forceinline__ void from_left(u64 lo, u64 hi, int lane,
-                                          u64& out_lo, u64& out_hi) {
-  const int src = (lane + 31) & 31;
-  const u64 a = __shfl_sync(kFullMask, lo, src);
-  const u64 b = __shfl_sync(kFullMask, hi, src);
-  out_lo = lane == 0 ? b : a;
-  out_hi = lane == 0 ? a : b;
-}
-
-// Column x + 1.  Lane 31 wraps: column 31 takes column 32 (lane 0's hi) and
-// column 63 takes column 0 (lane 0's lo).
-__device__ __forceinline__ void from_right(u64 lo, u64 hi, int lane,
-                                           u64& out_lo, u64& out_hi) {
-  const int src = (lane + 1) & 31;
-  const u64 a = __shfl_sync(kFullMask, lo, src);
-  const u64 b = __shfl_sync(kFullMask, hi, src);
-  out_lo = lane == 31 ? b : a;
-  out_hi = lane == 31 ? a : b;
-}
 
 // Rokicki's next-state formula (reference LifeAPI.hpp:837-848) for one
 // column a: (s0, s1) is the sum of its two vertical neighbours, (u0, u1) and

@@ -1,0 +1,49 @@
+// One 64x64 torus board per warp: the column helpers shared by the port's
+// kernels (life_rollout.cu, life_stable.cu).
+//
+// Layout: a board is 64 words of 64 bits, one per column x, bit y = cell
+// (x, y) (the reference's LifeState layout).  Lane l of the warp holds
+// columns l and l + 32 ("lo" and "hi") in two registers.  Vertical
+// neighbours are native 64-bit rotates of a lane's own words; horizontal
+// neighbours are __shfl_sync of the neighbouring lane's words, with the
+// torus wrap at lanes 0 and 31 swapping the two registers.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+// unsigned long long, not uint64_t (unsigned long here): it is the type the
+// __shfl_sync and __ldg overloads are declared for.
+using u64 = unsigned long long;
+
+namespace warp_board {
+
+constexpr unsigned kFullMask = 0xffffffffu;
+
+__device__ __forceinline__ u64 rotl1(u64 x) { return (x << 1) | (x >> 63); }
+__device__ __forceinline__ u64 rotr1(u64 x) { return (x >> 1) | (x << 63); }
+
+// Column x - 1 of the lane's columns (l, l + 32).  Lane 0 wraps: column 0
+// takes column 63 (lane 31's hi) and column 32 takes column 31 (lane 31's lo).
+__device__ __forceinline__ void from_left(u64 lo, u64 hi, int lane,
+                                          u64& out_lo, u64& out_hi) {
+  const int src = (lane + 31) & 31;
+  const u64 a = __shfl_sync(kFullMask, lo, src);
+  const u64 b = __shfl_sync(kFullMask, hi, src);
+  out_lo = lane == 0 ? b : a;
+  out_hi = lane == 0 ? a : b;
+}
+
+// Column x + 1.  Lane 31 wraps: column 31 takes column 32 (lane 0's hi) and
+// column 63 takes column 0 (lane 0's lo).
+__device__ __forceinline__ void from_right(u64 lo, u64 hi, int lane,
+                                           u64& out_lo, u64& out_hi) {
+  const int src = (lane + 1) & 31;
+  const u64 a = __shfl_sync(kFullMask, lo, src);
+  const u64 b = __shfl_sync(kFullMask, hi, src);
+  out_lo = lane == 31 ? b : a;
+  out_hi = lane == 31 ? a : b;
+}
+
+}  // namespace warp_board

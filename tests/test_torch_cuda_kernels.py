@@ -1,16 +1,20 @@
-"""The port's CUDA rollout kernels against their plain PyTorch twins, on the
-card.  Every test skips without CUDA.  The file imports neither jax nor
-the JAX package, so it runs where only the port is installed:
+"""The port's CUDA kernels against their plain PyTorch twins, on the card.
+Every test skips without CUDA.  The file imports neither jax nor the JAX
+package, so it runs where only the port is installed:
 
     python -m pytest --noconftest tests/test_torch_cuda_kernels.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
 from lifeapi_tpu_torch.core import board as B
-from lifeapi_tpu_torch.ops import step_cuda
+from lifeapi_tpu_torch.core import rle
+from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
 from lifeapi_tpu_torch.search import rollout_inputs
+from lifeapi_tpu_torch.stable import bitplane as BP
+from lifeapi_tpu_torch.stable import host as H
 
 pytestmark = pytest.mark.cuda
 
@@ -72,3 +76,111 @@ def test_kernel_rejects_bad_input(device, case):
                           device=device)[:, ::2]
     with pytest.raises(ValueError):
         kernel(strided, *args[1:])
+
+
+# ---------------------------------------------------------------------------
+# Still-life kernels (csrc/life_stable.cu) against their twins
+# ---------------------------------------------------------------------------
+
+def _block_instances(rng, b, p_hide):
+    """Partial still lifes: 2x2 blocks with cells hidden and a 2-ring of
+    unknowns; a high ``p_hide`` makes some of them inconsistent."""
+    states, unknowns = [], []
+    for _ in range(b):
+        truth = np.zeros((64, 64), bool)
+        for _ in range(5):
+            x, y = rng.integers(4, 56, 2)
+            truth[x:x + 2, y:y + 2] = True
+        hide = (rng.random((64, 64)) < p_hide) & H.zoi(truth)
+        states.append(truth & ~hide)
+        unknowns.append(hide | (H.zoi(H.zoi(truth)) & ~truth))
+    return _planes(np.stack(states), np.stack(unknowns))
+
+
+def _planes(states, unknowns):
+    bst = BP.make(state=B.from_dense(torch.from_numpy(states)),
+                  unknown=B.from_dense(torch.from_numpy(unknowns)))
+    return BP.to_planes(bst).contiguous()
+
+
+def _stable_inputs(device):
+    """Consistent instances, noisy boards (mostly inconsistent) and
+    instances with many hidden cells."""
+    rng = np.random.default_rng(0)
+    noise_state = rng.random((40, 64, 64)) < 0.15
+    noise_unknown = (rng.random((40, 64, 64)) < 0.25) & ~noise_state
+    planes = torch.cat([_block_instances(rng, 60, 0.3),
+                        _planes(noise_state, noise_unknown),
+                        _block_instances(rng, 60, 0.7)])
+    return planes.to(device)
+
+
+def _eater_problem(b, device):
+    eater = B.move(rle.parse("2b2o$bobo$bo$2o!"), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)])
+    unknown = (B.zoi(eater) & ~eater) | hide
+    bst = BP.make(state=(eater & ~hide).expand(b, 64), unknown=unknown.expand(b, 64))
+    return BP.to_planes(bst).contiguous().to(device), (eater & ~hide).to(device)
+
+
+def _run_pair(name, args, kwargs=None):
+    kwargs = kwargs or {}
+    kernel = getattr(stable_cuda, name)
+    plain = getattr(stable_cuda, f"{name}_plain")
+    before = stable_cuda.LAUNCHES[name]
+    got = kernel(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert stable_cuda.LAUNCHES[name] == before + 1
+    expect = plain(*args, **kwargs)
+    for g, e in zip(got, expect):
+        assert g.device == e.device and g.dtype == e.dtype
+        assert torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("name", ["propagate_step", "propagate_fixpoint",
+                                  "propagate_fixpoint_priorities"])
+def test_stable_kernel_matches_plain_twin(device, name):
+    _run_pair(name, (_stable_inputs(device),))
+
+
+def test_stable_fixpoint_some_boards_abort(device):
+    _, consistent, _ = _run_pair("propagate_fixpoint", (_stable_inputs(device),))
+    assert consistent.any() and not consistent.all()
+
+
+@pytest.mark.parametrize("frontier,iters,minimise", [(2, 10, True), (4, 24, True),
+                                                     (8, 12, True), (8, 12, False),
+                                                     (16, 6, True)])
+def test_beam_kernel_matches_plain_twin(device, frontier, iters, minimise):
+    rng = np.random.default_rng(frontier)
+    planes = torch.cat([_eater_problem(4, device)[0],
+                        _block_instances(rng, 12, 0.35).to(device)])
+    got = _run_pair("beam_search", (planes,),
+                    dict(frontier=frontier, iters=iters, minimise=minimise))
+    if frontier >= 4 and iters >= 24:
+        assert got[2][:4].all() and (got[1][:4] == 7).all()
+
+
+def test_beam_kernel_seed_and_bound(device):
+    planes, known = _eater_problem(6, device)
+    seed = known.expand(6, 64).contiguous()
+    _run_pair("beam_search", (planes,), dict(frontier=4, iters=24, minimise=True, seed=seed))
+    for bound, found in ((7, False), (8, True)):
+        b = torch.full((6,), bound, dtype=torch.int32, device=device)
+        got = _run_pair("beam_search", (planes,),
+                        dict(frontier=4, iters=24, minimise=True, bound=b))
+        assert bool(got[2].all()) is found and bool(got[2].any()) is found
+        assert (got[1] == 7).all()
+
+
+def test_stable_kernels_reject_bad_input(device):
+    planes, _ = _eater_problem(4, device)
+    with pytest.raises(TypeError):
+        stable_cuda.propagate_fixpoint(planes.to(torch.int32))
+    with pytest.raises(ValueError):
+        stable_cuda.propagate_step(planes[:, :, ::2])
+    with pytest.raises(ValueError):
+        stable_cuda.beam_search(planes, frontier=3, iters=4, minimise=True)
+    with pytest.raises(ValueError):
+        stable_cuda.beam_search(planes, frontier=32, iters=4, minimise=True)

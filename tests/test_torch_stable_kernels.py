@@ -1,0 +1,121 @@
+"""The still-life kernel entries of ``lifeapi_tpu_torch.ops.stable_cuda`` on
+CPU tensors (their plain twins) against the JAX package's Pallas kernels,
+run in interpret mode as ``tests/test_stable_pallas.py`` runs them.  Planes
+are compared on every board, inconsistent ones included; every comparison
+is exact.  The beam kernel's twin is in
+``tests/test_torch_stable_beam_kernel.py``; the CUDA kernels themselves
+are tested on the card by ``tests/test_torch_cuda_kernels.py``."""
+
+import numpy as np
+import jax.numpy as jnp
+import torch
+
+from lifeapi_tpu.core import board as jb
+from lifeapi_tpu.ops import stable_pallas as SP
+from lifeapi_tpu.stable import bitplane as JBP
+from lifeapi_tpu.stable import host as H
+from lifeapi_tpu_torch import convert
+from lifeapi_tpu_torch.ops import stable_cuda
+from lifeapi_tpu_torch.stable import bitplane as BP
+from oracle import random_dense
+
+N = 64
+
+
+def _instances(rng):
+    """8 boards: 4 partial still lifes of 2x2 blocks (hidden cells, 2-ring
+    of unknowns) and 4 noise boards, which are inconsistent."""
+    states, unknowns = [], []
+    for _ in range(4):
+        truth = np.zeros((N, N), bool)
+        for _ in range(5):
+            x, y = rng.integers(4, 56, 2)
+            truth[x:x + 2, y:y + 2] = True
+        hide = (rng.random((N, N)) < 0.3) & H.zoi(truth)
+        states.append(truth & ~hide)
+        unknowns.append(hide | (H.zoi(H.zoi(truth)) & ~truth))
+    noise = random_dense(rng, p=0.15, batch=(4,))
+    states += list(noise)
+    unknowns += list(random_dense(rng, p=0.25, batch=(4,)) & ~noise)
+    return JBP.make(state=jb.from_dense(jnp.asarray(np.stack(states))),
+                    unknown=jb.from_dense(jnp.asarray(np.stack(unknowns))))
+
+
+def _same_planes(jax_planes, planes):
+    """20 Pallas half-planes uint32[64, B] vs port planes int64[B, 10, 64]."""
+    packed = convert.board_to_packed(planes)  # [B, 10, 64, 2]
+    for i in range(BP.N_PLANES):
+        for h in range(2):
+            assert (np.asarray(jax_planes[2 * i + h]).T == packed[:, i, :, h]).all()
+
+
+def _board_any(mask_cols):
+    return np.asarray(jnp.any(mask_cols != 0, axis=0))
+
+
+def _planes(jbst):
+    return BP.to_planes(convert.bitstable_from_jax(jbst)).contiguous()
+
+
+def test_step_twin_matches_pallas_on_all_boards(rng):
+    jbst = _instances(rng)
+    new, changed, abort = SP.propagate_step_planes(SP._to_kernel_planes(jbst),
+                                                   batch_tile=8, interpret=True)
+    got, got_changed, got_abort = stable_cuda.propagate_step(_planes(jbst))
+    _same_planes(new, got)
+    assert (_board_any(changed) == (got_changed != 0).any(-1).numpy()).all()
+    assert (_board_any(abort) == (got_abort != 0).any(-1).numpy()).all()
+    assert _board_any(abort).any() and not _board_any(abort).all()
+    # the cell-level masks: Pallas ORs the two 32-bit halves of a column
+    lo_hi = convert.board_to_packed(got_changed)
+    assert (np.asarray(changed).T == lo_hi[..., 0] | lo_hi[..., 1]).all()
+
+
+def test_fixpoint_twin_matches_pallas_on_all_boards(rng):
+    jbst = _instances(rng)
+    expect = SP.propagate_fused_inkernel(jbst, batch_tile=8, interpret=True)
+    res = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst))
+    _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
+    assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
+    assert (np.asarray(expect.changed) == res.changed.numpy()).all()
+    assert res.consistent.any() and not res.consistent.all()
+
+
+def test_fixpoint_priorities_twin_matches_pallas_on_all_boards(rng):
+    jbst = _instances(rng)
+    out, changed, consistent, prio = SP.propagate_fused_beam_planes(
+        SP._to_kernel_planes(jbst), batch_tile=8, interpret=True)
+    got, got_consistent, got_changed, levels = stable_cuda.propagate_fixpoint_priorities(
+        _planes(jbst))
+    _same_planes(out, got)
+    assert (np.asarray(jnp.all(consistent != 0, axis=0)) == got_consistent.numpy()).all()
+    assert (_board_any(changed) == got_changed.numpy()).all()
+    packed = convert.board_to_packed(levels)  # [B, 4, 64, 2]
+    for j in range(4):
+        for h in range(2):
+            assert (np.asarray(prio[2 * j + h]).T == packed[:, j, :, h]).all()
+
+
+def test_fused_loop_matches_pallas_and_detects_contradiction(rng):
+    jbst = _instances(rng)
+    lone = jb.from_cells([(30, 30)])
+    cat = lambda a, b: jnp.concatenate([a, jnp.broadcast_to(b, (2, 64, 2))])
+    jbst = JBP.BitStable(cat(jbst.state, lone), cat(jbst.unknown, jnp.zeros_like(lone)),
+                         tuple(cat(r, jnp.zeros_like(lone)) for r in jbst.ruled))
+    expect = SP.propagate_fused(jbst, batch_tile=10, interpret=True)
+    res = stable_cuda.propagate_fused(convert.bitstable_from_jax(jbst))
+    _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
+    assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
+    assert (np.asarray(expect.changed) == res.changed.numpy()).all()
+    assert not res.consistent[-2:].any()
+    # the three fixpoint entries agree on every board
+    inkernel = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst))
+    beam_res, levels = stable_cuda.propagate_fused_beam(convert.bitstable_from_jax(jbst))
+    for other in (inkernel, beam_res):
+        assert torch.equal(BP.to_planes(other.stable), BP.to_planes(res.stable))
+        assert torch.equal(other.consistent, res.consistent)
+        assert torch.equal(other.changed, res.changed)
+    ok = res.consistent
+    expect_levels = BP.branch_levels(BP.from_planes(BP.to_planes(res.stable)[ok]))
+    for lvl, e in zip(levels, expect_levels):
+        assert torch.equal(lvl[ok], e)
