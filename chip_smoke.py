@@ -24,7 +24,17 @@ Phases, each printing what it saw:
    (pop-7 eater on every problem, 49 -> 40 unknowns, a lone cell proved
    inconsistent, bound 7 finds nothing) and every board found checked to be
    a still life;
-5. timings on the card (CUDA events, medians after a warm-up).
+5. the convolution layer's path ([conv]), with the conv and calibration
+   counters set to 0 just before: the catalyst search over the offsets
+   ``candidate_offsets`` keeps (4025; 195 interacted, 3845 recovered, 15
+   hits) and over every orientation of the eater, interaction offsets of
+   1024 7-cell pairs by the peel and by the dense counts, the convolve,
+   counts and match routes at B=4096, the 16-transform orbit sweep and the
+   calibration in both mixes; then the known answers, the routes against
+   one another (dense counts = peel at 13 planes, single-prime = dense
+   mod 193) and each kernel against its twin;
+6. timings on the card (CUDA events, medians after a warm-up), the
+   calibrated word-op ceilings, and every kernel's bound.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -54,6 +64,61 @@ STABLE_REPLACES = {
     "propagate_fixpoint_priorities": "lifeapi_tpu/ops/stable_pallas.py:519",
     "beam_search": "lifeapi_tpu/ops/stable_pallas.py:906",
 }
+CONV_SOURCE = "lifeapi_tpu_torch/csrc/life_conv.cu"
+CALIBRATE_SOURCE = "lifeapi_tpu_torch/csrc/life_calibrate.cu"
+CONV_REPLACES = {
+    "convolve_sparse_fused": "lifeapi_tpu/ops/conv_sparse_pallas.py:179",
+    "counts_sparse_fused": "lifeapi_tpu/ops/conv_sparse_pallas.py:206",
+    "conv_counts_fused": "lifeapi_tpu/ops/conv_pallas.py:334",
+    "conv_small_fused": "lifeapi_tpu/ops/conv_pallas.py:180",
+    "conv_small_packed": "lifeapi_tpu/ops/conv_pallas.py:281",
+}
+CALIBRATE_REPLACES = {"calibrate": "lifeapi_tpu/ops/calibrate_pallas.py:65"}
+# the convolution layer's bench shapes (bench.py:366-460, 571-618;
+# benches/extra.py:764-809) and the calibration's
+CONV_B, IO_B = 4096, 1024
+CALIB_ROWS, CALIB_ITERS = 16384, 2048
+# known answers of the [conv] path (the JAX package on the same inputs)
+CANDIDATES, PRUNED_COUNTS, IO_POP = 4025, (195, 3845, 15), 71
+ORIENTATION_HITS = [(0, 15), (2, 0), (13, 15), (4, 16), (15, 16), (6, 1), (8, 15), (9, 15)]
+# Bounds.  Device memory: 3.35e12 B/s (H100 SXM data sheet).  Word-ops: the
+# 64-bit integer operations a kernel needs per word (one column of one
+# board), counted by hand from its CUDA source: a logic function of up to
+# three inputs counts once (one LOP3 per half-word), as do a shift, rotate,
+# add, shuffle, select or popcount; over the calibrated ceiling of the
+# matching mix, "rolls" for kernels that shuffle and "elemwise" for those
+# that do not (the dense counts take the NTT's FLOP instead, below).
+HBM_BYTES_PER_S = 3.35e12
+# life_rollout.cu life_step: 2 rotates, 4 for the pair and 3-sums, 4 shuffles
+# + 4 selects, rokicki 8
+LIFE_STEP_OPS = 22
+CONTROLLED_OPS = LIFE_STEP_OPS + 1  # the toggle XOR
+CATALYST_OPS = LIFE_STEP_OPS + 2.5  # (board ^ (base | placed)) & zoi; OR into acc per lane
+# life_stable.cu stable_step: sync 26, two count9 46 (8 shuffles and selects
+# each), nibble sums 21, update 55, signal 53, two hollow ZOIs 18, apply 19,
+# the fixpoint's vote and copy-back 12
+STABLE_STEP_OPS = 250
+# priority: two count9 46, vulnerable 306 (four is_forced 264), three hollow
+# ZOIs 27, levels 16
+PRIORITY_OPS = 395
+# life_conv.cu peel(): ballot, shuffle of the word, clear, 2 shuffles + 2
+# selects of a, variable rotate 2, index arithmetic 1 (per word)
+PEEL_OPS = 8
+PEEL_OR_OPS, PEEL_COUNT_OPS = 1, 26  # OR into acc; ripple through 13 planes (AND, XOR)
+# The dense counts ([13]-[15]) are bounded by the work the function needs,
+# not by this kernel's bit-parallel loop: the NTT of the TPU kernels
+# (conv_pallas.py) as bf16 matmuls (residues <= 256 are exact in bf16) at the
+# card's dense bf16 tensor-core peak (H100 SXM data sheet).  One 64-point
+# transform of a board along one axis is a 64x64 @ 64x64 matmul, 2 * 64**3
+# FLOP; a prime takes 6 (two operands forward along x and y, the inverse
+# along both).  The element-wise mods and the CRT are left out.
+BF16_FLOP_PER_S = 989e12
+NTT_FLOP_PER_PRIME = 6 * 2 * 64**3
+# conv_dense_kernel's own work, printed as its algorithm bound: threads x c x
+# (variable rotate 2 + 16 x (AND, POPC, ADD)), word-ops at the elemwise
+# ceiling
+DENSE_OPS_PER_BOARD = 256 * 64 * (2 + 16 * 3)
+
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
 BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
 QUEUED_CHUNKS = 16
@@ -225,6 +290,18 @@ def profiled_device_ms(fn, kernel, n=20):
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
     return total_us / n / 1e3
+
+
+def wall(fn, n):
+    """Median host seconds of fn over n calls, each fenced by synchronize."""
+    samples = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        samples.append(time.perf_counter() - t0)
+    return statistics.median(samples)
 
 
 def paired_ms(kernel_fn, plain_fn, reps):
@@ -406,16 +483,6 @@ def stable_timings(inputs, ms, plain_ms, card):
               f"({device_ms[name]:.4f} ms of it on the device, profiler), "
               f"plain {plain_ms[name]:.4f} ms")
 
-    def wall(fn, n):
-        samples = []
-        for _ in range(n):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            samples.append(time.perf_counter() - t0)
-        return statistics.median(samples)
-
     beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
                                                dense=False)
     beam_s = wall(beam_call, 5)
@@ -439,6 +506,418 @@ def stable_timings(inputs, ms, plain_ms, card):
           f"median {chunked_s * 1e3:.3f} ms ({n_queued / chunked_s:.6g} solves/s) over 3")
     print(f"[time] propagate_fused_inkernel end to end, {FIX_B} boards: median "
           f"{fix_s * 1e3:.4f} ms ({FIX_B / fix_s:.6g} fixpoints/s) over 10")
+
+
+# ---------------------------------------------------------------------------
+# The convolution layer's path
+# ---------------------------------------------------------------------------
+
+
+class ConvInputs:
+    """The [conv] phase's inputs on the card, from numpy seeds, at the JAX
+    package's bench shapes."""
+
+    def __init__(self, dev):
+        from lifeapi_tpu_torch.core import board as B
+
+        rng = np.random.default_rng(0)
+
+        def on_card(dense):
+            return torch.from_numpy(dense).to(dev)
+
+        def sparse(n, k):  # k random cells in [20, 28)^2 per board
+            d = np.zeros((n, 64, 64), bool)
+            for i in range(n):
+                d[i, rng.integers(20, 28, k), rng.integers(20, 28, k)] = True
+            return B.from_dense(on_card(d))
+
+        def distinct(n, lo, hi):  # lo..hi-1 distinct random cells per board
+            d = np.zeros((n, 64 * 64), bool)
+            for i in range(n):
+                d[i, rng.choice(4096, int(rng.integers(lo, hi)), replace=False)] = True
+            return d.reshape(n, 64, 64)
+
+        self.io_a, self.io_b = sparse(IO_B, 7), sparse(IO_B, 7)
+        self.tr_a, self.tr_b = sparse(CONV_B, 7), sparse(CONV_B, 7)
+        self.p01 = B.from_dense(on_card(rng.random((CONV_B, 64, 64)) < 0.1))
+        self.pattern7 = B.from_cells([tuple(map(int, c)) for c in rng.integers(20, 28, (7, 2))],
+                                     device=dev)
+        self.dense_a = on_card(rng.random((CONV_B, 64, 64)) < 0.5)
+        self.dense_b = on_card(rng.random((CONV_B, 64, 64)) < 0.5)
+        self.a, self.b = B.from_dense(self.dense_a), B.from_dense(self.dense_b)
+        self.pattern100 = B.from_dense(on_card(distinct(1, 100, 101)[0]))
+        self.mid_b = B.from_dense(on_card(distinct(CONV_B, 49, 193)))
+        self.orbit_boards = on_card(rng.integers(-2**63, 2**63, (CONV_B, 64), dtype=np.int64))
+        self.calib = [on_card(rng.integers(-2**63, 2**63, (CALIB_ROWS, 64), dtype=np.int64))
+                      for _ in range(2)]
+
+
+def orbit_sweep(boards):
+    """All 16 transforms of every board and their fingerprints, folded into
+    one key per board (bench.py:571-618)."""
+    from lifeapi_tpu_torch.symmetry import orbits
+    from lifeapi_tpu_torch.symmetry.transforms import ALL_TRANSFORMS, transform
+
+    h = torch.zeros(boards.shape[:-1], dtype=torch.int64, device=boards.device)
+    for t in ALL_TRANSFORMS:
+        fa, fb = orbits.fingerprint(transform(boards, t))
+        h = h ^ fa ^ fb
+    return h
+
+
+def conv_vs_plain(module, name, args, kwargs, err):
+    """Run a conv or calibration kernel and its twin on the same card
+    inputs; fail unless they agree exactly.  Returns the kernel's output."""
+    got = getattr(module, name)(*args, **kwargs)
+    want = getattr(module, f"{name}_plain")(*args, **kwargs)
+    torch.cuda.synchronize()
+    if name == "calibrate":
+        got = got[0]
+    for g, w in zip(*(x if isinstance(x, list) else [x] for x in (got, want))):
+        err[name] = max(err[name], max_err(g, w))
+        check(g.dtype == w.dtype and torch.equal(g, w), f"{name} kernel != plain twin")
+    return got
+
+
+def conv_phase(dev):
+    """Drive the convolution layer's path with its counters set to 0 just
+    before: catalyst search over the pruned offsets and every orientation,
+    interaction offsets, the convolve/counts/match routes, the orbit sweep
+    and the calibration.  Then check the known answers, the routes against
+    one another and every kernel against its twin.  Returns (launches,
+    errors, inputs)."""
+    from lifeapi_tpu_torch import search
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import convolve as CV
+    from lifeapi_tpu_torch.ops import calibrate_cuda as CAL
+    from lifeapi_tpu_torch.ops import conv_cuda as CC
+    from lifeapi_tpu_torch.ops import step_cuda
+
+    x = ConvInputs(dev)
+    glider, eater = B.from_cells(GLIDER, device=dev), B.from_cells(EATER, device=dev)
+    torch.cuda.synchronize()
+    CC.reset_launches()
+    CAL.reset_launches()
+    step_cuda.reset_launches()
+    t0 = time.perf_counter()
+    offsets = search.candidate_offsets(glider, eater)
+    pruned = search.catalyst_search(glider, eater, offsets, 64)
+    oriented = search.catalyst_search_all_orientations(glider, eater, offsets, 64)
+    io_sparse = CV.interaction_offsets(x.io_a, x.io_b, method="sparse")
+    io_dense = CV.interaction_offsets(x.io_a, x.io_b, method="ntt_fused")
+    io_pair = CV.interaction_offsets(glider, eater, method="sparse")
+    conv_traced = CV.convolve(x.tr_a, x.tr_b, method="sparse")
+    conv_host = CV.convolve(x.p01, x.pattern7)
+    counts_sparse = CV.convolve_counts(x.a, x.tr_b, method="sparse")
+    counts_auto = CV.convolve_counts(x.a, x.tr_b)
+    counts_dense = CV.convolve_counts(x.a, x.b, method="ntt_fused")
+    corr = CV.correlate_counts(x.a, x.pattern100)
+    matched = CV.match_live(x.a, x.pattern100)
+    small_conv = CV.convolve(x.a, x.mid_b)
+    orbit_keys = orbit_sweep(x.orbit_boards)
+    calib = {mix: CAL.calibrate(*x.calib, CALIB_ITERS, mix)[0] for mix in CAL.MIXES}
+    torch.cuda.synchronize()
+    launches = {**CC.LAUNCHES, **CAL.LAUNCHES}
+    print(f"[conv] path ran in {time.perf_counter() - t0:.2f} s; launches {launches}, "
+          f"catalyst rollouts {step_cuda.LAUNCHES['catalyst_rollout']}")
+    check(all(launches[name] > 0 for name in (*CONV_REPLACES, *CALIBRATE_REPLACES)),
+          f"a conv or calibration kernel was never launched: {launches}")
+    err = dict.fromkeys((*CONV_REPLACES, *CALIBRATE_REPLACES), 0.0)
+
+    # known answers of the path
+    hits = int(search.successful_catalysts(pruned).sum())
+    counts = (int(pruned.interacted.sum()), int(pruned.recovered.sum()), hits)
+    per_t = [(int(t), int(search.successful_catalysts(r).sum())) for t, r in oriented]
+    print(f"[conv] candidate_offsets: {offsets.shape[0]}; catalyst search over them, horizon "
+          f"64: {counts[0]} interacted, {counts[1]} recovered, {hits} hits; hits per "
+          f"orientation {per_t}")
+    check(offsets.shape[0] == CANDIDATES, f"candidate_offsets gave {offsets.shape[0]}")
+    check(counts == PRUNED_COUNTS, f"pruned catalyst counts {counts}, not {PRUNED_COUNTS}")
+    check(per_t == ORIENTATION_HITS, f"hits per orientation {per_t}")
+    check(torch.equal(io_sparse, io_dense), "interaction_offsets: sparse != dense route")
+    check(int(B.population(io_pair)) == IO_POP
+          and torch.equal(io_pair, CV.interaction_offsets(glider, eater)),
+          "interaction_offsets(glider, eater): not the 71 offsets of every route")
+    check(torch.equal(conv_host, CV.convolve(x.p01, x.pattern7.expand(CONV_B, 64),
+                                             method="sparse")),
+          "convolve: host shift-OR != peel kernel")
+
+    # the routes against one another: two independent exact algorithms
+    exact = CC.conv_counts_fused(x.dense_a, x.dense_b)
+    check(torch.equal(exact, counts_dense), "convolve_counts ntt_fused != conv_counts_fused")
+    peeled = CC.counts_sparse_fused(x.a, x.b, n_planes=13)
+    check(torch.equal(sum(B.to_dense(p).to(torch.int32) << i for i, p in enumerate(peeled)),
+                      exact), "[13] dense counts != [12] peel at 13 planes")
+    check(int(exact.max()) > 257, "the p=0.5 counts never pass 257")
+    check(torch.equal(counts_sparse, counts_auto)
+          and torch.equal(counts_sparse, CV.convolve_counts(x.a, x.tr_b, method="ntt_fused")),
+          "convolve_counts: sparse, default and dense routes disagree")
+    check(torch.equal(CC.conv_small_fused(x.dense_a, x.dense_b, out_or=False), exact % 193)
+          and torch.equal(CC.conv_small_fused(x.dense_a, x.dense_b),
+                          (exact % 193 != 0).to(torch.int8)),
+          "[14] != [13] mod 193")
+    check(torch.equal(CC.conv_small_packed(x.a, x.b), B.from_dense(exact % 193 != 0)),
+          "[15] != ([13] mod 193) != 0")
+    mirrored = B.mirrored(x.pattern100)
+    check(torch.equal(corr, CV.convolve_counts(x.a, mirrored, method="ntt_fused")),
+          "correlate_counts (single-prime) != dense counts")
+    check(torch.equal(matched, B.from_dense(
+        CV.convolve_counts(~x.a, mirrored, method="ntt_fused") == 0)),
+          "match_live != its dense counts")
+    check(torch.equal(small_conv, CV.convolve(x.a, x.mid_b, method="ntt_fused")),
+          "convolve (packed single-prime) != dense route")
+    check(torch.equal(orbit_keys[:256].cpu(), orbit_sweep(x.orbit_boards[:256].cpu())),
+          "orbit sweep: card != CPU on 256 boards")
+    print(f"[conv] interaction_offsets B={IO_B}: sparse == dense route, glider/eater pop "
+          f"{IO_POP}; [13] == [12] at 13 planes on {CONV_B} p=0.5 pairs (max count "
+          f"{int(exact.max())}); [14] == [13] % 193, [15] == ([13] % 193) != 0; "
+          f"host shift-OR == peel; correlate/match/convolve == dense routes")
+
+    # every kernel against its twin at the path's shapes
+    conv_vs_plain(CC, "convolve_sparse_fused", (x.tr_a, x.tr_b), {}, err)
+    conv_vs_plain(CC, "convolve_sparse_fused", (x.p01, x.pattern7), {}, err)
+    conv_vs_plain(CC, "counts_sparse_fused", (x.a, x.tr_b), dict(n_planes=13), err)
+    conv_vs_plain(CC, "conv_counts_fused", (x.dense_a, x.dense_b), {}, err)
+    corr_in = (x.dense_a, B.to_dense(mirrored).expand(CONV_B, 64, 64).contiguous())
+    for out_or in (False, True):
+        conv_vs_plain(CC, "conv_small_fused", corr_in, dict(out_or=out_or), err)
+        conv_vs_plain(CC, "conv_small_fused", (x.dense_a, x.dense_b), dict(out_or=out_or), err)
+    conv_vs_plain(CC, "conv_small_packed", (x.a, x.mid_b), {}, err)
+    conv_vs_plain(CC, "conv_small_packed", (x.a, x.b), {}, err)
+    for mix in CAL.MIXES:
+        conv_vs_plain(CAL, "calibrate", (*x.calib, CALIB_ITERS), dict(mix=mix), err)
+    check(not torch.equal(calib["elemwise"], calib["rolls"]), "the two mixes agree")
+    print(f"[conv] kernels == plain twins at the path's shapes: peel on {CONV_B} 7-cell "
+          f"pairs and on the p=0.1 boards with the 7-cell pattern, counts at 13 planes, "
+          f"dense counts and both single-prime epilogues on {CONV_B} p=0.5 pairs and the "
+          f"100-cell correlation, packed on {CONV_B} pairs; calibration on all "
+          f"{CALIB_ROWS} rows, both mixes")
+    print(f"[counters] {launches}")
+    return launches, err, x
+
+
+def event_ms(fn, reps):
+    """Median CUDA-event milliseconds of fn after one warm-up call."""
+    fn()
+    samples = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        samples.append(start.elapsed_time(end))
+    return statistics.median(samples)
+
+
+def fft_counts(da, db):
+    """The library yardstick for the dense counts: float32 FFT convolution,
+    rounded (timed only; the port never calls it)."""
+    fa = torch.fft.rfft2(da.to(torch.float32))
+    fb = torch.fft.rfft2(db.to(torch.float32))
+    return torch.round(torch.fft.irfft2(fa * fb, s=(64, 64)))
+
+
+def conv_timings(x, ms, plain_ms, lib_ms, card):
+    """Each conv kernel against its twin at the path's shapes, in turns, the
+    FFT yardstick, the calibration ceilings, the path's end-to-end rates and
+    the routing probes' host cost.  Returns the ceilings (word-ops/s by
+    mix)."""
+    from lifeapi_tpu_torch import search
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import convolve as CV
+    from lifeapi_tpu_torch.ops import calibrate_cuda as CAL
+    from lifeapi_tpu_torch.ops import conv_cuda as CC
+
+    corr_in = (x.dense_a, B.to_dense(B.mirrored(x.pattern100)).expand(CONV_B, 64, 64)
+               .contiguous())
+    cases = {
+        "convolve_sparse_fused": ((x.tr_a, x.tr_b), {}, 10),
+        "counts_sparse_fused": ((x.a, x.tr_b), dict(n_planes=13), 10),
+        "conv_counts_fused": ((x.dense_a, x.dense_b), {}, 5),
+        "conv_small_fused": (corr_in, dict(out_or=False), 5),
+        "conv_small_packed": ((x.a, x.mid_b), {}, 5),
+    }
+    for name, (args, kw, reps) in cases.items():
+        ms[name], plain_ms[name] = paired_ms(
+            lambda: getattr(CC, name)(*args, **kw),
+            lambda: getattr(CC, f"{name}_plain")(*args, **kw), reps=reps)
+    kernel_names = {"convolve_sparse_fused": "conv_sparse_kernel",
+                    "counts_sparse_fused": "counts_sparse_kernel"}
+    device_ms = {name: profiled_device_ms(lambda: getattr(CC, name)(*args, **kw),
+                                          kernel_names.get(name, "conv_dense_kernel"))
+                 for name, (args, kw, _) in cases.items()}
+    lib_ms["conv_counts_fused"] = event_ms(lambda: fft_counts(x.dense_a, x.dense_b), 5)
+    lib_ms["conv_small_fused"] = event_ms(lambda: fft_counts(*corr_in), 5)
+    ceilings = {}
+    for mix in CAL.MIXES:
+        t = event_ms(lambda: CAL.calibrate(*x.calib, CALIB_ITERS, mix), 5)
+        ceilings[mix] = CAL.calibrate(*x.calib, CALIB_ITERS, mix)[1] / (t / 1e3)
+        if mix == "elemwise":
+            ms["calibrate"] = t
+            plain_ms["calibrate"] = event_ms(
+                lambda: CAL.calibrate_plain(*x.calib, CALIB_ITERS, mix), 1)
+    print(f"[time] card: {card}")
+    for name, (args, _, _) in cases.items():
+        lib = f", torch.fft yardstick {lib_ms[name]:.4f} ms" if name in lib_ms else ""
+        print(f"[time] {name} B={args[0].shape[0]}: kernel {ms[name]:.4f} ms a call "
+              f"({device_ms[name]:.4f} ms of it on the device, profiler), plain "
+              f"{plain_ms[name]:.4f} ms{lib}")
+    for mix, rate in ceilings.items():
+        print(f"[time] calibrate {mix}, {CALIB_ROWS} rows x {CALIB_ITERS} iterations: "
+              f"{rate:.6g} 64-bit word-ops/s")
+    print(f"[time] calibrate elemwise: kernel {ms['calibrate']:.4f} ms, plain "
+          f"{plain_ms['calibrate']:.4f} ms")
+
+    glider, eater = (B.from_cells(c, device=x.a.device) for c in (GLIDER, EATER))
+    offsets = search.candidate_offsets(glider, eater)
+    e2e = {
+        "candidate_offsets": (lambda: search.candidate_offsets(glider, eater), 1),
+        "catalyst_search, 4025 offsets": (
+            lambda: search.catalyst_search(glider, eater, offsets, 64), 4025),
+        "catalyst_search_all_orientations": (
+            lambda: search.catalyst_search_all_orientations(glider, eater, offsets, 64),
+            8 * 4025),
+        f"interaction_offsets sparse, {IO_B} pairs": (
+            lambda: CV.interaction_offsets(x.io_a, x.io_b, method="sparse"), IO_B),
+        f"interaction_offsets ntt_fused, {IO_B} pairs": (
+            lambda: CV.interaction_offsets(x.io_a, x.io_b, method="ntt_fused"), IO_B),
+        f"convolve sparse, {CONV_B} traced 7-cell pairs": (
+            lambda: CV.convolve(x.tr_a, x.tr_b, method="sparse"), CONV_B),
+        f"convolve host shift-OR, {CONV_B} boards x 7-cell pattern": (
+            lambda: CV.convolve(x.p01, x.pattern7), CONV_B),
+        f"match_live, {CONV_B} states x 100-cell pattern": (
+            lambda: CV.match_live(x.a, x.pattern100), CONV_B),
+        f"orbit sweep, {CONV_B} boards": (lambda: orbit_sweep(x.orbit_boards), CONV_B),
+    }
+    for what, (fn, n) in e2e.items():
+        fn()
+        t = wall(fn, 5) * 1e3
+        print(f"[time] {what} end to end: median {t:.4f} ms ({n / t * 1e3:.6g}/s) over 5")
+    probes = {
+        "_max_pop (batched)": lambda: CV._max_pop(x.tr_b),
+        "_host_cells (one board)": lambda: CV._host_cells(x.pattern7),
+        "_auto_small": lambda: CV._auto_small(x.pattern100),
+    }
+    for what, fn in probes.items():
+        print(f"[time] routing probe {what}: median {wall(fn, 20) * 1e3:.4f} ms on the host")
+    return ceilings
+
+
+def solver_work(stable_inputs):
+    """The data-dependent work of the solver kernels on the fixpoint and
+    beam inputs: (fixpoint board-steps, beam board-steps, beam priority
+    boards).  A board-step is one propagation step of one alive board.  The
+    plain twins run with their masked fixpoint split into single steps, so
+    the boards each step keeps alive can be counted; their results are
+    checked against the kernels', which do the same work."""
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.stable import bitplane as BP
+
+    beam_bst, _, fix_bst = stable_inputs
+    work = {"board_steps": 0, "priority_boards": 0}
+    fixpoint = SC._fixpoint
+
+    def counted(planes, max_iters, alive=None):
+        alive = (torch.ones(planes.shape[:-2], dtype=torch.bool, device=planes.device)
+                 if alive is None else alive)
+        if alive.dim() == 2:  # a beam round: the block ranks all F slots' priorities
+            work["priority_boards"] += alive.shape[1] * int(alive.any(dim=1).sum())
+        aborted, changed = torch.zeros_like(alive), torch.zeros_like(alive)
+        for _ in range(max_iters):
+            if not bool(alive.any()):
+                break
+            work["board_steps"] += int(alive.sum())
+            planes, ab, ch = fixpoint(planes, 1, alive)
+            aborted, changed = aborted | ab, changed | ch
+            alive = alive & ~ab & ch
+        return planes, aborted, changed
+
+    fix_planes = BP.to_planes(fix_bst).contiguous()
+    beam_planes = BP.to_planes(beam_bst).contiguous()
+    kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
+    SC._fixpoint = counted
+    try:
+        fix = SC.propagate_fixpoint_plain(fix_planes)
+        fix_steps = work["board_steps"]
+        work["board_steps"] = 0
+        beam = SC.beam_search_plain(beam_planes, **kw)
+    finally:
+        SC._fixpoint = fixpoint
+    for got, want in ((fix, SC.propagate_fixpoint(fix_planes)),
+                      (beam, SC.beam_search(beam_planes, **kw))):
+        check(all(torch.equal(g, w) for g, w in zip(got, want)),
+              "the step-counting twins != the kernels")
+    return fix_steps, work["board_steps"], work["priority_boards"]
+
+
+def kernel_bounds(ceilings, stable_inputs, x, ms):
+    """bound_ms and bound_by of every kernel at the shapes timed above: the
+    larger of its bytes (each input read once, each output written once)
+    over the memory rate and its operations over the card's rate for them:
+    word-ops over the calibrated ceiling of their mix, the dense counts'
+    NTT FLOP over the bf16 tensor-core peak.  Data-dependent work is what
+    this run's inputs need: the fixpoint steps and priorities of
+    solver_work, the cells the peel takes."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
+    from lifeapi_tpu_torch.stable import bitplane as BP
+
+    fix_steps, beam_steps, beam_prio = solver_work(stable_inputs)
+    # each board's peel ends with a round that finds its operand empty
+    peeled = int(B.population(x.tr_b).sum()) + CONV_B
+    board, words, solver = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
+    step_ops = words * STABLE_STEP_OPS
+    rates = {**ceilings, "bf16 tensor-core FLOP": BF16_FLOP_PER_S}
+    work = {  # name: (bytes, operations, the rate they run at)
+        "rollout": (2 * HEADLINE_B * board,
+                    HEADLINE_B * HEADLINE_T * words * LIFE_STEP_OPS, "rolls"),
+        "controlled_rollout": ((2 + 32) * 64 * board, 64 * 32 * words * CONTROLLED_OPS,
+                               "rolls"),
+        "catalyst_rollout": (4 * 4096 * board + 64 * board + 4096,
+                             4096 * 64 * words * CATALYST_OPS, "rolls"),
+        "propagate_step": (FIX_B * (2 * solver + 2 * board), FIX_B * step_ops, "rolls"),
+        "propagate_fixpoint": (FIX_B * (2 * solver + 2), fix_steps * step_ops, "rolls"),
+        "propagate_fixpoint_priorities": (
+            FIX_B * (2 * solver + 2 + 4 * board),
+            fix_steps * step_ops + FIX_B * words * PRIORITY_OPS, "rolls"),
+        "beam_search": (BEAM_B * (solver + board + 4 + 3),
+                        beam_steps * step_ops + beam_prio * words * PRIORITY_OPS, "rolls"),
+        "convolve_sparse_fused": (3 * CONV_B * board,
+                                  peeled * words * (PEEL_OPS + PEEL_OR_OPS), "rolls"),
+        "counts_sparse_fused": ((2 + 13) * CONV_B * board,
+                                peeled * words * (PEEL_OPS + PEEL_COUNT_OPS), "rolls"),
+        "conv_counts_fused": (CONV_B * 4096 * (1 + 1 + 4), CONV_B * 2 * NTT_FLOP_PER_PRIME,
+                              "bf16 tensor-core FLOP"),
+        "conv_small_fused": (CONV_B * 4096 * (1 + 1 + 4), CONV_B * NTT_FLOP_PER_PRIME,
+                             "bf16 tensor-core FLOP"),
+        "conv_small_packed": (3 * CONV_B * board, CONV_B * NTT_FLOP_PER_PRIME,
+                              "bf16 tensor-core FLOP"),
+        "calibrate": (3 * CALIB_ROWS * board,
+                      CALIB_ROWS * words * CALIB_ITERS * ops_per_iter("elemwise"), "elemwise"),
+    }
+    print(f"[bound] data-dependent work: fixpoint {fix_steps} board-steps over {FIX_B} "
+          f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards over "
+          f"{BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
+    bounds = {}
+    for name, (nbytes, ops, rate) in work.items():
+        ops = int(ops)
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = ops / rates[rate] * 1e3
+        bounds[name] = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
+        unit = "FLOP" if "FLOP" in rate else f"word-ops, {rate}"
+        print(f"[bound] {name}: {nbytes} bytes ({by_bytes:.4f} ms), {ops} {unit} "
+              f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
+              f"{bounds[name][1]}; the kernel's {ms[name]:.4f} ms is "
+              f"{ms[name] / bounds[name][0]:.3g}x it")
+    own = CONV_B * DENSE_OPS_PER_BOARD
+    own_ms = own / ceilings["elemwise"] * 1e3
+    print(f"[bound] algorithm bound of conv_dense_kernel (its own bit-parallel work, not "
+          f"the function's): {own} word-ops, elemwise ({own_ms:.4f} ms); "
+          + ", ".join(f"{name} {ms[name] / own_ms:.3g}x it" for name in
+                      ("conv_counts_fused", "conv_small_fused", "conv_small_packed")))
+    return bounds
 
 
 def main():
@@ -573,8 +1052,11 @@ def main():
     # -- 4. the still-life solver ------------------------------------------------
     stable_launches, stable_err, stable_inputs = stable_phase(dev)
 
-    # -- 5. timings ---------------------------------------------------------------
-    ms, plain_ms = {}, {}
+    # -- 5. the convolution layer, matching, symmetry and calibration --------------
+    conv_launches, conv_err, conv_inputs = conv_phase(dev)
+
+    # -- 6. timings ---------------------------------------------------------------
+    ms, plain_ms, lib_ms = {}, {}, {}
     ms["rollout"], plain_ms["rollout"] = paired_ms(
         lambda: step_cuda.rollout(boards, HEADLINE_T),
         lambda: step_cuda.rollout_plain(boards, HEADLINE_T), reps=5)
@@ -595,17 +1077,9 @@ def main():
           f"({4096 / plain_ms['catalyst_rollout'] * 1e3:.4g} placements/s)")
     print(f"[time] controlled rollout 64 candidates, horizon 32: kernel "
           f"{ms['controlled_rollout']:.4f} ms, plain {plain_ms['controlled_rollout']:.4f} ms")
-    search_s = []
-    for _ in range(5):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        search.catalyst_search(glider, eater, full_grid, 64)
-        torch.cuda.synchronize()
-        search_s.append(time.perf_counter() - t0)
-    search_med = statistics.median(search_s)
+    search_med = wall(lambda: search.catalyst_search(glider, eater, full_grid, 64), 5)
     print(f"[time] catalyst_search end to end, 4096 offsets, horizon 64: median "
-          f"{search_med * 1e3:.3f} ms ({4096 / search_med:.4g} placements/s) over "
-          f"{len(search_s)}")
+          f"{search_med * 1e3:.3f} ms ({4096 / search_med:.4g} placements/s) over 5")
     solve_s = []
     for seed in range(3):
         torch.cuda.synchronize()
@@ -616,15 +1090,20 @@ def main():
     print(f"[time] MPC bench config (64 candidates, horizon 32, 100 iterations): "
           f"median {statistics.median(solve_s):.3f} s per solve over {len(solve_s)}")
     stable_timings(stable_inputs, ms, plain_ms, card)
+    ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, card)
+    bounds = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [
         {"name": name, "route": "cuda", "source": source, "replaces": replaces[name],
          "launches": counts[name], "max_abs_err": errors[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "ms": ms[name], "plain_ms": plain_ms[name], "bound_ms": bounds[name][0],
+         "bound_by": bounds[name][1], "library_ms": lib_ms.get(name)}
         for source, replaces, counts, errors in (
             (ROLLOUT_SOURCE, REPLACES, launches, err),
-            (STABLE_SOURCE, STABLE_REPLACES, stable_launches, stable_err))
+            (STABLE_SOURCE, STABLE_REPLACES, stable_launches, stable_err),
+            (CONV_SOURCE, CONV_REPLACES, conv_launches, conv_err),
+            (CALIBRATE_SOURCE, CALIBRATE_REPLACES, conv_launches, conv_err))
         for name in replaces
     ]
     print(card)

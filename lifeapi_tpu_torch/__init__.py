@@ -2,15 +2,17 @@
 
 Same module names as the JAX package, so each counterpart is easy to find.
 Boards are ``torch.int64[..., 64]`` (one word per column, bit y = cell y).
-The bit-exact rollout kernels (``csrc/life_rollout.cu``) and the still-life
-solver's propagation and beam-search kernels (``csrc/life_stable.cu``) are
-hand-written CUDA for Hopper, built by ``nvcc`` at first use on a CUDA
-tensor; every kernel has a plain PyTorch twin that CPU tensors take.
+The bit-exact rollout kernels (``csrc/life_rollout.cu``), the still-life
+solver's propagation and beam-search kernels (``csrc/life_stable.cu``), the
+convolution kernels (``csrc/life_conv.cu``) and the calibration kernel
+(``csrc/life_calibrate.cu``) are hand-written CUDA for Hopper, built by
+``nvcc`` at first use on a CUDA tensor; every kernel has a plain PyTorch
+twin that CPU tensors take.
 This package never imports jax.
 """
 
-from .core import bitops, board, rle, step  # noqa: F401
+from .core import bitops, board, convolve, rle, step  # noqa: F401
 from .target import LifeTarget  # noqa: F401
-from . import convert, mpc, ops, search, stable  # noqa: F401
+from . import convert, history, mpc, ops, search, stable, symmetry  # noqa: F401
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Carry state between :mod:`lifeapi_tpu` and this port, through numpy.
 
 The system has no learned weights: what crosses over is boards, targets,
-control masks, MPC problems and partial still lifes, and what comes back
-for comparison is boards and results.  Every function here takes numpy arrays, or objects
+control masks, MPC problems, partial still lifes, LifeHistory overlays and
+symmetry enums, and what comes back for comparison is boards, counter
+planes and results.  Every function here takes numpy arrays, or objects
 whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
 of JAX arrays), so this module never imports jax.
 
@@ -17,10 +18,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .history import LifeHistory
 from .mpc.cost import CostWeights
 from .mpc.solver import MPCProblem
 from .stable.bitplane import BitStable
 from .stable.propagate import Stable
+from .symmetry.groups import StaticSymmetry
+from .symmetry.transforms import SymmetryTransform
 from .target import LifeTarget
 
 
@@ -41,6 +45,39 @@ def board_to_packed(board):
     lo = (w & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     hi = (w >> np.uint64(32)).astype(np.uint32)
     return np.stack([lo, hi], axis=-1)
+
+
+def planes_from_packed(planes, device=None):
+    """A list of JAX packed planes (e.g. the counter planes of
+    ``counts_sparse_fused``) -> a list of port boards."""
+    return [board_from_packed(p, device) for p in planes]
+
+
+def planes_to_packed(planes):
+    """A list of port boards -> a list of JAX packed planes."""
+    return [board_to_packed(p) for p in planes]
+
+
+def history_from_jax(history, device=None):
+    """A JAX ``LifeHistory`` (four packed planes) -> the port's."""
+    return LifeHistory(*(board_from_packed(p, device) for p in history))
+
+
+def history_to_jax(history):
+    """Port ``LifeHistory`` -> its four packed numpy planes;
+    ``lifeapi_tpu.history.LifeHistory(*out)`` rebuilds the JAX one."""
+    return tuple(board_to_packed(p) for p in history)
+
+
+def transform_from_jax(t):
+    """A JAX ``SymmetryTransform`` (or its int value) -> the port's: the two
+    enums have the same values."""
+    return SymmetryTransform(int(t))
+
+
+def symmetry_from_jax(sym):
+    """A JAX ``StaticSymmetry`` (or its int value) -> the port's."""
+    return StaticSymmetry(int(sym))
 
 
 def target_from_jax(target, device=None):

@@ -52,3 +52,22 @@ def popcount64(x):
     """Population count of each int64 word, as int64.  Counted on the two
     32-bit halves: both are non-negative, so no step can overflow."""
     return _popcount32(x & 0xFFFFFFFF) + _popcount32(shr64(x, 32))
+
+
+def as_int64(u):
+    """The int64 with the same 64 bits as the unsigned value ``u``."""
+    return u - (1 << 64) if u >= 1 << 63 else u
+
+
+# (shift, mask of the bits that move down) for the SWAR bit reversal
+_REVERSE_STEPS = tuple((1 << i, as_int64(m)) for i, m in enumerate((
+    0x5555555555555555, 0x3333333333333333, 0x0F0F0F0F0F0F0F0F,
+    0x00FF00FF00FF00FF, 0x0000FFFF0000FFFF, 0x00000000FFFFFFFF)))
+
+
+def reverse64(x):
+    """Bit y of each word -> bit 63 - y (``__builtin_bitreverse64``,
+    reference LifeAPI.hpp:758-762)."""
+    for s, m in _REVERSE_STEPS:
+        x = (shr64(x, s) & m) | ((x & m) << s)
+    return x

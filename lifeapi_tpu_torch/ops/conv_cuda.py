@@ -1,0 +1,244 @@
+"""Torus convolution kernels: hand-written CUDA and their plain PyTorch twins.
+
+Counterpart of :mod:`lifeapi_tpu.ops.conv_sparse_pallas` (the runtime-sparse
+peel: :func:`convolve_sparse_fused`, :func:`counts_sparse_fused`) and
+:mod:`lifeapi_tpu.ops.conv_pallas` (dense counts: :func:`conv_counts_fused`,
+:func:`conv_small_fused`, :func:`conv_small_packed`).  Boards are
+``int64[..., 64]``, dense fields ``[B, 64, 64]`` indexed ``[x, y]``.  Each
+entry dispatches on the device: a CUDA tensor launches its kernel in
+``csrc/life_conv.cu`` on the current stream, a CPU tensor takes the plain
+twin.  A CUDA tensor never falls back to the twin: anything the kernel does
+not take raises.
+
+The TPU's batch tiles, padding and interpret flags have no counterpart: the
+kernels take any batch.  The single-prime kernels compute the counts mod 193
+(``conv_pallas``'s NTT is exact in that ring), so their results here are the
+residues of the exact counts on every input, in or out of the "< 193"
+contract.
+
+``LAUNCHES`` counts kernel launches per entry point, so a run can show that
+its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..core import bitops
+from ..core import board as B
+from . import _build
+from .stable_cuda import first_cell_mask
+from .step_cuda import _launch, _stream
+
+LAUNCHES = {"convolve_sparse_fused": 0, "counts_sparse_fused": 0,
+            "conv_counts_fused": 0, "conv_small_fused": 0, "conv_small_packed": 0}
+
+MAX_PLANES = 13  # counter planes of the peel kernel: every count <= 4096 fits
+MODULUS = 193  # the prime of conv_pallas's single-prime kernels
+
+
+def reset_launches():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _check_boards(name, t):
+    if not isinstance(t, torch.Tensor) or t.dtype != torch.int64 or t.shape[-1:] != (64,):
+        raise TypeError(f"{name}: expected int64[..., 64] boards")
+
+
+def _broadcast_pair(a, b):
+    """Broadcast two boards to one shape; return (shape, a, b) with a and b
+    contiguous ``int64[n, 64]`` on one device."""
+    _check_boards("a", a)
+    _check_boards("b", b)
+    if a.device != b.device:
+        raise ValueError(f"a on {a.device}, b on {b.device}")
+    shape = torch.broadcast_shapes(a.shape, b.shape)
+    a = a.expand(shape).reshape(-1, 64).contiguous()
+    b = b.expand(shape).reshape(-1, 64).contiguous()
+    if not 0 < a.shape[0] < 2**31 // 64:
+        raise ValueError(f"batch {a.shape[0]} out of range")
+    return shape, a, b
+
+
+# ---------------------------------------------------------------------------
+# The peel (replaces conv_sparse_pallas.conv_sparse_lohi / counts_sparse_lohi)
+# ---------------------------------------------------------------------------
+
+
+def _peeled_copies(a, b):
+    """Yield, once per round, ``a`` translated by the first ON cell of
+    each board's remaining ``b`` (zero for boards already empty), peeling
+    that cell; ends when every ``b`` is empty."""
+    rem = b
+    while bool((rem != 0).any()):
+        cell = first_cell_mask(rem)
+        live = (cell != 0).any(dim=-1)
+        x = torch.argmax((cell != 0).to(torch.uint8), dim=-1)
+        y = bitops.popcount64(torch.gather(cell, -1, x[..., None])[..., 0] - 1)
+        rem = rem ^ cell
+        yield torch.where(live[..., None], B.move_dyn(a, x, y), 0)
+
+
+def convolve_sparse_fused_plain(a, b):
+    """OR of ``a`` translated by every ON cell of ``b``, peeled one cell a
+    round (``core.convolve.convolve_sparse_device`` of the JAX package)."""
+    shape, a, b = _broadcast_pair(a, b)
+    acc = torch.zeros_like(a)
+    for shifted in _peeled_copies(a, b):
+        acc |= shifted
+    return acc.reshape(shape)
+
+
+def counts_sparse_fused_plain(a, b, n_planes=6):
+    """The peel with each shifted copy ripple-added into ``n_planes``
+    bit-sliced counter planes: plane i holds bit i of each count, so the
+    planes hold the counts mod 2**n_planes."""
+    shape, a, b = _broadcast_pair(a, b)
+    planes = [torch.zeros_like(a) for _ in range(n_planes)]
+    for carry in _peeled_copies(a, b):
+        for i, p in enumerate(planes):
+            planes[i], carry = p ^ carry, p & carry
+    return [p.reshape(shape) for p in planes]
+
+
+def convolve_sparse_fused(a, b):
+    """OR-convolution with the runtime-sparse operand ``b``: ``a`` and ``b``
+    broadcastable ``int64[..., 64]`` -> ``int64[..., 64]``.  The cost is one
+    round per ON cell of each board's ``b``."""
+    shape, a, b = _broadcast_pair(a, b)
+    if not a.is_cuda:
+        return convolve_sparse_fused_plain(a, b).reshape(shape)
+    out = torch.empty_like(a)
+    with torch.cuda.device(a.device):
+        _launch(_build.library().life_conv_sparse, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), a.shape[0], _stream(a.device))
+    LAUNCHES["convolve_sparse_fused"] += 1
+    return out.reshape(shape)
+
+
+def counts_sparse_fused(a, b, n_planes=6):
+    """Convolution counts with the runtime-sparse operand ``b`` as
+    ``n_planes`` (1-13) counter planes ``int64[..., 64]``: bit i of the count
+    of cell (x, y) is cell (x, y) of plane i, so the counts are exact below
+    ``2**n_planes`` and wrap above it."""
+    n_planes = int(n_planes)
+    if not 1 <= n_planes <= MAX_PLANES:
+        raise ValueError(f"n_planes {n_planes} not in [1, {MAX_PLANES}]")
+    shape, a, b = _broadcast_pair(a, b)
+    if not a.is_cuda:
+        return [p.reshape(shape) for p in counts_sparse_fused_plain(a, b, n_planes)]
+    out = torch.empty((n_planes, *a.shape), dtype=a.dtype, device=a.device)
+    with torch.cuda.device(a.device):
+        _launch(_build.library().life_counts_sparse, a.data_ptr(), b.data_ptr(),
+                out.data_ptr(), a.shape[0], n_planes, _stream(a.device))
+    LAUNCHES["counts_sparse_fused"] += 1
+    return [p.reshape(shape) for p in out]
+
+
+# ---------------------------------------------------------------------------
+# Dense counts (replaces conv_pallas.conv_counts_fused, conv_small_fused and
+# conv_small_packed)
+# ---------------------------------------------------------------------------
+
+
+def _dense_pair(da, db):
+    """Check two dense ``[B, 64, 64]`` 0/1 fields (bool or 8-bit); return
+    them as contiguous bytes."""
+    for name, d in (("da", da), ("db", db)):
+        if not isinstance(d, torch.Tensor) or d.dtype not in (torch.bool, torch.uint8,
+                                                              torch.int8):
+            raise TypeError(f"{name}: expected a bool or 8-bit [B, 64, 64] field")
+        if d.dim() != 3 or d.shape[1:] != (64, 64):
+            raise ValueError(f"{name}: expected shape [B, 64, 64], got {tuple(d.shape)}")
+    if da.shape != db.shape or da.device != db.device:
+        raise ValueError("da and db must have one shape and one device")
+    if not 0 < da.shape[0] < 2**31:
+        raise ValueError(f"batch {da.shape[0]} out of range")
+    return da.contiguous().view(torch.uint8), db.contiguous().view(torch.uint8)
+
+
+def _packed_pair(pa, pb):
+    for name, p in (("pa", pa), ("pb", pb)):
+        if not isinstance(p, torch.Tensor) or p.dtype != torch.int64:
+            raise TypeError(f"{name}: expected int64[B, 64] boards")
+        if p.dim() != 2 or p.shape[1] != 64:
+            raise ValueError(f"{name}: expected shape [B, 64], got {tuple(p.shape)}")
+    if pa.shape != pb.shape or pa.device != pb.device:
+        raise ValueError("pa and pb must have one shape and one device")
+    if not 0 < pa.shape[0] < 2**31:
+        raise ValueError(f"batch {pa.shape[0]} out of range")
+    return pa.contiguous(), pb.contiguous()
+
+
+def packed_counts_plain(pa, pb):
+    """Exact circular-convolution counts ``int32[..., 64, 64]`` of boards
+    ``int64[..., 64]``, by the kernels' formula
+    ``count[x][y] = sum_u popcount(a[u] & rotl(rev(b[x - u]), y + 1))``."""
+    # rot[..., c, y] = rotl(rev(b[c]), y + 1)
+    k = torch.remainder(torch.arange(1, 65, device=pb.device), 64)
+    rot = bitops.rotl64(bitops.reverse64(pb)[..., :, None], k)
+    counts = torch.zeros(rot.shape, dtype=torch.int64, device=pa.device)
+    for u in range(64):
+        # torch.roll by u along c: row x holds rev(b[x - u])
+        counts += bitops.popcount64(pa[..., u, None, None] & torch.roll(rot, u, dims=-2))
+    return counts.to(torch.int32)
+
+
+def conv_counts_fused_plain(da, db):
+    return packed_counts_plain(B.from_dense(da != 0), B.from_dense(db != 0))
+
+
+def conv_small_fused_plain(da, db, out_or=True):
+    residue = conv_counts_fused_plain(da, db) % MODULUS
+    return (residue != 0).to(torch.int8) if out_or else residue
+
+
+def conv_small_packed_plain(pa, pb):
+    return B.from_dense(packed_counts_plain(pa, pb) % MODULUS != 0)
+
+
+def conv_counts_fused(da, db):
+    """Exact circular-convolution counts of dense 0/1 fields ``[B, 64, 64]``
+    (bool or 8-bit) -> ``int32[B, 64, 64]``, every count <= 4096."""
+    da, db = _dense_pair(da, db)
+    if not da.is_cuda:
+        return conv_counts_fused_plain(da, db)
+    out = torch.empty(da.shape, dtype=torch.int32, device=da.device)
+    with torch.cuda.device(da.device):
+        _launch(_build.library().life_conv_counts, da.data_ptr(), db.data_ptr(),
+                out.data_ptr(), da.shape[0], _stream(da.device))
+    LAUNCHES["conv_counts_fused"] += 1
+    return out
+
+
+def conv_small_fused(da, db, out_or=True):
+    """The counts mod 193 of dense 0/1 fields ``[B, 64, 64]``: with
+    ``out_or`` an ``int8`` mask of ``count % 193 != 0`` (the OR-convolution
+    whenever every count is below 193), else ``int32`` residues."""
+    da, db = _dense_pair(da, db)
+    out_or = bool(out_or)
+    if not da.is_cuda:
+        return conv_small_fused_plain(da, db, out_or)
+    out = torch.empty(da.shape, dtype=torch.int8 if out_or else torch.int32,
+                      device=da.device)
+    with torch.cuda.device(da.device):
+        _launch(_build.library().life_conv_small, da.data_ptr(), db.data_ptr(),
+                out.data_ptr(), da.shape[0], int(out_or), _stream(da.device))
+    LAUNCHES["conv_small_fused"] += 1
+    return out
+
+
+def conv_small_packed(pa, pb):
+    """:func:`conv_small_fused` with ``out_or`` on packed boards:
+    ``int64[B, 64]`` in and out."""
+    pa, pb = _packed_pair(pa, pb)
+    if not pa.is_cuda:
+        return conv_small_packed_plain(pa, pb)
+    out = torch.empty_like(pa)
+    with torch.cuda.device(pa.device):
+        _launch(_build.library().life_conv_small_packed, pa.data_ptr(), pb.data_ptr(),
+                out.data_ptr(), pa.shape[0], _stream(pa.device))
+    LAUNCHES["conv_small_packed"] += 1
+    return out

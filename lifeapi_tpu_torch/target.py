@@ -1,8 +1,6 @@
 """LifeTarget: a match target of wanted-ON and unwanted-OFF cells.
 
 Counterpart of :mod:`lifeapi_tpu.target` (reference LifeTarget.hpp:5-55).
-``match`` and ``transformed`` need the convolution and symmetry modules,
-which are not ported yet.
 """
 
 from __future__ import annotations
@@ -12,6 +10,8 @@ from typing import NamedTuple
 import torch
 
 from .core import board as board_mod
+from .core import convolve as convolve_mod
+from .symmetry import transforms
 
 
 class LifeTarget(NamedTuple):
@@ -30,6 +30,12 @@ class LifeTarget(NamedTuple):
             board_mod.move(self.unwanted, dx, dy),
         )
 
+    def transformed(self, transf):
+        return LifeTarget(
+            transforms.transform(self.wanted, transf),
+            transforms.transform(self.unwanted, transf),
+        )
+
 
 def contains(state, target: LifeTarget):
     """Fused containment test (reference LifeTarget.hpp:44-51)."""
@@ -43,6 +49,11 @@ def contains_moved(state, target: LifeTarget, dx, dy):
         board_mod.contains_moved(state, target.wanted, dx, dy)
         & board_mod.are_disjoint_moved(state, target.unwanted, dx, dy)
     )
+
+
+def match(state, target: LifeTarget):
+    """All offsets at which the target occurs (reference LifeTarget.hpp:53-55)."""
+    return convolve_mod.match_live_and_dead(state, target.wanted, target.unwanted)
 
 
 def hamming_cost(state, target: LifeTarget):

@@ -19,6 +19,7 @@ from lifeapi_tpu_torch.core import board as tb
 from lifeapi_tpu_torch.core import rle as trle
 from lifeapi_tpu_torch.core import step as ts
 from oracle import life_step_dense, random_dense
+from torch_threads import one_torch_thread  # noqa: F401
 
 EATER = "2b2o$bobo$bo$2o!"
 GLIDER = "bob$2bo$3o!"
@@ -102,6 +103,21 @@ UNARY = {
     "interaction_counts": (js.interaction_counts, ts.interaction_counts),
     "interaction_counts_and_next": (js.interaction_counts_and_next,
                                     ts.interaction_counts_and_next),
+    "flip_x": (jb.flip_x, tb.flip_x),
+    "flip_y": (jb.flip_y, tb.flip_y),
+    "transpose": (jb.transpose, tb.transpose),
+    "transpose_plain": (lambda b: jb.transpose(b, False), lambda b: tb.transpose(b, False)),
+    "mirrored": (jb.mirrored, tb.mirrored),
+    "moore_zoi": (jb.moore_zoi, tb.moore_zoi),
+    "big_zoi": (jb.big_zoi, tb.big_zoi),
+    "nzoi_3": (lambda b: jb.nzoi(b, 3), lambda b: tb.nzoi(b, 3)),
+    "populated_columns": (jb.populated_columns, tb.populated_columns),
+    "populated_rows": (jb.populated_rows, tb.populated_rows),
+    "xy_bounds": (jb.xy_bounds, tb.xy_bounds),
+    "width_height": (jb.width_height, tb.width_height),
+    "first_on": (jb.first_on, tb.first_on),
+    "buffer_around": (lambda b: jb.buffer_around(b, (20, 9)),
+                      lambda b: tb.buffer_around(b, (20, 9))),
 }
 
 
@@ -174,6 +190,32 @@ def test_cells_and_constructors(rng):
         _same(jb.get_cell(packed, x, y), tb.get_cell(t, x, y))
         for val in (True, False):
             _same(jb.set_cell(packed, x, y, val), tb.set_cell(t, x, y, val))
+
+
+def test_constructors_and_queries_of_the_board_layer(rng):
+    _same(jb.cell_mask(5, 63), tb.cell_mask(5, 63))
+    _same(jb.checkerboard(), tb.checkerboard())
+    _same(jb.checkerboard((2,)), tb.checkerboard((2,)))
+    for args in ((3, 60, 5, 9), (-2, -3, 70, 4), (10, 10, 0, 3)):
+        _same(jb.solid_rect(*args), tb.solid_rect(*args))
+    _same(jb.solid_rect_xy(2, 3, 7, 4), tb.solid_rect_xy(2, 3, 7, 4))
+    _same(jb.nzoi_around((1, 62), 2), tb.nzoi_around((1, 62), 2))
+    _same(jb.cell_zoi((0, 0)), tb.cell_zoi((0, 0)))
+    packed, t = _pair(rng, batch=(3,), p=0.01)
+    for i in (0, 17, 63):
+        lo, hi = jb.zoi_column(packed, i)
+        word = tb.zoi_column(t, i)
+        _same(lo, word & 0xFFFFFFFF)
+        _same(hi, (word >> 32) & 0xFFFFFFFF)
+    one, tone = _pair(rng, batch=(), p=0.02)
+    for cell in ((0, 0), (31, 40), (63, 1)):
+        assert tb.find_set_neighbour(tone, cell) == jb.find_set_neighbour(one, cell)
+    # a pattern across the seam: the wrap-aware bounds agree
+    seam = [(62, 63), (63, 0), (0, 1), (1, 1)]
+    _same(jb.xy_bounds(jb.from_cells(seam)), tb.xy_bounds(tb.from_cells(seam)))
+    _same(jb.width_height(jb.from_cells(seam)), tb.width_height(tb.from_cells(seam)))
+    _same(jb.first_on(jb.empty()), tb.first_on(tb.empty()))
+    _same(jb.buffer_around(jb.empty(), (3, 3)), tb.buffer_around(tb.empty(), (3, 3)))
 
 
 def test_random_generator_boards():

@@ -11,7 +11,7 @@ import torch
 
 from lifeapi_tpu_torch.core import board as B
 from lifeapi_tpu_torch.core import rle
-from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, stable_cuda, step_cuda
 from lifeapi_tpu_torch.search import rollout_inputs
 from lifeapi_tpu_torch.stable import bitplane as BP
 from lifeapi_tpu_torch.stable import host as H
@@ -172,6 +172,107 @@ def test_beam_kernel_seed_and_bound(device):
                         dict(frontier=4, iters=24, minimise=True, bound=b))
         assert bool(got[2].all()) is found and bool(got[2].any()) is found
         assert (got[1] == 7).all()
+
+
+# ---------------------------------------------------------------------------
+# Convolution and calibration kernels (csrc/life_conv.cu, life_calibrate.cu)
+# ---------------------------------------------------------------------------
+
+def _conv_operands(device):
+    """a: random p=0.5 boards; b: empty, sparse (1-40 cells) and dense (p=0.5)
+    operands, so counts pass both 193 and 257."""
+    rng = np.random.default_rng(3)
+    da = rng.random((300, 64, 64)) < 0.5
+    db = np.zeros((300, 64, 64), bool)
+    for i in range(1, 200):
+        k = int(rng.integers(1, 41))
+        db[i, rng.integers(0, 64, k), rng.integers(0, 64, k)] = True
+    db[200:] = rng.random((100, 64, 64)) < 0.5
+    return torch.from_numpy(da).to(device), torch.from_numpy(db).to(device)
+
+
+def _conv_pair(module, name, args, kwargs=None):
+    kwargs = kwargs or {}
+    before = module.LAUNCHES[name]
+    got = getattr(module, name)(*args, **kwargs)
+    torch.cuda.synchronize()
+    assert module.LAUNCHES[name] == before + 1
+    expect = getattr(module, f"{name}_plain")(*args, **kwargs)
+    got = got if isinstance(got, (tuple, list)) else (got,)
+    expect = expect if isinstance(expect, (tuple, list)) else (expect,)
+    assert len(got) == len(expect)
+    for g, e in zip(got, expect):
+        assert g.device == e.device and g.dtype == e.dtype and g.shape == e.shape
+        assert torch.equal(g, e)
+    return got
+
+
+@pytest.mark.parametrize("n_planes", [None, 1, 6, 13])
+def test_peel_kernels_match_plain_twins(device, n_planes):
+    da, db = _conv_operands(device)
+    a, b = B.from_dense(da), B.from_dense(db)
+    if n_planes is None:
+        _conv_pair(conv_cuda, "convolve_sparse_fused", (a[:200], b[:200]))
+        _conv_pair(conv_cuda, "convolve_sparse_fused", (a[7], b[:50]))  # broadcast
+    else:
+        _conv_pair(conv_cuda, "counts_sparse_fused", (a[190:210], b[190:210]),
+                   dict(n_planes=n_planes))
+
+
+def test_dense_counts_kernels_match_plain_twins(device):
+    da, db = _conv_operands(device)
+    da[0] = db[0] = True  # every count 4096
+    counts = _conv_pair(conv_cuda, "conv_counts_fused", (da, db))[0]
+    assert int(counts[0].min()) == 4096 and int(counts.max()) == 4096
+    for out_or in (True, False):
+        _conv_pair(conv_cuda, "conv_small_fused", (da, db), dict(out_or=out_or))
+    a, b = B.from_dense(da), B.from_dense(db)
+    _conv_pair(conv_cuda, "conv_small_packed", (a[:299], b[:299]))  # odd batch
+
+
+def test_dense_counts_epilogues_agree(device):
+    """The three epilogues of one kernel body, and the peel's 13 planes,
+    against one another on the card."""
+    da, db = _conv_operands(device)
+    counts = conv_cuda.conv_counts_fused(da, db)
+    assert int(counts.max()) > 257
+    residue = conv_cuda.conv_small_fused(da, db, out_or=False)
+    mask = conv_cuda.conv_small_fused(da, db, out_or=True)
+    packed = conv_cuda.conv_small_packed(B.from_dense(da), B.from_dense(db))
+    planes = conv_cuda.counts_sparse_fused(B.from_dense(da[:64]), B.from_dense(db[:64]), 13)
+    torch.cuda.synchronize()
+    assert torch.equal(residue, counts % 193)
+    assert torch.equal(mask, (counts % 193 != 0).to(torch.int8))
+    assert torch.equal(packed, B.from_dense(mask != 0))
+    peeled = sum(B.to_dense(p).to(torch.int32) << i for i, p in enumerate(planes))
+    assert torch.equal(peeled, counts[:64])
+
+
+@pytest.mark.parametrize("mix", ["elemwise", "rolls"])
+def test_calibrate_kernel_matches_plain_twin(device, mix):
+    gen = torch.Generator().manual_seed(5)
+    info = torch.iinfo(torch.int64)
+    a, b = (torch.randint(info.min, info.max, (77, 64), dtype=torch.int64, generator=gen)
+            .to(device) for _ in range(2))
+    before = calibrate_cuda.LAUNCHES["calibrate"]
+    got, ops = calibrate_cuda.calibrate(a, b, 9, mix=mix)
+    torch.cuda.synchronize()
+    assert calibrate_cuda.LAUNCHES["calibrate"] == before + 1
+    assert torch.equal(got, calibrate_cuda.calibrate_plain(a, b, 9, mix=mix))
+    assert ops == 9 * calibrate_cuda.ops_per_iter(mix) * 77 * 64
+
+
+def test_conv_kernels_reject_bad_input(device):
+    da, db = _conv_operands(device)
+    a = B.from_dense(da[:8])
+    with pytest.raises(ValueError):
+        conv_cuda.convolve_sparse_fused(a, a.cpu())
+    with pytest.raises(ValueError):
+        conv_cuda.counts_sparse_fused(a, a, 14)
+    with pytest.raises(TypeError):
+        conv_cuda.conv_counts_fused(da[:8].float(), db[:8])
+    with pytest.raises(ValueError):
+        calibrate_cuda.calibrate(a, a, -1)
 
 
 def test_stable_kernels_reject_bad_input(device):

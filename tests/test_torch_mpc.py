@@ -27,6 +27,7 @@ from lifeapi_tpu_torch.mpc import cost as tcost
 from lifeapi_tpu_torch.mpc import soft as tsoft
 from lifeapi_tpu_torch.mpc import solver as tsolver
 from lifeapi_tpu_torch.target import LifeTarget, hamming_cost
+from torch_threads import one_torch_thread  # noqa: F401
 
 VALUE = dict(rtol=1e-5, atol=1e-5)
 GRAD = dict(rtol=1e-4, atol=1e-5)

@@ -16,6 +16,7 @@ from lifeapi_tpu.target import LifeTarget as JTarget
 from lifeapi_tpu_torch import convert, search
 from lifeapi_tpu_torch.core import board as tb
 from lifeapi_tpu_torch.target import LifeTarget
+from torch_threads import one_torch_thread  # noqa: F401
 
 GLIDER_CELLS = [(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)]
 EATER_CELLS = [(24, 21), (24, 22), (25, 21), (25, 23), (26, 23), (27, 23), (27, 24)]
@@ -73,3 +74,73 @@ def test_horizon_zero_and_far_catalyst():
         r = search.catalyst_search(glider, far, offsets, horizon)
         assert not r.interacted.any() and r.recovered.all()
         assert not r.reaction_changed.any()
+
+
+def _both_pairs():
+    glider, eater = _jax_pair()
+    return (glider, eater), (convert.board_from_packed(glider), convert.board_from_packed(eater))
+
+
+def test_candidate_offsets_match_jax():
+    (jg, je), (tg, te) = _both_pairs()
+    expect = np.asarray(jsearch.candidate_offsets(jg, je))
+    got = search.candidate_offsets(tg, te)
+    assert got.shape == (4025, 2) and np.array_equal(got.numpy(), expect)
+    area = tb.solid_rect(-8, -8, 17, 17)
+    expect = np.asarray(jsearch.candidate_offsets(jg, je, search_area=jb.solid_rect(-8, -8, 17, 17)))
+    assert np.array_equal(search.candidate_offsets(tg, te, search_area=area).numpy(), expect)
+
+
+def test_search_over_candidate_offsets_matches_jax():
+    """The slice's catalyst search: the pruned grid at horizon 64."""
+    (jg, je), (tg, te) = _both_pairs()
+    offsets = search.candidate_offsets(tg, te)
+    got = search.catalyst_search(tg, te, offsets, 64)
+    expect = jsearch.catalyst_search(jg, je, jsearch.candidate_offsets(jg, je), 64,
+                                     engine="xla")
+    counts = (int(got.interacted.sum()), int(got.recovered.sum()),
+              int(search.successful_catalysts(got).sum()))
+    assert counts == (int(expect.interacted.sum()), int(expect.recovered.sum()),
+                      int(jsearch.successful_catalysts(expect).sum())) == (195, 3845, 15)
+    placed = convert.placement_to_numpy(got)
+    for field in ("interacted", "recovered", "reaction_changed", "final"):
+        assert (placed[field] == np.asarray(getattr(expect, field))).all(), field
+
+
+@pytest.mark.parametrize("recovery", [False, True])
+def test_all_orientations_match_jax(recovery):
+    """Every orientation of the eater over the example's 17 x 17 window of
+    candidate offsets, against the JAX sweep."""
+    (jg, je), (tg, te) = _both_pairs()
+    area = jb.solid_rect(-8, -8, 17, 17)
+    joffsets = jsearch.candidate_offsets(jg, je, search_area=area)
+    toffsets = search.candidate_offsets(tg, te, search_area=tb.solid_rect(-8, -8, 17, 17))
+    jtarget = JTarget(je, jb.empty()) if recovery else None
+    ttarget = LifeTarget(te, tb.empty()) if recovery else None
+    expect = jsearch.catalyst_search_all_orientations(jg, je, joffsets, 48, jtarget)
+    got = search.catalyst_search_all_orientations(tg, te, toffsets, 48, ttarget)
+    assert [int(t) for t, _ in got] == [int(t) for t, _ in expect]
+    for (_, g), (_, e) in zip(got, expect):
+        placed = convert.placement_to_numpy(g)
+        for field in ("offsets", "interacted", "recovered", "reaction_changed", "final"):
+            assert (placed[field] == np.asarray(getattr(e, field))).all(), field
+    assert sum(int(search.successful_catalysts(r).sum()) for _, r in got) > 0
+
+
+def test_target_match_and_transformed():
+    (jg, je), (tg, te) = _both_pairs()
+    jt, tt = JTarget.from_state(je), LifeTarget.from_state(te)
+    state_j = jb.move(je, 3, -7) | jg
+    state_t = tb.move(te, 3, -7) | tg
+    from lifeapi_tpu import target as jtarget_mod
+    from lifeapi_tpu_torch import target as target_mod
+
+    got = target_mod.match(state_t, tt)
+    assert np.array_equal(convert.board_to_packed(got), np.asarray(jtarget_mod.match(state_j, jt)))
+    assert tb.on_cells(got) == [(3, 57)]
+    for t in (T.Rotate90, T.ReflectAcrossYeqNegXP1):
+        moved = tt.transformed(t)
+        expect = jt.transformed(t)
+        assert np.array_equal(convert.board_to_packed(moved.wanted), np.asarray(expect.wanted))
+        assert np.array_equal(convert.board_to_packed(moved.unwanted),
+                              np.asarray(expect.unwanted))

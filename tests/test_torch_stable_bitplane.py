@@ -21,6 +21,7 @@ from lifeapi_tpu_torch.stable import bitplane as BP
 from lifeapi_tpu_torch.stable import nibble as nb
 from lifeapi_tpu_torch.stable import propagate as P
 from oracle import random_dense
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 

@@ -24,6 +24,7 @@ from lifeapi_tpu_torch.stable import bitplane as BP
 from lifeapi_tpu_torch.stable import complete as C
 from lifeapi_tpu_torch.stable import host as H
 from lifeapi_tpu_torch.stable import propagate as P
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 EATER = "2b2o$bobo$bo$2o!"

@@ -18,6 +18,7 @@ from lifeapi_tpu_torch import convert
 from lifeapi_tpu_torch.ops import stable_cuda
 from lifeapi_tpu_torch.stable import bitplane as BP
 from oracle import random_dense
+from torch_threads import one_torch_thread  # noqa: F401
 
 N = 64
 

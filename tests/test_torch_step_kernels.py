@@ -17,6 +17,7 @@ from lifeapi_tpu_torch.core import board as tb
 from lifeapi_tpu_torch.ops import step_cuda
 from lifeapi_tpu_torch.search import rollout_inputs
 from oracle import random_dense
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _boards(rng, batch, p):
