@@ -33,7 +33,17 @@ Phases, each printing what it saw:
    calibration in both mixes; then the known answers, the routes against
    one another (dense counts = peel at 13 planes, single-prime = dense
    mod 193) and each kernel against its twin;
-6. timings on the card (CUDA events, medians after a warm-up), the
+6. the weld / dense-stable path ([weld]), with every counter set to 0 just
+   before: the Bellman pipeline (catalyst search, weld, reaction replay,
+   host DFS, the batched beam of all 15 recovering placements, their
+   backgrounds verified by step_n, kernels [1] and [4] and the numpy
+   oracle), UnweldableMask on the catalyst x eater fixture (1893
+   placements; tier 1, then escalated), the two-anchor portfolio and the
+   dense propagate of the welded problems; then the known answers, tier 1
+   against the beam's plain twin and the JAX package's count, tier 3's
+   soundness, the dense propagate against kernel B, and kernel [4] against
+   its twin and kernel [1];
+7. timings on the card (CUDA events, medians after a warm-up), the
    calibrated word-op ceilings, and every kernel's bound.
 
 The line before the last is a JSON object describing each kernel; the last
@@ -47,6 +57,8 @@ import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -57,11 +69,17 @@ REPLACES = {
     "rollout": "lifeapi_tpu/ops/step_pallas.py:340",
     "controlled_rollout": "lifeapi_tpu/ops/step_pallas.py:160",
     "catalyst_rollout": "lifeapi_tpu/ops/step_pallas.py:243",
+    "rollout_lohi": "lifeapi_tpu/ops/step_pallas.py:307",
 }
-STABLE_REPLACES = {
+# the kernels of REPLACES that the main path drives; rollout_lohi has no
+# caller there and is driven by the [weld] phase
+MAIN_PATH_KERNELS = ("rollout", "controlled_rollout", "catalyst_rollout")
+STABLE_REPLACES = {  # [6] and [9] are entries over kernels A and C
     "propagate_step": "lifeapi_tpu/ops/stable_pallas.py:441",
+    "propagate_fused": "lifeapi_tpu/ops/stable_pallas.py:589",
     "propagate_fixpoint": "lifeapi_tpu/ops/stable_pallas.py:487",
     "propagate_fixpoint_priorities": "lifeapi_tpu/ops/stable_pallas.py:519",
+    "propagate_fused_beam": "lifeapi_tpu/ops/stable_pallas.py:549",
     "beam_search": "lifeapi_tpu/ops/stable_pallas.py:906",
 }
 CONV_SOURCE = "lifeapi_tpu_torch/csrc/life_conv.cu"
@@ -81,19 +99,28 @@ CALIB_ROWS, CALIB_ITERS = 16384, 2048
 # known answers of the [conv] path (the JAX package on the same inputs)
 CANDIDATES, PRUNED_COUNTS, IO_POP = 4025, (195, 3845, 15), 71
 ORIENTATION_HITS = [(0, 15), (2, 0), (13, 15), (4, 16), (15, 16), (6, 1), (8, 15), (9, 15)]
-# Bounds.  Device memory: 3.35e12 B/s (H100 SXM data sheet).  Word-ops: the
-# 64-bit integer operations a kernel needs per word (one column of one
-# board), counted by hand from its CUDA source: a logic function of up to
+# Bounds.  Device memory: 3.35e12 B/s (H100 SXM data sheet).  Word-ops (all
+# but the rollout kernels, below): the 64-bit integer operations a kernel
+# needs per word (one column of one board), counted by hand from its CUDA
+# source: a logic function of up to
 # three inputs counts once (one LOP3 per half-word), as do a shift, rotate,
 # add, shuffle, select or popcount; over the calibrated ceiling of the
 # matching mix, "rolls" for kernels that shuffle and "elemwise" for those
 # that do not (the dense counts take the NTT's FLOP instead, below).
 HBM_BYTES_PER_S = 3.35e12
-# life_rollout.cu life_step: 2 rotates, 4 for the pair and 3-sums, 4 shuffles
-# + 4 selects, rokicki 8
-LIFE_STEP_OPS = 22
-CONTROLLED_OPS = LIFE_STEP_OPS + 1  # the toggle XOR
-CATALYST_OPS = LIFE_STEP_OPS + 2.5  # (board ^ (base | placed)) & zoi; OR into acc per lane
+# The four rollout kernels (life_rollout.cu) are not held to hand counts: the
+# calibrated ceiling is the rate of the calibration's own instruction mix, and
+# life_step's hand count over it came out above the rollout's measured device
+# time.  Their generation loop is one straight-line body,
+# so their operations are the SASS instructions of that loop in the library
+# this run built (cuobjdump -sass), one warp per board, over the card's issue
+# peak: one warp instruction per clock per scheduler, four schedulers per SM,
+# at the SM clock's maximum.  A loop's generations are told by its shuffles.
+SCHEDULERS_PER_SM = 4
+SHFL_PER_GENERATION = 16  # 4 column exchanges x (lo, hi) x two 32-bit halves
+ROLLOUT_KERNELS = {"rollout": "rollout_kernel", "rollout_lohi": "rollout_lohi_kernel",
+                   "controlled_rollout": "controlled_kernel",
+                   "catalyst_rollout": "catalyst_kernel"}
 # life_stable.cu stable_step: sync 26, two count9 46 (8 shuffles and selects
 # each), nibble sums 21, update 55, signal 53, two hollow ZOIs 18, apply 19,
 # the fixpoint's vote and copy-back 12
@@ -125,6 +152,34 @@ QUEUED_CHUNKS = 16
 FIX_B = 4096
 EATER_RLE = "2b2o$bobo$bo$2o!"
 HEADLINE_B, HEADLINE_T = 8192, 512
+# the [weld] phase: benches/weld_bench.py's catalyst x eater welds (the
+# reference LifeWeldTest fixtures: pattern, required cells)
+WELD_CATALYST = ("2o$o2bob2o$b3obobo$5bobo$b5ob3o$bo4bo3bo$4bobo2b2o$4b2o!",
+                 "4o$5o2bo$4o$5o4bo$b5ob5o$b12o$b12o$b12o$4b9o$4b4o!")
+WELD_EATER = ("2b2o$bobo$bo$2o!", "2b2o$b3o$b4o$5o$4o$4o!")
+WELD_HORIZON = 64
+WELD_PATH_KERNELS = ("catalyst_rollout", "rollout", "rollout_lohi", "beam_search",
+                     "propagate_fixpoint")
+# known answers of the [weld] phase, from the JAX package on the CPU:
+# examples/bellman_pipeline.py (candidates, hits, offset, stripped cells, DFS
+# pop; the batched beam of all hits: found, verified) and the catxeater
+# tier 1 (engine="beam", batch_size=4096, beam_iters=24, escalate=False)
+PIPELINE_ANSWERS = (4025, 15, (0, 4), 4, 7, 15, 15)
+WELD_TESTED = 1893
+# the 68 placements it proves unweldable (displacements mod 64)
+WELD_TIER1_MARKS = (
+    (0, 5), (0, 7), (0, 61), (1, 7), (1, 60), (1, 61), (1, 62), (2, 6), (2, 7), (2, 61),
+    (2, 62), (3, 6), (3, 7), (3, 61), (3, 62), (4, 5), (4, 6), (4, 7), (4, 61), (4, 62),
+    (5, 0), (5, 4), (5, 5), (5, 6), (5, 7), (5, 61), (5, 62), (5, 63), (6, 0), (6, 1),
+    (6, 4), (6, 5), (6, 61), (6, 62), (6, 63), (7, 0), (7, 1), (7, 2), (7, 3), (7, 5),
+    (7, 62), (7, 63), (8, 0), (8, 1), (8, 2), (8, 3), (60, 0), (60, 1), (60, 2), (60, 62),
+    (60, 63), (61, 0), (61, 1), (61, 2), (61, 3), (61, 61), (61, 62), (61, 63), (62, 3),
+    (62, 4), (62, 5), (62, 61), (62, 62), (62, 63), (63, 4), (63, 5), (63, 62), (63, 63),
+)
+# the instance's minimum, the barge: no still life of fewer cells holds two
+# cells at offset (2, 2), and the JAX package finds the barge on the same
+# instance (tests/test_torch_portfolio_example.py)
+PORTFOLIO_MIN_POP = 6
 GLIDER = [(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)]
 EATER = [(24, 21), (24, 22), (25, 21), (25, 23), (26, 23), (27, 23), (27, 24)]
 
@@ -153,12 +208,15 @@ def oracle_dense(words):
     return ((w[..., None] >> np.arange(64, dtype=np.uint64)) & np.uint64(1)).astype(np.uint8)
 
 
-def oracle_step(g):
-    count = sum(
-        np.roll(np.roll(g, dx, axis=-2), dy, axis=-1)
-        for dx in (-1, 0, 1) for dy in (-1, 0, 1)
-    ) - g
-    return ((count == 3) | ((g == 1) & (count == 2))).astype(np.uint8)
+def oracle_run(words, generations):
+    """The cells of int64 boards [..., 64] after ``generations`` steps of
+    the examples' numpy Life step."""
+    from lifeapi_tpu_torch.examples import life_step_dense
+
+    g = oracle_dense(words)
+    for _ in range(generations):
+        g = life_step_dense(g)
+    return g
 
 
 def kernel_label(mangled):
@@ -187,6 +245,58 @@ def ptxas_report(log):
             rows.append((name, int(line.split("Used")[1].split("registers")[0]), spill))
             name = None
     return rows
+
+
+SASS_LINE = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+
+
+def sass_functions(listing):
+    """{kernel: [(address, opcode, operands)]} from ``cuobjdump -sass``."""
+    funcs, name = {}, None
+    for line in listing.splitlines():
+        if "Function :" in line:
+            name = kernel_label(line.split("Function :")[1].strip())
+            funcs[name] = []
+        elif name and (m := SASS_LINE.search(line)):
+            funcs[name].append((int(m.group(1), 16), m.group(2), m.group(3).strip()))
+    return funcs
+
+
+def instructions_per_generation(code):
+    """Instructions per generation of the loop (a backward branch and what
+    it jumps over) that holds the most shuffles."""
+    best = (0, 0)
+    for addr, op, args in code:
+        target = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
+        if target and int(target.group(1), 16) <= addr:
+            body = [o for a, o, _ in code if int(target.group(1), 16) <= a <= addr]
+            best = max(best, (sum(o.startswith("SHFL") for o in body), len(body)))
+    shuffles, n = best
+    check(shuffles > 0 and shuffles % SHFL_PER_GENERATION == 0,
+          f"no generation loop found in the SASS ({shuffles} shuffles)")
+    return n * SHFL_PER_GENERATION / shuffles
+
+
+def rollout_sass_counts(lib_path):
+    """Warp instructions per board-generation of each rollout kernel, from
+    the SASS of the built library."""
+    from lifeapi_tpu_torch.ops import _build
+
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    listing = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
+                             capture_output=True, text=True, timeout=300).stdout
+    funcs = sass_functions(listing)
+    return {name: instructions_per_generation(funcs[fn])
+            for name, fn in ROLLOUT_KERNELS.items()}
+
+
+def issue_peak():
+    """Warp instructions per second the card can issue at most."""
+    mhz = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return sms * SCHEDULERS_PER_SM * float(mhz) * 1e6, sms, float(mhz)
 
 
 def max_err(got, want):
@@ -254,6 +364,15 @@ def kernel_vs_plain(name, args, kwargs, err):
         err[name] = max(err[name], max_err(g, w))
         check(g.dtype == w.dtype and torch.equal(g, w), f"{name} kernel != plain twin")
     return got
+
+
+def entry_outputs(result):
+    """The tensors of a ``propagate_fused`` result, or of a
+    ``propagate_fused_beam`` (result, levels) pair."""
+    from lifeapi_tpu_torch.stable import bitplane as BP
+
+    res, levels = (result, ()) if isinstance(result, BP.BitPropagateResult) else result
+    return (BP.to_planes(res.stable), res.consistent, res.changed, *levels)
 
 
 def check_still_lifes(res, known, unknown, what):
@@ -404,7 +523,15 @@ def stable_phase(dev):
           f"== per-chunk calls on 3 chunks; fixpoint B={FIX_B}: unknowns "
           f"{unk_before} -> {unk_after.unique().tolist()}, consistent")
 
-    # every kernel against its twin, first at the shapes of the path
+    # every kernel against its twin, first at the shapes of the path; the
+    # two BitStable entries against their plain versions
+    for name in ("propagate_fused", "propagate_fused_beam"):
+        got = getattr(SC, name)(fix_bst)
+        want = getattr(SC, f"{name}_plain")(fix_bst)
+        torch.cuda.synchronize()
+        for g, w in zip(*(entry_outputs(x) for x in (got, want))):
+            err[name] = max(err[name], max_err(g, w))
+            check(torch.equal(g, w), f"{name} != its plain version")
     fix_planes = BP.to_planes(fix_bst).contiguous()
     for name in ("propagate_step", "propagate_fixpoint", "propagate_fixpoint_priorities"):
         kernel_vs_plain(name, (fix_planes,), {}, err)
@@ -462,6 +589,10 @@ def stable_timings(inputs, ms, plain_ms, card):
         ms[name], plain_ms[name] = paired_ms(
             lambda: getattr(SC, name)(fix_planes),
             lambda: getattr(SC, f"{name}_plain")(fix_planes), reps=reps)
+    for name, reps in (("propagate_fused", 5), ("propagate_fused_beam", 5)):
+        ms[name], plain_ms[name] = paired_ms(
+            lambda: getattr(SC, name)(fix_bst),
+            lambda: getattr(SC, f"{name}_plain")(fix_bst), reps=reps)
     kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
     ms["beam_search"], plain_ms["beam_search"] = paired_ms(
         lambda: SC.beam_search(beam_planes, **kw),
@@ -482,6 +613,10 @@ def stable_timings(inputs, ms, plain_ms, card):
         print(f"[time] {name} {shape}: kernel {ms[name]:.4f} ms a call "
               f"({device_ms[name]:.4f} ms of it on the device, profiler), "
               f"plain {plain_ms[name]:.4f} ms")
+    for name, what in (("propagate_fused", "the host loop over A"),
+                       ("propagate_fused_beam", "C and the BitStable packing")):
+        print(f"[time] {name} B={FIX_B} ({what}): {ms[name]:.4f} ms a call, plain "
+              f"{plain_ms[name]:.4f} ms")
 
     beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
                                                dense=False)
@@ -696,6 +831,265 @@ def conv_phase(dev):
     return launches, err, x
 
 
+# ---------------------------------------------------------------------------
+# The weld / dense-stable path
+# ---------------------------------------------------------------------------
+
+
+def catxeater(dev):
+    """benches/weld_bench.py's catalyst x eater fixture: both welds, the
+    displacement window [-20, 23]^2 (other placements pre-marked good) and
+    the placements a call tests."""
+    from lifeapi_tpu_torch import weld as W
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+
+    def weld(pair):
+        state = B.move(rle.parse(pair[0], device=dev), 20, 20)
+        return W.from_required(state, B.move(rle.parse(pair[1], device=dev), 19, 19))
+
+    a, b = weld(WELD_CATALYST), weld(WELD_EATER)
+    ax = (torch.arange(64, device=dev) + 20) % 64 < 44
+    window = ax[:, None] & ax[None, :]
+    tested = window & ~B.to_dense(W.interaction_offsets(a, b))
+    return a, b, B.from_dense(~window), tested
+
+
+def verify_backgrounds(backgrounds, glider):
+    """Step every background with the glider HORIZON generations by the
+    port's step_n, kernel [1], kernel [4] (through the half-word layout)
+    and the numpy oracle; all four must agree, and every background must
+    recover.  Returns the number verified."""
+    from lifeapi_tpu_torch.core import step as S
+    from lifeapi_tpu_torch.ops import step_cuda
+
+    start = (backgrounds | glider).contiguous()
+    by_step_n = S.step_n(start, WELD_HORIZON)
+    by_rollout = step_cuda.rollout(start, WELD_HORIZON)
+    by_lohi = step_cuda.from_kernel_layout(
+        *step_cuda.rollout_lohi(*step_cuda.to_kernel_layout(start), WELD_HORIZON))
+    g = oracle_run(start.cpu().numpy(), WELD_HORIZON)
+    check(torch.equal(by_rollout, by_step_n) and torch.equal(by_lohi, by_step_n),
+          "pipeline backgrounds: step_n, kernel [1] and kernel [4] disagree")
+    check((oracle_dense(by_step_n.cpu().numpy()) == g).all(),
+          "pipeline backgrounds: the numpy oracle disagrees")
+    return int((by_step_n == backgrounds).all(dim=-1).sum())
+
+
+def weld_phase(dev):
+    """Drive the weld / dense-stable path with every counter set to 0 just
+    before: the Bellman pipeline (catalyst search, weld, reaction replay,
+    host DFS, batched beam of every recovering placement, backgrounds
+    verified by step_n, [1], [4] and the oracle), UnweldableMask on the
+    catalyst x eater fixture (tier 1, then escalated), the portfolio and
+    the dense propagate of the welded problems against kernel B.  Then the
+    known answers and the checks.  Returns (launches, errors, run)."""
+    from lifeapi_tpu_torch import weld as W
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.examples import bellman_pipeline, portfolio_minimise
+    from lifeapi_tpu_torch.ops import conv_cuda as CC
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import complete as C
+    from lifeapi_tpu_torch.stable import propagate as P
+
+    r = SimpleNamespace()  # what the phase drove, for its checks and timings
+    a, b, good, tested = catxeater(dev)
+    xy = tested.nonzero()
+    unweld_kw = dict(starting_good=good, engine="beam", batch_size=4096, beam_iters=24,
+                     return_stats=True)
+    tier3_marks = []
+    tier3 = W._tier3
+
+    def recording_tier3(residue, build, bad_dense, *args):
+        before = bad_dense.copy()
+        tier3(residue, build, bad_dense, *args)
+        tier3_marks.extend((int(x), int(y)) for x, y in np.argwhere(bad_dense & ~before))
+
+    torch.cuda.synchronize()
+    for module in (step_cuda, SC, CC):
+        module.reset_launches()
+    t0 = time.perf_counter()
+    r.pipe = bellman_pipeline.run(dev)
+    found = r.pipe["beam"].found
+    r.backgrounds = r.pipe["beam"].best[found]
+    r.n_recovered = verify_backgrounds(r.backgrounds, r.pipe["glider"])
+    t1 = time.perf_counter()
+    r.tier1_mask, r.tier1_stats = W.unweldable_mask(a, b, escalate=False, **unweld_kw)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    W._tier3 = recording_tier3
+    try:
+        r.esc_mask, r.esc_stats = W.unweldable_mask(
+            a, b, escalate=True, escalate_frontier=8, escalate_dfs_wall_budget=4.0,
+            **unweld_kw)
+    finally:
+        W._tier3 = tier3
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    r.portfolio = portfolio_minimise.run(dev)
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    r.problems = W._build_placements(a, b, xy)
+    r.dense = P.propagate(r.problems)
+    r.fused = SC.propagate_fused_inkernel(BP.from_dense_stable(r.problems))
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    launches = {**step_cuda.LAUNCHES, **SC.LAUNCHES, **CC.LAUNCHES}
+    r.e2e_s = {"pipeline": t1 - t0, "unweldable tier 1": t2 - t1,
+               "unweldable escalated": t3 - t2, "portfolio": t4 - t3,
+               "dense propagate + kernel B": t5 - t4}
+    print(f"[weld] path ran in {t5 - t0:.2f} s; launches "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    check(all(launches[name] > 0 for name in WELD_PATH_KERNELS),
+          f"a kernel of the weld path was never launched: {launches}")
+    err = {"rollout_lohi": 0.0}
+
+    # the Bellman pipeline's known answers (CPU rehearsal = the JAX package)
+    pipe = r.pipe
+    got = (pipe["candidates"], pipe["hits"], pipe["offset"], pipe["stripped"],
+           pipe["background_pop"], pipe["batched_found"], pipe["batched_verified"])
+    print(f"[weld] pipeline: {pipe['candidates']} candidates, {pipe['hits']} hits, offset "
+          f"{pipe['offset']}, {pipe['stripped']} stator cells stripped, DFS "
+          f"{pipe['dfs_result'].name} pop {pipe['background_pop']}, verified "
+          f"{pipe['verified']}; batched beam of all {pipe['hits']}: found "
+          f"{pipe['batched_found']}, verified {pipe['batched_verified']}; step_n == [1] == "
+          f"[4] == oracle on all {r.backgrounds.shape[0]} found, {r.n_recovered} recover")
+    check(got == PIPELINE_ANSWERS, f"pipeline answers {got}, not {PIPELINE_ANSWERS}")
+    check(pipe["dfs_result"] == C.CompletionResult.COMPLETED and pipe["verified"],
+          "pipeline: the DFS background does not complete or recover")
+    dfs_bg = pipe["background"]
+    check(torch.equal(step_cuda.rollout(dfs_bg[None], 1)[0], dfs_bg)
+          and verify_backgrounds(dfs_bg[None], pipe["glider"]) == 1,
+          "pipeline: the DFS background is not a still life that recovers")
+    check(r.n_recovered == pipe["batched_found"] == pipe["batched_verified"],
+          "pipeline: a found background does not recover")
+
+    # UnweldableMask: tier 1 against the beam's plain twin, the JAX count,
+    # and the escalated tiers' soundness
+    beam = SC.beam_search
+    SC.beam_search = SC.beam_search_plain
+    try:
+        plain_mask, plain_stats = W.unweldable_mask(a, b, escalate=False, **unweld_kw)
+    finally:
+        SC.beam_search = beam
+    proved = B.to_dense(r.tier1_mask) & tested
+    r.n_tested, r.n_proved = int(tested.sum()), int(proved.sum())
+    print(f"[weld] unweldable_mask catxeater: {r.n_tested} placements tested; tier 1 "
+          f"(F=4, 24 iters) proved {r.n_proved}, stats {r.tier1_stats}; escalated stats "
+          f"{r.esc_stats}; {len(tier3_marks)} tier-3 marks")
+    check(r.tier1_stats["placements"] == r.n_tested == WELD_TESTED,
+          f"unweldable_mask tested {r.n_tested}, not {WELD_TESTED}")
+    check(torch.equal(r.tier1_mask, plain_mask) and plain_stats == r.tier1_stats,
+          "unweldable_mask tier 1: kernel != the beam's plain twin")
+    check(sorted(map(tuple, proved.nonzero().tolist())) == sorted(WELD_TIER1_MARKS),
+          f"unweldable_mask tier 1 proved {r.n_proved}, not the JAX package's "
+          f"{len(WELD_TIER1_MARKS)} placements")
+    esc = B.to_dense(r.esc_mask)
+    check(bool((esc | ~proved).all()), "escalated mask dropped a tier-1 mark")
+    check(r.esc_stats["tier1_residue"] == r.tier1_stats["tier1_residue"],
+          "escalated tier-1 residue != tier 1's")
+    check(int((esc & tested).sum()) == r.n_proved + r.esc_stats["tier2_proved"]
+          + len(tier3_marks), "escalated marks != tier 1 + tier 2 + tier 3")
+    if tier3_marks:
+        problems = W._build_placements(a, b, torch.tensor(tier3_marks, device=dev))
+        for host_st in W._host_problems(problems):
+            result, _ = C.complete_stable(host_st, timeout=5.0, minimise=False, strict=True)
+            check(result == C.CompletionResult.INCONSISTENT,
+                  "a tier-3 mark is not a strict DFS refutation")
+
+    # the portfolio
+    res = r.portfolio["result"]
+    print(f"[weld] portfolio, two anchors, 256 replicas, F=4, 192 iters: found {res.found}, "
+          f"pop {res.best_pop}, found fraction {res.found_fraction:.4f}, still life "
+          f"{r.portfolio['still_life']}, anchors {r.portfolio['anchors_on']}")
+    check(res.found and r.portfolio["still_life"] and r.portfolio["anchors_on"]
+          and r.portfolio["inside_area"] and res.best_pop == PORTFOLIO_MIN_POP,
+          "portfolio: the champion is not a still life of pop 6 on both anchors")
+
+    # the dense propagate (plain torch on the card) against kernel B
+    ok = r.dense.consistent
+    check(torch.equal(ok, r.fused.consistent), "dense propagate != kernel B: consistent flags")
+    back = BP.to_dense_stable(r.fused.stable)
+    for name in ("state", "unknown", "ruled"):
+        check(torch.equal(getattr(back, name)[ok], getattr(r.dense.stable, name)[ok]),
+              f"dense propagate != kernel B: {name} of a consistent board")
+    print(f"[weld] dense propagate == kernel B on {xy.shape[0]} welded problems "
+          f"({int(ok.sum())} consistent)")
+
+    # kernel [4] against its twin and kernel [1], at the headline and a ragged shape
+    gen = torch.Generator(device=dev).manual_seed(4)
+    for batch, steps in ((HEADLINE_B, HEADLINE_T), (1000, 37)):
+        boards = B.random(gen, (batch,), device=dev)
+        lo, hi = step_cuda.to_kernel_layout(boards)
+        got = step_cuda.rollout_lohi(lo, hi, steps)
+        want = step_cuda.rollout_lohi_plain(lo, hi, steps)
+        via_rollout = step_cuda.to_kernel_layout(step_cuda.rollout(boards, steps))
+        torch.cuda.synchronize()
+        for g, w, v in zip(got, want, via_rollout):
+            err["rollout_lohi"] = max(err["rollout_lohi"], max_err(g, w))
+            check(torch.equal(g, w) and torch.equal(g, v),
+                  f"rollout_lohi B={batch} T={steps}: kernel != plain twin or kernel [1]")
+    r.lohi_boards = boards
+    print(f"[weld] rollout_lohi == plain twin == kernel [1] at B={HEADLINE_B} "
+          f"T={HEADLINE_T} and B=1000 T=37")
+    print(f"[counters] {launches}")
+    return launches, err, r
+
+
+def weld_timings(r, ms, plain_ms, card):
+    """Kernel [4] against its twin, its device time, and the weld path's end
+    to end times."""
+    from lifeapi_tpu_torch import weld as W
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.examples import bellman_pipeline
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import propagate as P
+
+    dev = r.lohi_boards.device
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lo, hi = step_cuda.to_kernel_layout(B.random(gen, (HEADLINE_B,), device=dev))
+    ms["rollout_lohi"], plain_ms["rollout_lohi"] = paired_ms(
+        lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
+        lambda: step_cuda.rollout_lohi_plain(lo, hi, HEADLINE_T), reps=5)
+    boards = step_cuda.from_kernel_layout(lo, hi)
+    dev_ms = profiled_device_ms(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
+                                "rollout_lohi_kernel", n=5)
+    dev_ms_1 = profiled_device_ms(lambda: step_cuda.rollout(boards, HEADLINE_T),
+                                  "rollout_kernel", n=5)
+    print(f"[time] card: {card}")
+    print(f"[time] rollout_lohi B={HEADLINE_B} T={HEADLINE_T}: kernel "
+          f"{ms['rollout_lohi']:.4f} ms a call ({dev_ms:.4f} ms of it on the device, "
+          f"profiler), plain {plain_ms['rollout_lohi']:.4f} ms; kernel [1] on the same "
+          f"boards {dev_ms_1:.4f} ms on the device ([4] / [1]: {dev_ms / dev_ms_1:.4f})")
+    runs = [bellman_pipeline.run(dev) for _ in range(3)]
+    e2e = [sum(x["stages"].values()) for x in runs]
+    stages = {k: statistics.median(x["stages"][k] for x in runs) for k in runs[0]["stages"]}
+    print(f"[time] Bellman pipeline end to end: median {statistics.median(e2e) * 1e3:.3f} ms "
+          f"over 3 (first, counted run {r.e2e_s['pipeline'] * 1e3:.3f} ms with the "
+          f"four-way background check); stages: "
+          + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()))
+    a, b, good, _ = catxeater(dev)
+    tier1_s = wall(lambda: W.unweldable_mask(a, b, starting_good=good, engine="beam",
+                                             batch_size=4096, beam_iters=24,
+                                             escalate=False), 3)
+    print(f"[time] unweldable_mask catxeater, {r.n_tested} placements: tier 1 median "
+          f"{tier1_s * 1e3:.3f} ms over 3 ({r.n_tested / tier1_s:.6g} placements/s); "
+          f"escalated (F=8, 512 iters, DFS wall budget 4 s) "
+          f"{r.e2e_s['unweldable escalated']:.3f} s, one run")
+    print(f"[time] portfolio end to end: {r.e2e_s['portfolio'] * 1e3:.3f} ms, one run")
+    dense_s = wall(lambda: P.propagate(r.problems), 3)
+    bst = BP.from_dense_stable(r.problems)
+    fused_s = wall(lambda: SC.propagate_fused_inkernel(bst), 5)
+    n = r.problems.state.shape[0]
+    print(f"[time] propagate of {n} welded problems: dense plain torch median "
+          f"{dense_s * 1e3:.3f} ms over 3, kernel B (packed input) median "
+          f"{fused_s * 1e3:.4f} ms over 5 ({dense_s / fused_s:.4g}x)")
+
+
 def event_ms(fn, reps):
     """Median CUDA-event milliseconds of fn after one warm-up call."""
     fn()
@@ -852,34 +1246,50 @@ def solver_work(stable_inputs):
     return fix_steps, work["board_steps"], work["priority_boards"]
 
 
-def kernel_bounds(ceilings, stable_inputs, x, ms):
+def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
     """bound_ms and bound_by of every kernel at the shapes timed above: the
     larger of its bytes (each input read once, each output written once)
     over the memory rate and its operations over the card's rate for them:
+    the rollout kernels' SASS over the issue peak, the other kernels'
     word-ops over the calibrated ceiling of their mix, the dense counts'
     NTT FLOP over the bf16 tensor-core peak.  Data-dependent work is what
     this run's inputs need: the fixpoint steps and priorities of
-    solver_work, the cells the peel takes."""
+    solver_work, the steps of A that the solver phase's one propagate_fused
+    call launched, the cells the peel takes."""
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
     from lifeapi_tpu_torch.stable import bitplane as BP
 
     fix_steps, beam_steps, beam_prio = solver_work(stable_inputs)
+    host_loop_steps = stable_launches["propagate_fused"]
+    sass = rollout_sass_counts(lib_path)
+    issue, sms, mhz = issue_peak()
+    print(f"[bound] issue peak {issue:.6g} warp instructions/s ({sms} SMs x "
+          f"{SCHEDULERS_PER_SM} schedulers x {mhz:g} MHz); SASS warp instructions per "
+          f"board-generation: " + ", ".join(f"{k} {v:g}" for k, v in sass.items()))
     # each board's peel ends with a round that finds its operand empty
     peeled = int(B.population(x.tr_b).sum()) + CONV_B
     board, words, solver = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
     step_ops = words * STABLE_STEP_OPS
-    rates = {**ceilings, "bf16 tensor-core FLOP": BF16_FLOP_PER_S}
+    rates = {**ceilings, "bf16 tensor-core FLOP": BF16_FLOP_PER_S, "issue": issue}
     work = {  # name: (bytes, operations, the rate they run at)
         "rollout": (2 * HEADLINE_B * board,
-                    HEADLINE_B * HEADLINE_T * words * LIFE_STEP_OPS, "rolls"),
-        "controlled_rollout": ((2 + 32) * 64 * board, 64 * 32 * words * CONTROLLED_OPS,
-                               "rolls"),
+                    HEADLINE_B * HEADLINE_T * sass["rollout"], "issue"),
+        # the same board-steps; the half-words read and written once
+        "rollout_lohi": (4 * 64 * HEADLINE_B * 4,
+                         HEADLINE_B * HEADLINE_T * sass["rollout_lohi"], "issue"),
+        "controlled_rollout": ((2 + 32) * 64 * board, 64 * 32 * sass["controlled_rollout"],
+                               "issue"),
         "catalyst_rollout": (4 * 4096 * board + 64 * board + 4096,
-                             4096 * 64 * words * CATALYST_OPS, "rolls"),
+                             4096 * 64 * sass["catalyst_rollout"], "issue"),
         "propagate_step": (FIX_B * (2 * solver + 2 * board), FIX_B * step_ops, "rolls"),
+        "propagate_fused": (host_loop_steps * FIX_B * (2 * solver + 2 * board),
+                            host_loop_steps * FIX_B * step_ops, "rolls"),
         "propagate_fixpoint": (FIX_B * (2 * solver + 2), fix_steps * step_ops, "rolls"),
         "propagate_fixpoint_priorities": (
+            FIX_B * (2 * solver + 2 + 4 * board),
+            fix_steps * step_ops + FIX_B * words * PRIORITY_OPS, "rolls"),
+        "propagate_fused_beam": (
             FIX_B * (2 * solver + 2 + 4 * board),
             fix_steps * step_ops + FIX_B * words * PRIORITY_OPS, "rolls"),
         "beam_search": (BEAM_B * (solver + board + 4 + 3),
@@ -897,7 +1307,8 @@ def kernel_bounds(ceilings, stable_inputs, x, ms):
         "calibrate": (3 * CALIB_ROWS * board,
                       CALIB_ROWS * words * CALIB_ITERS * ops_per_iter("elemwise"), "elemwise"),
     }
-    print(f"[bound] data-dependent work: fixpoint {fix_steps} board-steps over {FIX_B} "
+    print(f"[bound] data-dependent work: propagate_fused {host_loop_steps} launches of A; "
+          f"fixpoint {fix_steps} board-steps over {FIX_B} "
           f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards over "
           f"{BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
     bounds = {}
@@ -906,7 +1317,8 @@ def kernel_bounds(ceilings, stable_inputs, x, ms):
         by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         by_ops = ops / rates[rate] * 1e3
         bounds[name] = (max(by_bytes, by_ops), "bytes" if by_bytes >= by_ops else "operations")
-        unit = "FLOP" if "FLOP" in rate else f"word-ops, {rate}"
+        unit = ("FLOP" if "FLOP" in rate else "warp instructions (SASS), issue peak"
+                if rate == "issue" else f"word-ops, {rate}")
         print(f"[bound] {name}: {nbytes} bytes ({by_bytes:.4f} ms), {ops} {unit} "
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]}; the kernel's {ms[name]:.4f} ms is "
@@ -988,17 +1400,15 @@ def main():
     launches = dict(step_cuda.LAUNCHES)
     print(f"[path] main path ran in {time.perf_counter() - t0:.2f} s; "
           f"launches {launches}")
-    check(all(launches[name] > 0 for name in REPLACES),
+    check(all(launches[name] > 0 for name in MAIN_PATH_KERNELS),
           f"a kernel of the main path was never launched: {launches}")
-    err = dict.fromkeys(REPLACES, 0.0)
+    err = dict.fromkeys(MAIN_PATH_KERNELS, 0.0)
 
     # -- 3a. rollout ----------------------------------------------------------
     plain = step_cuda.rollout_plain(boards, HEADLINE_T)
     err["rollout"] = max_err(rolled, plain)
     check(torch.equal(rolled, plain), "rollout kernel != plain twin")
-    g = oracle_dense(boards[:64].cpu().numpy())
-    for _ in range(HEADLINE_T):
-        g = oracle_step(g)
+    g = oracle_run(boards[:64].cpu().numpy(), HEADLINE_T)
     check((oracle_dense(rolled[:64].cpu().numpy()) == g).all(),
           "rollout kernel != numpy oracle")
     ragged = B.random(gen, (1000,), device=dev)
@@ -1055,7 +1465,12 @@ def main():
     # -- 5. the convolution layer, matching, symmetry and calibration --------------
     conv_launches, conv_err, conv_inputs = conv_phase(dev)
 
-    # -- 6. timings ---------------------------------------------------------------
+    # -- 6. the weld / dense-stable path; kernel [4] ---------------------------------
+    weld_launches, weld_err, weld_run = weld_phase(dev)
+    launches["rollout_lohi"] = weld_launches["rollout_lohi"]
+    err["rollout_lohi"] = weld_err["rollout_lohi"]
+
+    # -- 7. timings ---------------------------------------------------------------
     ms, plain_ms, lib_ms = {}, {}, {}
     ms["rollout"], plain_ms["rollout"] = paired_ms(
         lambda: step_cuda.rollout(boards, HEADLINE_T),
@@ -1091,7 +1506,9 @@ def main():
           f"median {statistics.median(solve_s):.3f} s per solve over {len(solve_s)}")
     stable_timings(stable_inputs, ms, plain_ms, card)
     ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, card)
-    bounds = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms)
+    weld_timings(weld_run, ms, plain_ms, card)
+    bounds = kernel_bounds(ceilings, stable_inputs, stable_launches, conv_inputs, ms,
+                           lib_path)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [

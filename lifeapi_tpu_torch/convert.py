@@ -1,8 +1,8 @@
 """Carry state between :mod:`lifeapi_tpu` and this port, through numpy.
 
 The system has no learned weights: what crosses over is boards, targets,
-control masks, MPC problems, partial still lifes, LifeHistory overlays and
-symmetry enums, and what comes back for comparison is boards, counter
+control masks, MPC problems, partial still lifes, LifeHistory overlays,
+welds, symmetry enums and the rollout kernels' half-word layout, and what comes back for comparison is boards, counter
 planes and results.  Every function here takes numpy arrays, or objects
 whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
 of JAX arrays), so this module never imports jax.
@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from .history import LifeHistory
+from .stable.api import LifeStable
 from .mpc.cost import CostWeights
 from .mpc.solver import MPCProblem
 from .stable.bitplane import BitStable
@@ -26,6 +27,7 @@ from .stable.propagate import Stable
 from .symmetry.groups import StaticSymmetry
 from .symmetry.transforms import SymmetryTransform
 from .target import LifeTarget
+from .weld import LifeWeld
 
 
 def board_from_packed(packed, device=None):
@@ -172,3 +174,45 @@ def beam_result_to_numpy(result):
         "best_pop": result.best_pop.cpu().numpy(),
         "proved_inconsistent": result.proved_inconsistent.cpu().numpy(),
     }
+
+
+def lifestable_from_jax(ls, device=None):
+    """A JAX ``LifeStable`` (over a dense ``Stable``) -> the port's."""
+    return LifeStable(stable_from_jax(ls.data, device))
+
+
+def portfolio_result_to_numpy(result):
+    """Port ``PortfolioResult`` -> dict in the JAX layouts: ``best`` a packed
+    ``uint32[64, 2]`` board."""
+    return {"found": bool(result.found), "best": board_to_packed(result.best),
+            "best_pop": int(result.best_pop),
+            "found_fraction": float(result.found_fraction)}
+
+
+def weld_from_jax(weld, device=None):
+    """A JAX ``LifeWeld`` (state and three frozen count planes, packed) ->
+    the port's :class:`~lifeapi_tpu_torch.weld.LifeWeld`."""
+    return LifeWeld(*(board_from_packed(p, device) for p in weld))
+
+
+def weld_to_jax(weld):
+    """Port ``LifeWeld`` -> its four packed numpy planes;
+    ``lifeapi_tpu.weld.LifeWeld(*out)`` rebuilds the JAX one."""
+    return tuple(board_to_packed(p) for p in weld)
+
+
+def lohi_from_jax(lo, hi, device=None):
+    """The JAX rollout kernels' ``uint32[64, B]`` half-word arrays -> the
+    port's ``int32[64, B]`` tensors with the same bit patterns."""
+    def one(a):
+        a = np.ascontiguousarray(np.asarray(a, dtype=np.uint32))
+        if a.ndim != 2 or a.shape[0] != 64:
+            raise ValueError(f"expected uint32[64, B], got {a.shape}")
+        return torch.from_numpy(a.view(np.int32).copy()).to(device)
+
+    return one(lo), one(hi)
+
+
+def lohi_to_jax(lo, hi):
+    """Inverse of :func:`lohi_from_jax`: numpy ``uint32[64, B]`` pairs."""
+    return tuple(t.detach().cpu().contiguous().numpy().view(np.uint32) for t in (lo, hi))

@@ -103,6 +103,46 @@ def neighbour_counts(board):
     return on3, on2, on1, on0
 
 
+def count_planes_to_int(bit3, bit2, bit1, bit0):
+    """Count planes -> dense int32[..., 64, 64] counts."""
+    from .board import to_dense
+
+    return (to_dense(bit3).to(torch.int32) * 8 + to_dense(bit2).to(torch.int32) * 4
+            + to_dense(bit1).to(torch.int32) * 2 + to_dense(bit0).to(torch.int32))
+
+
+def with_exactly(planes, n):
+    """Mask of cells whose 4-bit count equals n (reference
+    ``NeighbourCount::WithExactly``, NeighbourCount.hpp:93-102)."""
+    bit3, bit2, bit1, bit0 = planes
+    result = torch.full_like(bit0, -1)
+    for bit, plane in ((1, bit0), (2, bit1), (4, bit2), (8, bit3)):
+        result = result & (plane if n & bit else ~plane)
+    return result
+
+
+def add_counts(a_planes, b_planes, carry=None):
+    """Ripple add of two 4-bit count plane sets (reference
+    ``NeighbourCount::Add``, NeighbourCount.hpp:71-79).  Planes are given
+    (bit3, bit2, bit1, bit0) as produced by :func:`neighbour_counts`."""
+    a3, a2, a1, a0 = a_planes
+    b3, b2, b1, b0 = b_planes
+    if carry is None:
+        carry = torch.zeros_like(a0)
+    r0, carry = full_add(a0, b0, carry)
+    r1, carry = full_add(a1, b1, carry)
+    r2, carry = full_add(a2, b2, carry)
+    r3, _ = full_add(a3, b3, carry)
+    return r3, r2, r1, r0
+
+
+def subtract_counts(a_planes, b_planes):
+    """Reference ``NeighbourCount::Subtract`` (NeighbourCount.hpp:85-91):
+    add the complement with carry-in ~0."""
+    b3, b2, b1, b0 = b_planes
+    return add_counts(a_planes, (~b3, ~b2, ~b1, ~b0), carry=torch.full_like(b0, -1))
+
+
 def interaction_counts(board):
     """(out1, out2, out_more): OFF cells with exactly 1, exactly 2, or >= 3
     live neighbours (reference ``InteractionCounts``, LifeAPI.hpp:956-993)."""
@@ -131,3 +171,15 @@ def _interaction_counts_impl(board, with_next):
         cc = carry_carry ^ (carry_sum & final_carry)
         nxt = (final_sum ^ cc) & (final_carry ^ carry_sum ^ cc) & (board | final_sum)
     return out1, out2, out_more, nxt
+
+
+def step_for_cell(board, x, y):
+    """Next state of one cell, bool[...] (reference ``StepFor``,
+    LifeAPI.hpp:889-895)."""
+    from .board import get_cell, torus_wrap
+
+    count_inc = count_planes_to_int(*neighbour_counts(board))[..., torus_wrap(x),
+                                                              torus_wrap(y)]
+    center = get_cell(board, x, y)
+    count = count_inc - center.to(torch.int32)
+    return torch.where(center, (count == 2) | (count == 3), count == 3)

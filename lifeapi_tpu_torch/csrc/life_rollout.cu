@@ -5,9 +5,10 @@
 // PyTorch twin.
 //
 // Board layout in device memory: int64[B, 64], one 64-bit word per column x,
-// bit y = cell (x, y) (the reference's LifeState layout).
+// bit y = cell (x, y) (the reference's LifeState layout); rollout_lohi_kernel
+// alone takes the JAX kernels' half-word layout, two uint32[64, B] arrays.
 //
-// Design, shared by the three kernels:
+// Design, shared by the four kernels:
 //  * One warp steps one board.  Lane l keeps columns l and l + 32 in two
 //    64-bit registers for the whole horizon, so device-memory traffic is one
 //    read and one write of the board per rollout; only the controlled kernel
@@ -150,6 +151,59 @@ catalyst_kernel(const u64* __restrict__ in,
   if (lane == 0) out_interacted[board] = interacted ? 1 : 0;
 }
 
+// Replaces lifeapi_tpu/ops/step_pallas.py rollout_lohi (_rollout_kernel,
+// step_lohi): T generations of boards held in the half-word layout, two
+// uint32[64, B] arrays, low32[x][b] and high32[x][b] the bits y 0..31 and
+// 32..63 of column x of board b.  The kernel reads and writes that layout
+// itself.  A block takes kWarpsPerBlock consecutive boards: its threads copy
+// the block's 64 x 8 low and high words into shared memory (each row of a
+// block is 32 contiguous bytes, one sector), join the halves into 64-bit
+// columns, step them in registers exactly as rollout_kernel does, and copy
+// the results back the same way.  Warps past B step an empty board instead
+// of leaving, so every thread reaches both barriers.  Bound: as
+// rollout_kernel, integer-ALU and shuffle issue per board-step; device
+// memory sees 4 x 64 x 4 bytes per board per rollout, whatever T is.
+__global__ void __launch_bounds__(kThreadsPerBlock)
+rollout_lohi_kernel(const uint32_t* __restrict__ low32_in,
+                    const uint32_t* __restrict__ high32_in,
+                    uint32_t* __restrict__ low32_out,
+                    uint32_t* __restrict__ high32_out, int B, int T) {
+  // a row of 9 words: the lanes' column accesses (stride 9) hit 32 banks
+  __shared__ uint32_t low32[64][kWarpsPerBlock + 1];
+  __shared__ uint32_t high32[64][kWarpsPerBlock + 1];
+  const int first = blockIdx.x * kWarpsPerBlock;
+  // 64 rows x 8 boards = 512 words per half, two per thread
+  for (int i = threadIdx.x; i < 64 * kWarpsPerBlock; i += kThreadsPerBlock) {
+    const int x = i / kWarpsPerBlock, k = i % kWarpsPerBlock;
+    const size_t at = static_cast<size_t>(x) * B + first + k;
+    const bool live = first + k < B;
+    low32[x][k] = live ? low32_in[at] : 0u;
+    high32[x][k] = live ? high32_in[at] : 0u;
+  }
+  __syncthreads();
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  // this lane's columns x = lane and x = lane + 32, as 64-bit words
+  u64 col_a = (static_cast<u64>(high32[lane][warp]) << 32) | low32[lane][warp];
+  u64 col_b = (static_cast<u64>(high32[lane + 32][warp]) << 32) | low32[lane + 32][warp];
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) life_step(col_a, col_b, lane);
+  __syncthreads();  // every warp has read its words before any is replaced
+  low32[lane][warp] = static_cast<uint32_t>(col_a);
+  high32[lane][warp] = static_cast<uint32_t>(col_a >> 32);
+  low32[lane + 32][warp] = static_cast<uint32_t>(col_b);
+  high32[lane + 32][warp] = static_cast<uint32_t>(col_b >> 32);
+  __syncthreads();
+  for (int i = threadIdx.x; i < 64 * kWarpsPerBlock; i += kThreadsPerBlock) {
+    const int x = i / kWarpsPerBlock, k = i % kWarpsPerBlock;
+    if (first + k < B) {
+      const size_t at = static_cast<size_t>(x) * B + first + k;
+      low32_out[at] = low32[x][k];
+      high32_out[at] = high32[x][k];
+    }
+  }
+}
+
 inline dim3 grid_for(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
 }  // namespace
@@ -162,6 +216,16 @@ extern "C" cudaError_t life_rollout(const u64* in, u64* out, int B,
                                     int T, cudaStream_t stream) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
   rollout_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(in, out, B, T);
+  return cudaGetLastError();
+}
+
+extern "C" cudaError_t life_rollout_lohi(const uint32_t* low32_in,
+                                         const uint32_t* high32_in,
+                                         uint32_t* low32_out, uint32_t* high32_out,
+                                         int B, int T, cudaStream_t stream) {
+  if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  rollout_lohi_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
+      low32_in, high32_in, low32_out, high32_out, B, T);
   return cudaGetLastError();
 }
 

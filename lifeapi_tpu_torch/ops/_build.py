@@ -32,6 +32,7 @@ _I = ctypes.c_int
 # launcher name -> argument types; every launcher returns its cudaError_t
 SIGNATURES = {
     "life_rollout": (_P, _P, _I, _I, _P),
+    "life_rollout_lohi": (_P, _P, _P, _P, _I, _I, _P),
     "life_controlled_rollout": (_P, _P, _P, _I, _I, _P),
     "life_catalyst_rollout": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "life_stable_step": (_P, _P, _P, _P, _I, _P),

@@ -30,7 +30,10 @@ from . import _build
 from .step_cuda import _check, _launch, _stream
 
 LAUNCHES = {"propagate_step": 0, "propagate_fixpoint": 0,
-            "propagate_fixpoint_priorities": 0, "beam_search": 0}
+            "propagate_fixpoint_priorities": 0, "beam_search": 0,
+            # the kernels launched through the two BitStable entries that
+            # the JAX package has as TPU kernels of their own ([6] and [9])
+            "propagate_fused": 0, "propagate_fused_beam": 0}
 
 MAX_ITERS = 256  # fixpoint cap, as the TPU kernels'
 INT32_MAX = 2**31 - 1
@@ -174,6 +177,17 @@ def propagate_fused(bst, max_iters=MAX_ITERS):
     """Fixpoint as a host loop over kernel A with per-board masks
     (``stable_pallas.propagate_fused``); same contract as
     :func:`lifeapi_tpu_torch.stable.bitplane.propagate`."""
+    return _host_fixpoint(bst, max_iters, propagate_step, count="propagate_fused")
+
+
+def propagate_fused_plain(bst, max_iters=MAX_ITERS):
+    """:func:`propagate_fused` over the plain twin of kernel A."""
+    return _host_fixpoint(bst, max_iters, propagate_step_plain)
+
+
+def _host_fixpoint(bst, max_iters, step, count=None):
+    """The masked fixpoint over ``step``; each launch of a kernel through
+    ``step`` also counts under ``LAUNCHES[count]``."""
     batch = bst.batch_shape
     planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
     n = planes.shape[0]
@@ -184,7 +198,9 @@ def propagate_fused(bst, max_iters=MAX_ITERS):
     max_iters = _max_iters(max_iters)
     it = 0
     while it < max_iters and bool(active.any()):
-        new, ch, ab = propagate_step(planes)
+        new, ch, ab = step(planes)
+        if count and planes.is_cuda:
+            LAUNCHES[count] += 1
         step_changed = ~B.is_empty(ch)
         ok = B.is_empty(ab)
         apply = active & ok
@@ -275,9 +291,21 @@ def propagate_fused_beam(bst, max_iters=MAX_ITERS, simple_phase=False):
     :func:`lifeapi_tpu_torch.stable.bitplane.branch_levels` evaluated on the
     propagated planes."""
     _no_simple_phase(simple_phase)
+    return _with_levels(bst, max_iters, propagate_fixpoint_priorities,
+                        count="propagate_fused_beam")
+
+
+def propagate_fused_beam_plain(bst, max_iters=MAX_ITERS):
+    """:func:`propagate_fused_beam` over the plain twin of kernel C."""
+    return _with_levels(bst, max_iters, propagate_fixpoint_priorities_plain)
+
+
+def _with_levels(bst, max_iters, fixpoint, count=None):
     batch = bst.batch_shape
     planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
-    out, consistent, changed, levels = propagate_fixpoint_priorities(planes, max_iters)
+    out, consistent, changed, levels = fixpoint(planes, max_iters)
+    if count and planes.is_cuda:
+        LAUNCHES[count] += 1
     out = out.reshape(*batch, BP.N_PLANES, 64)
     levels = levels.reshape(*batch, 4, 64).unbind(-2)
     res = BP.BitPropagateResult(BP.from_planes(out), consistent.reshape(batch),

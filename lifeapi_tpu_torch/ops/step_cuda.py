@@ -8,6 +8,11 @@ and dispatches on the device: a CUDA tensor launches the kernel in
 plain twin.  A CUDA tensor never falls back to the twin: anything the
 kernel does not take raises.
 
+``rollout_lohi`` alone keeps the JAX kernels' half-word layout: the low
+and high 32 bits of every column in two ``[64, B]`` arrays, held as
+``torch.int32`` tensors with the words' bit patterns (torch's ``uint32``
+lacks shifts and ``~`` on the CPU).
+
 ``LAUNCHES`` counts kernel launches per entry point, so a run can show
 that its main path went through the kernels.
 """
@@ -20,7 +25,8 @@ from ..core import board as B
 from ..core import step as S
 from . import _build
 
-LAUNCHES = {"rollout": 0, "controlled_rollout": 0, "catalyst_rollout": 0}
+LAUNCHES = {"rollout": 0, "controlled_rollout": 0, "catalyst_rollout": 0,
+            "rollout_lohi": 0}
 
 
 def reset_launches():
@@ -157,3 +163,55 @@ def catalyst_rollout(boards, placed, placed_zoi, base_traj):
                 _stream(boards.device))
     LAUNCHES["catalyst_rollout"] += 1
     return final, interacted
+
+
+# ---------------------------------------------------------------------------
+# rollout on the half-word layout (replaces step_pallas.rollout_lohi)
+# ---------------------------------------------------------------------------
+
+
+def to_kernel_layout(boards):
+    """``int64[B, 64]`` boards -> ``(lo, hi)``, each ``int32[64, B]``: the
+    low and high 32 bits of column x of board b at ``[x, b]`` (JAX
+    ``step_pallas.to_kernel_layout``)."""
+    lo = (boards << 32) >> 32  # the low half, sign-extended
+    hi = boards >> 32
+    return lo.to(torch.int32).t().contiguous(), hi.to(torch.int32).t().contiguous()
+
+
+def from_kernel_layout(lo, hi):
+    """Inverse of :func:`to_kernel_layout`.  The low half is masked, since
+    int32 -> int64 sign-extends."""
+    words = (hi.to(torch.int64) << 32) | (lo.to(torch.int64) & 0xFFFFFFFF)
+    return words.t().contiguous()
+
+
+def rollout_lohi_plain(lo, hi, steps):
+    """T generations on the half-word layout, in plain PyTorch: rebuild the
+    64-bit words, step them, split them again."""
+    return to_kernel_layout(S.step_n(from_kernel_layout(lo, hi), steps))
+
+
+def rollout_lohi(lo, hi, steps):
+    """Advance boards in the half-word layout ``steps`` generations:
+    ``lo``/``hi`` are ``int32[64, B]`` for any B >= 1 (JAX
+    ``step_pallas.rollout_lohi``, without its batch tile and padding).
+    Returns the new ``(lo, hi)``."""
+    if not isinstance(lo, torch.Tensor) or lo.dim() != 2 or lo.shape[0] != 64:
+        raise ValueError("lo: expected int32[64, B]")
+    b = lo.shape[1]
+    if not 0 < b < 2**31 // 64:
+        raise ValueError(f"lo: batch {b} out of range")
+    _check("lo", lo, (64, b), dtype=torch.int32)
+    _check("hi", hi, (64, b), dtype=torch.int32, device=lo.device)
+    steps = int(steps)
+    if not 0 <= steps < 2**31:
+        raise ValueError(f"steps {steps} out of range")
+    if not lo.is_cuda:
+        return rollout_lohi_plain(lo, hi, steps)
+    out_lo, out_hi = torch.empty_like(lo), torch.empty_like(hi)
+    with torch.cuda.device(lo.device):
+        _launch(_build.library().life_rollout_lohi, lo.data_ptr(), hi.data_ptr(),
+                out_lo.data_ptr(), out_hi.data_ptr(), b, steps, _stream(lo.device))
+    LAUNCHES["rollout_lohi"] += 1
+    return out_lo, out_hi

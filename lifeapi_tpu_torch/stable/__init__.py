@@ -1,6 +1,9 @@
-from . import bitplane, complete, host, nibble, options, propagate  # noqa: F401
+from . import (  # noqa: F401
+    api, bitplane, complete, host, nibble, options, propagate, rules_vec, ternary,
+)
+from .api import LifeStable  # noqa: F401
 from .complete import (  # noqa: F401
-    BeamResult, CompletionResult, complete_stable, complete_stable_beam,
-    complete_stable_beam_queued,
+    BeamResult, CompletionResult, PortfolioResult, complete_stable, complete_stable_beam,
+    complete_stable_beam_queued, complete_stable_portfolio,
 )
 from .propagate import Stable  # noqa: F401

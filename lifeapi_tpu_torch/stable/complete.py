@@ -322,3 +322,131 @@ def complete_stable_beam_queued(stable, chunk=8192, frontier=4, iters=24,
     _, best_pop, found, complete, exhausted = (
         torch.cat(col) for col in zip(*parts))
     return BeamResult(found, None, best_pop, exhausted & complete & ~found)
+
+
+# ---------------------------------------------------------------------------
+# Single-hard-instance portfolio search
+# ---------------------------------------------------------------------------
+
+
+class PortfolioResult(NamedTuple):
+    found: bool
+    best: "torch.Tensor"  # int64[64] board (original orientation)
+    best_pop: int
+    found_fraction: float  # fraction of replicas that found a completion
+
+
+def draw_offsets(generator, replicas, device=None):
+    """Per-replica random torus translations ``(dx, dy)``, each
+    ``int64[replicas]`` in [0, 64), drawn on the generator's device and
+    moved to ``device``."""
+    d = torch.randint(0, 64, (2, replicas), generator=generator, device=generator.device)
+    return d[0].to(device), d[1].to(device)
+
+
+def _build_replicas(state, unknown, dx, dy):
+    """Replica boards for one instance: the 16 symmetry transforms cycled
+    over the replica axis, then per-replica torus translations.  Returns
+    ``int64[R, 64]`` state and unknown."""
+    from ..core import board as BRD
+    from ..symmetry import transforms as TR
+
+    st16 = torch.stack([TR.transform(state, t) for t in range(16)])
+    un16 = torch.stack([TR.transform(unknown, t) for t in range(16)])
+    idx = torch.arange(dx.shape[0], device=state.device) % 16
+    return BRD.move_dyn(st16[idx], dx, dy), BRD.move_dyn(un16[idx], dx, dy)
+
+
+def _portfolio_champion(res, dx, dy):
+    """Back-transform the best replica's board to the original
+    orientation; returns (best_pop, champion board) or (None, None)."""
+    from ..core import board as BRD
+    from ..symmetry import transforms as TR
+
+    found = res.found.cpu().numpy()
+    if not found.any():
+        return None, None
+    pops = np.where(found, res.best_pop.cpu().numpy(), np.iinfo(np.int32).max)
+    i = int(np.argmin(pops))
+    back = BRD.move(res.best[i], -int(dx[i]), -int(dy[i]))
+    return int(pops[i]), TR.transform(back, TR.transform_inverse(i % 16))
+
+
+def complete_stable_portfolio(state, unknown, generator=None, replicas=256, frontier=4,
+                              iters=192, minimise=True, reminimise=True, explore=False,
+                              dfs_polish_timeout=None):
+    """ONE hard completion problem searched by ``replicas`` randomized beam
+    replicas in one batched beam call (the counterpart of the reference's
+    deep single-instance DFS, LifeStable.hpp:1340-1412).
+
+    Replica r solves the instance transformed by symmetry transform
+    ``r % 16`` composed with a random torus translation.  Life stability is
+    invariant under the D8 transforms and translations, so solutions map
+    back exactly; the lexicographic first-cell branch heuristic sees a
+    different coordinate order per replica, so the replicas explore
+    different branch sequences, like randomized DFS restarts.
+
+    ``reminimise`` (with ``minimise``) runs a second seeded pass after a
+    champion is found (the reference's BigZOI re-search,
+    LifeStable.hpp:1451-1456): unknowns restricted to
+    ``big_zoi(state | champion)``, branch cells to the champion's
+    proximity, only strictly smaller completions counted.  ``explore``
+    runs one more pass over fresh translations and the full unknown area,
+    bounded by the champion.  ``dfs_polish_timeout`` ends with a host DFS
+    bounded by the champion's population (only strict improvements).
+
+    ``state``/``unknown``: ``int64[64]`` boards.  The translations are
+    drawn from ``generator`` (:func:`draw_offsets`).  Returns the
+    back-transformed best completion over all replicas.
+    """
+    from ..core import board as BRD
+    from . import bitplane as BP
+
+    dev = state.device
+    dx, dy = draw_offsets(generator, replicas, dev)
+
+    def search(unknown_r, dx, dy, seed=None, **kw):
+        st_r, un_r = _build_replicas(state, unknown_r, dx, dy)
+        if seed is not None:
+            seed = _build_replicas(seed, unknown_r, dx, dy)[0]
+        res = complete_stable_beam(BP.make(state=st_r, unknown=un_r), frontier=frontier,
+                                   iters=iters, dense=False, seed=seed, **kw)
+        return res, _portfolio_champion(res, dx, dy)
+
+    res, (best_pop, champ) = search(unknown, dx, dy, minimise=minimise)
+    if champ is None:
+        return PortfolioResult(False, BRD.empty(device=dev), 0, 0.0)
+    found_fraction = float(res.found.float().mean())
+
+    if minimise and reminimise:
+        seed_board = state | champ
+        _, (pop2, champ2) = search(unknown & BRD.big_zoi(seed_board), dx, dy,
+                                   seed=seed_board, minimise=True, init_bound=best_pop)
+        if pop2 is not None and pop2 < best_pop:
+            best_pop, champ = pop2, champ2
+
+    if minimise and explore:
+        # a pass over fresh translations with the full unknown area open and
+        # the champion as the bound: replicas prune as soon as they exceed
+        # it (the DFS's global max_pop bound, LifeStable.hpp:1353-1356)
+        dx3, dy3 = draw_offsets(generator, replicas, dev)
+        _, (pop3, champ3) = search(unknown, dx3, dy3, minimise=True, init_bound=best_pop)
+        if pop3 is not None and pop3 < best_pop:
+            best_pop, champ = pop3, champ3
+
+    if minimise and dfs_polish_timeout:
+        # an incumbent-bounded host DFS: max_pop = champion, so only strict
+        # improvements are explored (reference LifeStable.hpp:1353-1356)
+        hst = HostStable(state=BRD.to_dense(state).cpu().numpy(),
+                         unknown=BRD.to_dense(unknown).cpu().numpy())
+        polish = _Search(time.monotonic() + float(dfs_polish_timeout), True, False,
+                         np.zeros((64, 64), bool))
+        polish.max_pop = int(best_pop)
+        polish.step(hst)
+        if polish.best is not None and polish.best.any():
+            pop4 = int(polish.best.sum())
+            if pop4 < best_pop:
+                best_pop = pop4
+                champ = BRD.from_dense(torch.from_numpy(polish.best)).to(dev)
+
+    return PortfolioResult(True, champ, best_pop, found_fraction)

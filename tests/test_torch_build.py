@@ -1,7 +1,10 @@
 """The port's kernel build: what keys a build, and how chip_smoke.py reads
-the compiler's register report.  No compiler is needed."""
+the compiler's register report and the SASS listing.  No compiler is
+needed."""
 
 import shutil
+
+import pytest
 
 import chip_smoke
 from lifeapi_tpu_torch.ops import _build
@@ -32,3 +35,40 @@ def test_build_key_covers_sources_and_shared_headers(tmp_path):
 def test_ptxas_report_names_each_kernel():
     assert chip_smoke.ptxas_report(PTXAS_LOG) == [
         ("beam_kernel<256>", 173, 172), ("rollout_kernel", 32, 0)]
+
+
+def _sass(name, body):
+    """A ``cuobjdump -sass`` listing of one function from (opcode, operands)."""
+    lines = [f"\t\tFunction : {name}",
+             '\t.headerflags\t@"EF_CUDA_TEXMODE_UNIFIED EF_CUDA_SM90"']
+    for i, (op, args) in enumerate(body):
+        lines.append(f"        /*{16 * i:04x}*/                   {op} {args} ;"
+                     f"                 /* 0x000000000000094d */")
+        lines.append("                                                 /* 0x000fe40000000800 */")
+    return "\n".join(lines) + "\n"
+
+
+ROLLOUT = "_ZN48_GLOBAL__N__fb87a2f3_15_life_rollout_cu_d2d3041c14rollout_kernelEPKyPyii"
+
+
+def test_sass_loop_counts_instructions_per_generation():
+    shfl, lop = ("SHFL.IDX", "PT, R10, R23, R6, 0x1f"), ("LOP3.LUT", "R4, R2, R3, R5, 0x96, !PT")
+    # prologue; a loop of two generations (32 shuffles, 40 more ops, the
+    # branch: 73 instructions from 0x30); a one-generation remainder loop
+    main = [("@P0 EXIT", ""), ("SEL", "R1, R2, R3, !P1"), ("VIADD", "R6, R7, 0x1")]
+    main += [shfl, lop] * 32 + [lop] * 8 + [("@P1 BRA", "0x30")]
+    rest_at = 16 * len(main)
+    main += [shfl] * 16 + [lop] * 4 + [("@!P2 BRA", f"{rest_at:#x}"), ("EXIT", ""),
+                                       ("BRA", f"{16 * (len(main) + 22):#x}")]
+    funcs = chip_smoke.sass_functions(_sass(ROLLOUT, main))
+    assert list(funcs) == ["rollout_kernel"] and len(funcs["rollout_kernel"]) == len(main)
+    assert funcs["rollout_kernel"][3] == (0x30, "SHFL.IDX", "PT, R10, R23, R6, 0x1f")
+    assert chip_smoke.instructions_per_generation(funcs["rollout_kernel"]) == 73 / 2
+
+
+@pytest.mark.parametrize("shuffles", [0, 12])
+def test_sass_loop_without_whole_generations_is_refused(shuffles):
+    body = [("SHFL.IDX", "PT, R1, R2, R3, 0x1f")] * shuffles + [("@P0 BRA", "0x0")]
+    code = chip_smoke.sass_functions(_sass(ROLLOUT, body))["rollout_kernel"]
+    with pytest.raises(AssertionError, match="no generation loop"):
+        chip_smoke.instructions_per_generation(code)

@@ -267,3 +267,31 @@ def test_rle_matches_jax(text):
     moved = tb.move(t, 20, 45)
     assert trle.to_rle(moved) == jrle.to_rle(jb.move(jrle.parse(text), 20, 45))
     assert torch.equal(trle.parse(trle.to_rle(moved)), tb.move(moved, -32, -32))
+
+
+def test_count_plane_helpers(rng):
+    """count_planes_to_int, with_exactly, add_counts and subtract_counts
+    (JAX core/step.py:131-175) on the neighbour counts of random boards."""
+    ja, ta = _pair(rng, p=0.4)
+    jb_, tb_ = _pair(rng, p=0.2)
+    jpa, tpa = js.neighbour_counts(ja), ts.neighbour_counts(ta)
+    jpb, tpb = js.neighbour_counts(jb_), ts.neighbour_counts(tb_)
+    got = ts.count_planes_to_int(*tpa)
+    assert got.dtype == torch.int32
+    assert (got.numpy() == np.asarray(js.count_planes_to_int(*jpa))).all()
+    for n in range(16):
+        _same(js.with_exactly(jpa, n), ts.with_exactly(tpa, n))
+    _same(js.add_counts(jpa, jpb), ts.add_counts(tpa, tpb))
+    _same(js.subtract_counts(jpa, jpb), ts.subtract_counts(tpa, tpb))
+    carry = jb.from_dense(jnp.asarray(random_dense(rng, p=0.5, batch=(12,))))
+    _same(js.add_counts(jpa, jpb, carry), ts.add_counts(tpa, tpb, convert.board_from_packed(carry)))
+
+
+@pytest.mark.parametrize("x, y", [(0, 0), (5, 63), (63, 17), (-1, 3), (32, -64)])
+def test_step_for_cell(rng, x, y):
+    ja, ta = _pair(rng, p=0.4)
+    got = ts.step_for_cell(ta, x, y)
+    assert got.dtype == torch.bool
+    _same(js.step_for_cell(ja, x % 64, y % 64), got)
+    expect = life_step_dense(tb.to_dense(ta).numpy())[:, x % 64, y % 64]
+    assert (got.numpy() == expect).all()

@@ -78,6 +78,35 @@ def test_kernel_rejects_bad_input(device, case):
         kernel(strided, *args[1:])
 
 
+@pytest.mark.parametrize("batch", [1, 33, 1000])
+def test_rollout_lohi_kernel_matches_twin_and_rollout(device, batch):
+    """Kernel [4] on the half-word layout against its plain twin and
+    against kernel [1] on the same boards; ragged batches included."""
+    boards = _random_boards(torch.Generator().manual_seed(batch), batch, 0.35, device)
+    lo, hi = step_cuda.to_kernel_layout(boards)
+    before = step_cuda.LAUNCHES["rollout_lohi"]
+    got = step_cuda.rollout_lohi(lo, hi, 37)
+    torch.cuda.synchronize()
+    assert step_cuda.LAUNCHES["rollout_lohi"] == before + 1
+    want = step_cuda.rollout_lohi_plain(lo, hi, 37)
+    via_rollout = step_cuda.to_kernel_layout(step_cuda.rollout(boards, 37))
+    for g, w, v in zip(got, want, via_rollout):
+        assert g.device == w.device and g.dtype == w.dtype == torch.int32
+        assert torch.equal(g, w) and torch.equal(g, v)
+    assert torch.equal(step_cuda.from_kernel_layout(*step_cuda.rollout_lohi(lo, hi, 0)), boards)
+
+
+def test_rollout_lohi_kernel_rejects_bad_input(device):
+    boards = _random_boards(torch.Generator().manual_seed(2), 40, 0.3, device)
+    lo, hi = step_cuda.to_kernel_layout(boards)
+    with pytest.raises(TypeError):
+        step_cuda.rollout_lohi(lo.to(torch.int64), hi, 3)
+    with pytest.raises(ValueError):
+        step_cuda.rollout_lohi(lo[:, ::2], hi[:, ::2], 3)
+    with pytest.raises(ValueError):
+        step_cuda.rollout_lohi(lo, hi.cpu(), 3)
+
+
 # ---------------------------------------------------------------------------
 # Still-life kernels (csrc/life_stable.cu) against their twins
 # ---------------------------------------------------------------------------
@@ -142,6 +171,26 @@ def _run_pair(name, args, kwargs=None):
                                   "propagate_fixpoint_priorities"])
 def test_stable_kernel_matches_plain_twin(device, name):
     _run_pair(name, (_stable_inputs(device),))
+
+
+@pytest.mark.parametrize("name", ["propagate_fused", "propagate_fused_beam"])
+def test_stable_entries_match_plain_and_count(device, name):
+    """The two BitStable entries ([6] over kernel A, [9] over kernel C)
+    against their plain versions, and their launch counts."""
+    bst = BP.from_planes(_stable_inputs(device))
+    before = dict(stable_cuda.LAUNCHES)
+    got = getattr(stable_cuda, name)(bst)
+    torch.cuda.synchronize()
+    inner = "propagate_step" if name == "propagate_fused" else "propagate_fixpoint_priorities"
+    n = stable_cuda.LAUNCHES[name] - before[name]
+    assert n >= 1 and stable_cuda.LAUNCHES[inner] - before[inner] == n
+    want = getattr(stable_cuda, f"{name}_plain")(bst)
+    if name == "propagate_fused":
+        got, want = (got, ()), (want, ())
+    (g, glv), (w, wlv) = got, want
+    assert torch.equal(BP.to_planes(g.stable), BP.to_planes(w.stable))
+    assert torch.equal(g.consistent, w.consistent) and torch.equal(g.changed, w.changed)
+    assert all(torch.equal(a, b) for a, b in zip(glv, wlv))
 
 
 def test_stable_fixpoint_some_boards_abort(device):

@@ -120,3 +120,19 @@ def test_fused_loop_matches_pallas_and_detects_contradiction(rng):
     expect_levels = BP.branch_levels(BP.from_planes(BP.to_planes(res.stable)[ok]))
     for lvl, e in zip(levels, expect_levels):
         assert torch.equal(lvl[ok], e)
+
+
+def test_entry_plain_versions_on_cpu(rng):
+    """``propagate_fused_plain`` / ``propagate_fused_beam_plain`` (what the
+    card's entries are held against) equal the entries on CPU tensors, and
+    no launch is counted."""
+    bst = convert.bitstable_from_jax(_instances(rng))
+    before = dict(stable_cuda.LAUNCHES)
+    res, plain = stable_cuda.propagate_fused(bst), stable_cuda.propagate_fused_plain(bst)
+    assert torch.equal(BP.to_planes(res.stable), BP.to_planes(plain.stable))
+    assert torch.equal(res.consistent, plain.consistent)
+    (res, lv), (plain, plv) = (stable_cuda.propagate_fused_beam(bst),
+                               stable_cuda.propagate_fused_beam_plain(bst))
+    assert torch.equal(BP.to_planes(res.stable), BP.to_planes(plain.stable))
+    assert all(torch.equal(a, b) for a, b in zip(lv, plv))
+    assert stable_cuda.LAUNCHES == before

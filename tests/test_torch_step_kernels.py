@@ -69,7 +69,27 @@ def test_catalyst_rollout_matches_pallas(rng):
     assert 0 < int(interacted.sum()) < 128  # the grid holds both kinds
 
 
-@pytest.mark.parametrize("name", ["rollout", "controlled_rollout", "catalyst_rollout"])
+def test_rollout_lohi_matches_pallas(rng):
+    """The half-word layout helpers and the plain twin of ``rollout_lohi``
+    against ``step_pallas.rollout_lohi`` in interpret mode, B=128, T=8."""
+    packed, t = _boards(rng, (128,), 0.35)
+    jlo, jhi = K.to_kernel_layout(packed)
+    lo, hi = step_cuda.to_kernel_layout(t)
+    assert lo.dtype == hi.dtype == torch.int32 and lo.shape == (64, 128)
+    assert all((a == np.asarray(b)).all() for a, b in zip(convert.lohi_to_jax(lo, hi),
+                                                          (jlo, jhi)))
+    assert all(torch.equal(a, b) for a, b in zip(convert.lohi_from_jax(jlo, jhi), (lo, hi)))
+    assert torch.equal(step_cuda.from_kernel_layout(lo, hi), t)
+    assert (convert.board_to_packed(step_cuda.from_kernel_layout(lo, hi))
+            == np.asarray(K.from_kernel_layout(jlo, jhi))).all()
+    want = K.rollout_lohi(jlo, jhi, steps=8, batch_tile=128, interpret=True)
+    got = step_cuda.rollout_lohi(lo, hi, 8)
+    assert all((a == np.asarray(b)).all() for a, b in zip(convert.lohi_to_jax(*got), want))
+    assert torch.equal(step_cuda.from_kernel_layout(*got), step_cuda.rollout(t, 8))
+
+
+@pytest.mark.parametrize("name", ["rollout", "controlled_rollout", "catalyst_rollout",
+                                  "rollout_lohi"])
 def test_cpu_tensors_take_plain_twin_without_launch(rng, name):
     """A CPU tensor is served by the plain twin: same result, no launch."""
     _, t = _boards(rng, (5,), 0.3)
@@ -77,6 +97,7 @@ def test_cpu_tensors_take_plain_twin_without_launch(rng, name):
         "rollout": (t, 3),
         "controlled_rollout": (t, _boards(rng, (3, 5), 0.05)[1].contiguous()),
         "catalyst_rollout": (t, t & 7, tb.zoi(t & 7), _boards(rng, (4,), 0.3)[1]),
+        "rollout_lohi": (*step_cuda.to_kernel_layout(t), 3),
     }[name]
     before = dict(step_cuda.LAUNCHES)
     got = getattr(step_cuda, name)(*args)
@@ -114,3 +135,20 @@ def test_wrappers_reject_mismatched_operands(rng):
         step_cuda.catalyst_rollout(t, t[:7], t, t[:3])
     with pytest.raises(ValueError):
         step_cuda.catalyst_rollout(t, t, t, t[0])
+
+
+def test_rollout_lohi_rejects_bad_input(rng):
+    _, t = _boards(rng, (8,), 0.3)
+    lo, hi = step_cuda.to_kernel_layout(t)
+    for bad_lo, bad_hi, err in (
+            (lo.to(torch.int64), hi, TypeError),  # the words, not half-words
+            (lo, hi.to(torch.int64), TypeError),
+            (lo[:32], hi[:32], ValueError),  # 64 rows
+            (lo[:, :0], hi[:, :0], ValueError),  # empty batch
+            (lo, hi[:, :7], ValueError),  # mismatched batch
+            (lo.t(), hi.t(), ValueError),  # [B, 64] layout
+            (lo[:, ::2], hi[:, ::2], ValueError)):  # not contiguous
+        with pytest.raises(err):
+            step_cuda.rollout_lohi(bad_lo, bad_hi, 2)
+    with pytest.raises(ValueError):
+        step_cuda.rollout_lohi(lo, hi, -1)
