@@ -44,7 +44,8 @@ Phases, each printing what it saw:
    soundness, the dense propagate against kernel B, and kernel [4] against
    its twin and kernel [1];
 7. timings on the card (CUDA events, medians after a warm-up), the
-   calibrated word-op ceilings, and every kernel's bound.
+   calibrated word-op ceilings, every kernel's bound, and the NTT kernels'
+   tensor-core instructions (HMMA) in the SASS of the library just built.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -133,7 +134,7 @@ PRIORITY_OPS = 395
 PEEL_OPS = 8
 PEEL_OR_OPS, PEEL_COUNT_OPS = 1, 26  # OR into acc; ripple through 13 planes (AND, XOR)
 # The dense counts ([13]-[15]) are bounded by the work the function needs,
-# not by this kernel's bit-parallel loop: the NTT of the TPU kernels
+# not by [15]'s bit-parallel loop: the NTT of the TPU kernels
 # (conv_pallas.py) as bf16 matmuls (residues <= 256 are exact in bf16) at the
 # card's dense bf16 tensor-core peak (H100 SXM data sheet).  One 64-point
 # transform of a board along one axis is a 64x64 @ 64x64 matmul, 2 * 64**3
@@ -141,9 +142,18 @@ PEEL_OR_OPS, PEEL_COUNT_OPS = 1, 26  # OR into acc; ripple through 13 planes (AN
 # along both).  The element-wise mods and the CRT are left out.
 BF16_FLOP_PER_S = 989e12
 NTT_FLOP_PER_PRIME = 6 * 2 * 64**3
-# conv_dense_kernel's own work, printed as its algorithm bound: threads x c x
-# (variable rotate 2 + 16 x (AND, POPC, ADD)), word-ops at the elemwise
-# ceiling
+# The NTT kernel of [13] and [14] (life_conv.cu ntt_conv_kernel<primes,
+# out>) also reduces every stage mod p on the ALUs: 7 x 4096 reductions a
+# board and prime (both forward stages of both boards, the product, both
+# inverse stages) and 4096 CRT steps for two primes, each MOD_INSTRUCTIONS
+# thread instructions (mod_p: FMUL, FRND.FLOOR, FFMA, FSETP, FADD, FSEL),
+# printed as a second bound over the issue peak.
+NTT_KERNEL = "ntt_conv_kernel"
+MOD_REDUCTIONS_PER_PRIME = 7 * 4096
+MOD_INSTRUCTIONS = 6
+# [15]'s conv_dense_kernel's own work, printed as its algorithm bound:
+# threads x c x (variable rotate 2 + 16 x (AND, POPC, ADD)), word-ops at the
+# elemwise ceiling
 DENSE_OPS_PER_BOARD = 256 * 64 * (2 + 16 * 3)
 
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
@@ -220,15 +230,19 @@ def oracle_run(words, generations):
 
 
 def kernel_label(mangled):
-    """``beam_kernel<256>`` from an entry function's mangled name (an
-    identifier is mangled as its length, then its letters)."""
+    """``beam_kernel<256>`` or ``ntt_conv_kernel<2, 0>`` from an entry
+    function's mangled name (an identifier is mangled as its length, then
+    its letters; integer template arguments as ``Li<n>E``)."""
     for m in re.finditer(r"\d+", mangled):
         digits, rest = m.group(), mangled[m.end():]
         for i in range(len(digits)):
             n = int(digits[i:])
             if n <= len(rest) and rest[:n].endswith("_kernel"):
-                arg = re.match(r"IL[ib](\d+)E", rest[n:])
-                return rest[:n] + (f"<{arg.group(1)}>" if arg else "")
+                args = re.match(r"I((?:L[ib]\d+E)+)E", rest[n:])
+                if not args:
+                    return rest[:n]
+                values = re.findall(r"(\d+)E", args.group(1))
+                return f"{rest[:n]}<{', '.join(values)}>"
     return mangled
 
 
@@ -277,17 +291,35 @@ def instructions_per_generation(code):
     return n * SHFL_PER_GENERATION / shuffles
 
 
-def rollout_sass_counts(lib_path):
-    """Warp instructions per board-generation of each rollout kernel, from
-    the SASS of the built library."""
+def library_sass(lib_path):
+    """{kernel: [(address, opcode, operands)]} of the built library, from the
+    toolkit's ``cuobjdump -sass``."""
     from lifeapi_tpu_torch.ops import _build
 
     cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
     listing = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
                              capture_output=True, text=True, timeout=300).stdout
-    funcs = sass_functions(listing)
+    return sass_functions(listing)
+
+
+def rollout_sass_counts(funcs):
+    """Warp instructions per board-generation of each rollout kernel."""
     return {name: instructions_per_generation(funcs[fn])
             for name, fn in ROLLOUT_KERNELS.items()}
+
+
+def ntt_sass_counts(funcs):
+    """{instantiation: (HMMA, LDSM, FRND, instructions)} of the NTT kernels
+    in the SASS; fail unless each multiplies on the tensor cores (HMMA)."""
+    counts = {}
+    for name, code in funcs.items():
+        if name.startswith(NTT_KERNEL):
+            ops = [op for _, op, _ in code]
+            counts[name] = tuple(sum(o.startswith(p) for o in ops)
+                                 for p in ("HMMA", "LDSM", "FRND")) + (len(ops),)
+    check(len(counts) == 3 and all(c[0] > 0 for c in counts.values()),
+          f"the NTT kernels' SASS lacks HMMA: {counts}")
+    return counts
 
 
 def issue_peak():
@@ -1138,9 +1170,11 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
             lambda: getattr(CC, name)(*args, **kw),
             lambda: getattr(CC, f"{name}_plain")(*args, **kw), reps=reps)
     kernel_names = {"convolve_sparse_fused": "conv_sparse_kernel",
-                    "counts_sparse_fused": "counts_sparse_kernel"}
+                    "counts_sparse_fused": "counts_sparse_kernel",
+                    "conv_counts_fused": NTT_KERNEL, "conv_small_fused": NTT_KERNEL,
+                    "conv_small_packed": "conv_dense_kernel"}
     device_ms = {name: profiled_device_ms(lambda: getattr(CC, name)(*args, **kw),
-                                          kernel_names.get(name, "conv_dense_kernel"))
+                                          kernel_names[name])
                  for name, (args, kw, _) in cases.items()}
     lib_ms["conv_counts_fused"] = event_ms(lambda: fft_counts(x.dense_a, x.dense_b), 5)
     lib_ms["conv_small_fused"] = event_ms(lambda: fft_counts(*corr_in), 5)
@@ -1262,11 +1296,15 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
 
     fix_steps, beam_steps, beam_prio = solver_work(stable_inputs)
     host_loop_steps = stable_launches["propagate_fused"]
-    sass = rollout_sass_counts(lib_path)
+    funcs = library_sass(lib_path)
+    sass = rollout_sass_counts(funcs)
     issue, sms, mhz = issue_peak()
     print(f"[bound] issue peak {issue:.6g} warp instructions/s ({sms} SMs x "
           f"{SCHEDULERS_PER_SM} schedulers x {mhz:g} MHz); SASS warp instructions per "
           f"board-generation: " + ", ".join(f"{k} {v:g}" for k, v in sass.items()))
+    for name, (hmma, ldsm, frnd, n) in ntt_sass_counts(funcs).items():
+        print(f"[bound] SASS of {name}: {hmma} HMMA (tensor cores), {ldsm} LDSM, "
+              f"{frnd} FRND (one per mod reduction), {n} instructions")
     # each board's peel ends with a round that finds its operand empty
     peeled = int(B.population(x.tr_b).sum()) + CONV_B
     board, words, solver = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
@@ -1323,12 +1361,19 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]}; the kernel's {ms[name]:.4f} ms is "
               f"{ms[name] / bounds[name][0]:.3g}x it")
+    for name, primes in (("conv_counts_fused", 2), ("conv_small_fused", 1)):
+        reductions = CONV_B * (primes * MOD_REDUCTIONS_PER_PRIME + (primes - 1) * 4096)
+        warp_instructions = reductions * MOD_INSTRUCTIONS // 32
+        mod_ms = warp_instructions / issue * 1e3
+        print(f"[bound] {name}, second bound: {reductions} mod reductions x "
+              f"{MOD_INSTRUCTIONS} instructions = {warp_instructions} warp instructions "
+              f"over the issue peak ({mod_ms:.4f} ms); the kernel's {ms[name]:.4f} ms is "
+              f"{ms[name] / mod_ms:.3g}x it")
     own = CONV_B * DENSE_OPS_PER_BOARD
     own_ms = own / ceilings["elemwise"] * 1e3
-    print(f"[bound] algorithm bound of conv_dense_kernel (its own bit-parallel work, not "
-          f"the function's): {own} word-ops, elemwise ({own_ms:.4f} ms); "
-          + ", ".join(f"{name} {ms[name] / own_ms:.3g}x it" for name in
-                      ("conv_counts_fused", "conv_small_fused", "conv_small_packed")))
+    print(f"[bound] algorithm bound of [15]'s conv_dense_kernel (its own bit-parallel work, "
+          f"not the function's): {own} word-ops, elemwise ({own_ms:.4f} ms); "
+          f"conv_small_packed {ms['conv_small_packed'] / own_ms:.3g}x it")
     return bounds
 
 

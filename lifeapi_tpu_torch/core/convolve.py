@@ -25,10 +25,10 @@ device.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from . import board as board_mod
+from . import ntt
 from ..ops import conv_cuda
 from .board import from_dense, mirrored, to_dense
 
@@ -51,48 +51,13 @@ def _dft2(x, w):
     return w @ (x @ w)
 
 
-NTT_PRIMES = (193, 257)  # both 1 mod 64, product 49601 > the largest count 4096
-
-
-def _ntt_matrix(p, inverse, device):
-    """The 64-point NTT matrix mod p (its inverse, with the 1/64 factor,
-    when ``inverse``), from the same root of unity as the JAX package."""
-    g = next(g for g in range(2, p) if len({pow(g, k, p) for k in range(p - 1)}) == p - 1)
-    w = pow(g, (p - 1) // 64, p)
-    if inverse:
-        w = pow(w, 63, p)
-    scale = pow(64, p - 2, p) if inverse else 1
-    jk = np.outer(np.arange(64), np.arange(64)) % 64
-    powers = np.array([pow(w, e, p) for e in range(64)], dtype=np.int64)
-    return torch.from_numpy(powers[jk] * scale % p).to(device)
-
-
-def _ntt2(x, w, p):
-    """W @ X @ W mod p (W symmetric) in int64 arithmetic: every product sum
-    is below 64 * 256**2, so each stage is exact."""
-    return torch.remainder(w @ torch.remainder(x @ w, p), p)
-
-
-def _conv_ntt(da, db):
-    """Exact counts by CRT over the two single-prime NTTs."""
-    p1, p2 = NTT_PRIMES
-    outs = []
-    for p in NTT_PRIMES:
-        w, v = _ntt_matrix(p, False, da.device), _ntt_matrix(p, True, da.device)
-        prod = torch.remainder(_ntt2(da, w, p) * _ntt2(db, w, p), p)
-        outs.append(_ntt2(prod, v, p))
-    c1, c2 = outs
-    inv_p1 = pow(p1, p2 - 2, p2)
-    return c1 + p1 * torch.remainder((c2 - c1) * inv_p1, p2)
-
-
 def _conv_real(da, db, method):
     """Circular convolution of dense [..., 64, 64] 0/1 fields, as float
     counts (exact after rounding): ``"fft"`` (torch.fft in float32, as the
     JAX CPU default), ``"dft"`` (complex matmuls) or ``"ntt"`` (the
     two-prime number-theoretic transform, exact in integers)."""
     if method == "ntt":
-        return _conv_ntt(da.to(torch.int64), db.to(torch.int64)).to(torch.float64)
+        return ntt.counts(da, db).to(torch.float64)
     if method == "dft":
         w = _dft_matrix(da.device)
         fa = _dft2(da.to(torch.complex128), w)

@@ -7,7 +7,7 @@
 // Board layout in device memory: int64[B, 64], one 64-bit word per column x,
 // bit y = cell (x, y); dense fields are [B, 64, 64] indexed [x, y].
 //
-// Two kernel bodies:
+// Three kernel bodies:
 //  * The peel (replaces lifeapi_tpu/ops/conv_sparse_pallas.py
 //    conv_sparse_lohi and counts_sparse_lohi).  One warp per board, lane l
 //    holding columns l and l + 32 (warp_board.cuh).  Each round peels the
@@ -24,22 +24,21 @@
 //    cell; device memory sees each board once.  The TPU kernel loops per
 //    128-lane tile until its densest operand is empty; here a sparse board
 //    never waits on a dense one.
-//  * The dense counts (replaces lifeapi_tpu/ops/conv_pallas.py
-//    conv_counts_fused, conv_small_fused and conv_small_packed).  Exact
-//    circular-convolution counts by bit-parallel AND + popcount on the
-//    packed columns:
-//        count[x][y] = sum_u popcount(a[u] & rotl(rev(b[(x - u) mod 64]), y + 1)).
-//    One block of 256 threads per board, both boards' 1 KB of words in
-//    shared memory (a doubled to 128 words so no index wraps).  Thread t
-//    owns y = t % 64 and 16 consecutive x, so every shared read in the
-//    inner loop is a broadcast.  The single-prime TPU kernels compute the
-//    counts mod 193 (an NTT mod 193 is exact in that ring), which is the
-//    residue of the exact count on every input, so one body serves all
-//    three with an epilogue: exact int32 counts, count % 193 as int32 or as
-//    an int8 mask of count % 193 != 0, or that mask packed to int64 words.
-//    Bound: popcount issue (2 32-bit POPC per AND, 262,144 ANDs per board),
-//    not bytes (8-32 KB per board).  The TPU ran a two-prime NTT as bf16
-//    matmuls on its MXU; a tensor-core NTT on Hopper is a later redesign.
+//  * The dense counts as a tensor-core NTT (replaces
+//    lifeapi_tpu/ops/conv_pallas.py conv_counts_fused and conv_small_fused):
+//    ntt_conv_kernel, described where it is defined below.
+//  * The packed single-prime counts (replaces conv_pallas.conv_small_packed)
+//    by bit-parallel AND + popcount on the packed columns:
+//        count[x][y] = sum_u popcount(a[u] & rotl(rev(b[(x - u) mod 64]), y + 1)),
+//    then the mask count % p != 0 packed to int64 words.  One block of 256
+//    threads per board, both boards' 1 KB of words in shared memory (a
+//    doubled to 128 words so no index wraps).  Thread t owns y = t % 64 and
+//    16 consecutive x, so every shared read in the inner loop is a
+//    broadcast.  Bound: popcount issue (2 32-bit POPC per AND, 262,144 ANDs
+//    per board), not bytes (1.5 KB per board); its move onto the NTT body,
+//    unpacking the bits in the kernel, is a later redesign.
+
+#include <cuda_bf16.h>
 
 #include "warp_board.cuh"
 
@@ -142,54 +141,425 @@ counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// Dense counts
+// Dense counts as a tensor-core NTT (replaces conv_pallas.conv_counts_fused
+// and conv_small_fused)
 // ---------------------------------------------------------------------------
+//
+// The circular convolution of two 64x64 0/1 fields is V (W A W . W B W) V
+// mod p, with W the 64-point NTT matrix mod p and V its inverse (both
+// symmetric; built once, in lifeapi_tpu_torch/core/ntt.py, and passed in).
+// conv_counts_fused takes the primes 193 and 257 and combines the two
+// residues by CRT into the exact count (<= 4096 < 193 * 257);
+// conv_small_fused takes 193 alone and returns the residue, or the mask
+// residue != 0.  Every stage is exact: residues and twiddles are integers
+// <= 256, exact in bf16; a 0/1 input times a twiddle sums to <= 16384, the
+// later stages to <= 64 * 256^2 = 2^22 < 2^24, and the pointwise product
+// to <= 65536, all exact in the f32 accumulators; each sum is reduced mod p
+// (mod_p) before it feeds the next stage.
+//
+// Bound.  The function moves 4 KB + 4 KB in and 16 KB (int32) or 4 KB
+// (int8) out per board, 0.03 ms at B = 4096; its six 64^3 products per
+// prime are 2 * 6 * 64^3 FLOP, 0.013 ms per prime at the bf16 tensor-core
+// peak; its 7 x 4096 mod reductions per prime (and 4096 CRT steps), some 6
+// instructions each, are of the same order at the issue peak.  So the
+// design keeps every stage on the tensor cores and on chip: device memory
+// sees each byte once.
+//
+// Design.  One block of 4 warps per board at a time, persistent over the
+// batch (grid = SMs x resident blocks), the twiddles in shared memory for
+// the block's lifetime.  Products are mma.sync.m16n8k16 (bf16 in, f32
+// accumulate); every shared tile is read by ldmatrix from rows padded to
+// 72 bf16, so the 8 rows of each 8x8 matrix fall on distinct banks.  A warp
+// owns a 16-row strip with all 64 columns, and the stages run
+//   forward y: S1 = W X^T (A = W from shared, B = the board from shared)
+//   forward x: S2 = S1 W  (A = S1 from registers)
+//   product:   P  = S2a . S2b, element-wise, in registers
+//   inverse x: S3 = P V   (A = P from registers)
+//   corner turn through shared memory (S3 stored [ky][x])
+//   inverse y: C  = S3^T V (A = S3^T by ldmatrix.trans)
+// so C[x][y] = (V (FA . FB) V)[x][y].  The A operand of a stage is the
+// previous stage's accumulator: two 16x8 f32 accumulator tiles side by side
+// hold exactly the elements of one 16x16 A fragment (the identity
+// FlashAttention-2 uses for P V), reduced mod p and converted to bf16 in
+// registers.  Both boards share the stage-1 A fragments and the stage-2 B
+// fragments.  The next board's bytes arrive by cp.async during the current
+// board's products; the bytes are turned into bf16 0/1 (non-zero = ON) in
+// shared memory, and the results are staged through shared memory for
+// 16-byte stores.  The two primes run one after the other, the first
+// prime's residues kept in registers as bf16 pairs for the CRT.
 
-constexpr int kXPerThread = 16;  // 256 threads = 64 rows y x 4 groups of 16 x
-constexpr int kModulus = 193;    // the TPU single-prime kernels' prime
+namespace ntt {
 
-enum Epilogue {
-  kCounts = 0,        // int32 [B, 64, 64] exact counts (conv_counts_fused)
-  kResidue = 1,       // int32 count % 193 (conv_small_fused, out_or=False)
-  kResidueMask = 2,   // int8 count % 193 != 0 (conv_small_fused, out_or=True)
-  kResiduePacked = 3  // that mask as int64 [B, 64] (conv_small_packed)
+constexpr int kWarps = 4;           // one 16-row strip of the board each
+constexpr int kThreads = kWarps * 32;
+constexpr int kStride = 72;         // bf16 per shared row: 64 + 8 of padding
+constexpr int kTile = 64 * kStride;
+constexpr int kTileBytes = kTile * 2;
+constexpr int kIntStride = 72;      // int32 per staging row
+constexpr int kByteStride = 80;     // int8 per staging row
+constexpr int kRawBytes = 2 * 4096;
+constexpr int kMaxPrime = 257;      // residues <= 256 are exact in bf16
+
+enum Out { kCounts = 0, kResidue = 1, kMask = 2 };
+
+using bf16 = __nv_bfloat16;
+
+// shared memory: W, V of each prime, the two boards' bf16 tiles (which
+// double as the output staging, 64 x 72 int32), the corner-turn tile and
+// the next boards' raw bytes
+template <int kPrimes>
+constexpr int smem_bytes() { return (2 * kPrimes + 3) * kTileBytes + kRawBytes; }
+
+struct Prime {
+  float p, rinv;
 };
 
-// Load one board into 64 words of shared memory: packed int64 [64], or
-// dense bytes [64, 64] (non-zero = ON) packed by ballots, warp w taking
-// columns 8w .. 8w + 7.
-template <bool kPacked>
-__device__ __forceinline__ void load_board(const void* src, size_t board,
-                                           u64* dst) {
-  if (kPacked) {
-    if (threadIdx.x < 64)
-      dst[threadIdx.x] = static_cast<const u64*>(src)[board * 64 + threadIdx.x];
-    return;
-  }
-  const unsigned char* cells = static_cast<const unsigned char*>(src) + board * 4096;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  unsigned* halves = reinterpret_cast<unsigned*>(dst);
-  for (int x = warp * 8; x < warp * 8 + 8; ++x) {
-    for (int h = 0; h < 2; ++h) {
-      const unsigned bits = __ballot_sync(kFullMask, cells[x * 64 + h * 32 + lane] != 0);
-      if (lane == 0) halves[2 * x + h] = bits;  // little-endian: y 0..31 first
+// x mod p for an integer 0 <= x <= 2^22 held in a float.  x * (1/p) is
+// within 2^-23 x/p < 1/257 of x/p, so its floor is the quotient, or one
+// short when p divides x; one fix-up then gives [0, p).
+__device__ __forceinline__ float mod_p(float x, Prime m) {
+  const float r = fmaf(-floorf(x * m.rinv), m.p, x);
+  return r >= m.p ? r - m.p : r;
+}
+
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
+}
+
+__device__ __forceinline__ float low_bf16(unsigned v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float high_bf16(unsigned v) { return __uint_as_float(v & 0xffff0000u); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(unsigned (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                    unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(smem_addr(dst)), "l"(src) : "memory");
+}
+
+// A fragments of a warp's 16-row strip of a shared tile, row-major [m][k]
+// (four k-blocks of 16).
+__device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* tile, int strip,
+                                       int lane) {
+  const bf16* p = tile + (strip * 16 + (lane & 15)) * kStride + ((lane >> 4) << 3);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) ldsm_x4(a[kb], p + 16 * kb);
+}
+
+// A fragments of the strip of the transposed tile: A[m][k] = tile[k][m].
+__device__ __forceinline__ void load_a_trans(unsigned (&a)[4][4], const bf16* tile,
+                                             int strip, int lane) {
+  const int j = lane >> 3;
+  const bf16* p = tile + ((lane & 7) + ((j >> 1) << 3)) * kStride + strip * 16 +
+                  ((j & 1) << 3);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) ldsm_x4_trans(a[kb], p + 16 * kb * kStride);
+}
+
+// The B operand's lane address in a shared 64x64 tile stored [n][k] (row n
+// holds column n of B): one ldmatrix.x4 at (n-tile pair np, k-block kb)
+// gives the fragments of n-tiles 2np and 2np + 1.
+__device__ __forceinline__ const bf16* b_base(const bf16* tile, int lane) {
+  return tile + ((lane & 7) + ((lane >> 4) << 3)) * kStride + (((lane >> 3) & 1) << 3);
+}
+
+__device__ __forceinline__ void zero(float (&acc)[8][4]) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = 0.f;
+}
+
+// acc = a @ B for a warp's strip; B from a shared tile stored [n][k].
+__device__ __forceinline__ void mma_strip(float (&acc)[8][4], const unsigned (&a)[4][4],
+                                          const bf16* tile, int lane) {
+  zero(acc);
+  const bf16* p = b_base(tile, lane);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      ldsm_x4(b, p + 16 * np * kStride + 16 * kb);
+      mma(acc[2 * np], a[kb], b[0], b[1]);
+      mma(acc[2 * np + 1], a[kb], b[2], b[3]);
     }
+}
+
+// acc_a = a_a @ B and acc_b = a_b @ B, each B fragment loaded once.
+__device__ __forceinline__ void mma_strip_pair(float (&acc_a)[8][4], float (&acc_b)[8][4],
+                                               const unsigned (&a_a)[4][4],
+                                               const unsigned (&a_b)[4][4],
+                                               const bf16* tile, int lane) {
+  zero(acc_a);
+  zero(acc_b);
+  const bf16* p = b_base(tile, lane);
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb)
+#pragma unroll
+    for (int np = 0; np < 4; ++np) {
+      unsigned b[4];
+      ldsm_x4(b, p + 16 * np * kStride + 16 * kb);
+      mma(acc_a[2 * np], a_a[kb], b[0], b[1]);
+      mma(acc_a[2 * np + 1], a_a[kb], b[2], b[3]);
+      mma(acc_b[2 * np], a_b[kb], b[0], b[1]);
+      mma(acc_b[2 * np + 1], a_b[kb], b[2], b[3]);
+    }
+}
+
+__device__ __forceinline__ void reduce(float (&acc)[8][4], Prime m) {
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[nt][i] = mod_p(acc[nt][i], m);
+}
+
+// The accumulator strip (reduced) as the A operand of the next product:
+// accumulator tiles 2kb and 2kb + 1 hold k-block kb's fragment, rows g and
+// g + 8 in elements (0, 1) and (2, 3).
+__device__ __forceinline__ void to_operand(const float (&acc)[8][4], unsigned (&a)[4][4]) {
+#pragma unroll
+  for (int kb = 0; kb < 4; ++kb) {
+    a[kb][0] = pack_bf16(acc[2 * kb][0], acc[2 * kb][1]);
+    a[kb][1] = pack_bf16(acc[2 * kb][2], acc[2 * kb][3]);
+    a[kb][2] = pack_bf16(acc[2 * kb + 1][0], acc[2 * kb + 1][1]);
+    a[kb][3] = pack_bf16(acc[2 * kb + 1][2], acc[2 * kb + 1][3]);
   }
 }
 
-template <bool kPacked, int kEpilogue>
+// Issue the cp.async copies of one board pair's bytes into raw.
+__device__ __forceinline__ void fetch(const unsigned char* a, const unsigned char* b,
+                                      int board, unsigned char* raw) {
+  const size_t at = static_cast<size_t>(board) * 4096;
+  for (int c = threadIdx.x; c < 256; c += kThreads) {
+    cp_async16(raw + 16 * c, a + at + 16 * c);
+    cp_async16(raw + 4096 + 16 * c, b + at + 16 * c);
+  }
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// raw bytes (non-zero = ON) -> bf16 0/1 tiles [x][y]: each 16-byte chunk
+// is 16 cells of one column x.
+__device__ __forceinline__ void unpack(const unsigned char* raw, bf16* xa, bf16* xb) {
+  for (int c = threadIdx.x; c < 512; c += kThreads) {
+    const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * c);
+    const unsigned words[4] = {v.x, v.y, v.z, v.w};
+    unsigned h[8];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const unsigned on = __vcmpne4(words[i], 0u);  // 0xff in each ON byte
+      h[2 * i] = __byte_perm(on, 0u, 0x1100) & 0x3f803f80u;  // bf16 1.0 = 0x3f80
+      h[2 * i + 1] = __byte_perm(on, 0u, 0x3322) & 0x3f803f80u;
+    }
+    const int chunk = c & 255;
+    uint4* dst = reinterpret_cast<uint4*>((c < 256 ? xa : xb) + (chunk >> 2) * kStride +
+                                          ((chunk & 3) << 4));
+    dst[0] = make_uint4(h[0], h[1], h[2], h[3]);
+    dst[1] = make_uint4(h[4], h[5], h[6], h[7]);
+  }
+}
+
+// Store a board's results (rows x = 16 strip + g, + 8; columns y = 8 nt + 2t,
+// + 1) through the staging area with 16-byte stores.
+template <int kOut>
+__device__ __forceinline__ void store_board(const float (&res)[8][4], unsigned char* stage,
+                                            void* out, int board, int strip, int lane) {
+  const int x = strip * 16 + (lane >> 2), y = 2 * (lane & 3);
+  const size_t at = static_cast<size_t>(board) * 4096;
+  if (kOut == kMask) {
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + y;
+      *reinterpret_cast<unsigned short*>(stage + x * kByteStride + col) =
+          (res[nt][0] != 0.f) | ((res[nt][1] != 0.f) << 8);
+      *reinterpret_cast<unsigned short*>(stage + (x + 8) * kByteStride + col) =
+          (res[nt][2] != 0.f) | ((res[nt][3] != 0.f) << 8);
+    }
+    __syncthreads();
+    uint4* dst = reinterpret_cast<uint4*>(static_cast<signed char*>(out) + at);
+    for (int c = threadIdx.x; c < 64 * 4; c += kThreads)
+      dst[c] = *reinterpret_cast<const uint4*>(stage + (c >> 2) * kByteStride + 16 * (c & 3));
+  } else {
+    int* s = reinterpret_cast<int*>(stage);
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const int col = 8 * nt + y;
+      *reinterpret_cast<int2*>(s + x * kIntStride + col) =
+          make_int2(__float2int_rn(res[nt][0]), __float2int_rn(res[nt][1]));
+      *reinterpret_cast<int2*>(s + (x + 8) * kIntStride + col) =
+          make_int2(__float2int_rn(res[nt][2]), __float2int_rn(res[nt][3]));
+    }
+    __syncthreads();
+    int4* dst = reinterpret_cast<int4*>(static_cast<int*>(out) + at);
+    for (int c = threadIdx.x; c < 64 * 16; c += kThreads)
+      dst[c] = *reinterpret_cast<const int4*>(s + (c >> 4) * kIntStride + 4 * (c & 15));
+  }
+}
+
+template <int kPrimes, int kOut>
+__global__ void __launch_bounds__(kThreads)
+ntt_conv_kernel(const unsigned char* __restrict__ a, const unsigned char* __restrict__ b,
+                const bf16* __restrict__ twiddles, void* __restrict__ out, int B, int p1,
+                int p2, int crt_inverse) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  bf16* tw = reinterpret_cast<bf16*>(smem);  // W, V of each prime
+  bf16* xa = tw + 2 * kPrimes * kTile;
+  bf16* xb = xa + kTile;
+  bf16* turn = xb + kTile;
+  unsigned char* raw = reinterpret_cast<unsigned char*>(turn + kTile);
+  const int lane = threadIdx.x & 31, strip = threadIdx.x >> 5;
+
+  for (int c = threadIdx.x; c < 2 * kPrimes * 64 * 8; c += kThreads)
+    *reinterpret_cast<uint4*>(tw + (c >> 3) * kStride + 8 * (c & 7)) =
+        reinterpret_cast<const uint4*>(twiddles)[c];
+  const Prime primes[2] = {{static_cast<float>(p1), 1.f / static_cast<float>(p1)},
+                           {static_cast<float>(p2), 1.f / static_cast<float>(p2)}};
+
+  int board = blockIdx.x;
+  fetch(a, b, board, raw);
+  for (; board < B; board += gridDim.x) {
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();  // the bytes are in; the last board's staging is read
+    unpack(raw, xa, xb);
+    __syncthreads();
+    if (board + gridDim.x < B) fetch(a, b, board + gridDim.x, raw);
+
+    float res[8][4];
+    unsigned first[8][2];  // the first prime's residues, bf16 pairs
+#pragma unroll
+    for (int k = 0; k < kPrimes; ++k) {
+      const Prime m = primes[k];
+      const bf16* w = tw + 2 * k * kTile;
+      const bf16* v = w + kTile;
+      unsigned fa[4][4], fb[4][4];
+      {
+        float acc_a[8][4], acc_b[8][4];
+        load_a(fa, w, strip, lane);  // the strip of W, shared by both boards
+        mma_strip(acc_a, fa, xa, lane);
+        mma_strip(acc_b, fa, xb, lane);
+        reduce(acc_a, m);
+        reduce(acc_b, m);
+        to_operand(acc_a, fa);
+        to_operand(acc_b, fb);
+        mma_strip_pair(acc_a, acc_b, fa, fb, w, lane);
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            acc_a[nt][i] = mod_p(mod_p(acc_a[nt][i], m) * mod_p(acc_b[nt][i], m), m);
+        to_operand(acc_a, fa);
+      }
+      float acc[8][4];
+      mma_strip(acc, fa, v, lane);
+      reduce(acc, m);
+      if (k > 0) __syncthreads();  // every warp has read the last prime's turn
+      const int row = strip * 16 + (lane >> 2), col = 2 * (lane & 3);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        *reinterpret_cast<unsigned*>(turn + row * kStride + 8 * nt + col) =
+            pack_bf16(acc[nt][0], acc[nt][1]);
+        *reinterpret_cast<unsigned*>(turn + (row + 8) * kStride + 8 * nt + col) =
+            pack_bf16(acc[nt][2], acc[nt][3]);
+      }
+      __syncthreads();
+      load_a_trans(fa, turn, strip, lane);
+      mma_strip(res, fa, v, lane);
+      reduce(res, m);
+      if (kPrimes == 2 && k == 0) {
+#pragma unroll
+        for (int nt = 0; nt < 8; ++nt) {
+          first[nt][0] = pack_bf16(res[nt][0], res[nt][1]);
+          first[nt][1] = pack_bf16(res[nt][2], res[nt][3]);
+        }
+      }
+    }
+    if (kPrimes == 2) {
+      // CRT: c1 + p1 * ((c2 - c1) * p1^-1 mod p2), with c2 - c1 + p2 > 0
+      const Prime m2 = primes[1];
+      const float crt = static_cast<float>(crt_inverse);
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const float c1[4] = {low_bf16(first[nt][0]), high_bf16(first[nt][0]),
+                             low_bf16(first[nt][1]), high_bf16(first[nt][1])};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          res[nt][i] = c1[i] + primes[0].p * mod_p((res[nt][i] - c1[i] + m2.p) * crt, m2);
+      }
+    }
+    // the board tiles are free: every warp passed the barrier after its
+    // last stage-1 read
+    store_board<kOut>(res, reinterpret_cast<unsigned char*>(xa), out, board, strip, lane);
+  }
+}
+
+inline bool prime_ok(int p) { return p > 2 && p <= kMaxPrime; }
+
+template <int kPrimes, int kOut>
+cudaError_t launch(const void* a, const void* b, const void* twiddles, void* out, int B,
+                   int p1, int p2, int crt_inverse, cudaStream_t stream) {
+  if (B <= 0 || !prime_ok(p1) ||
+      (kPrimes == 2 && (!prime_ok(p2) || crt_inverse < 0 || crt_inverse >= p2)))
+    return cudaErrorInvalidValue;
+  auto kernel = ntt_conv_kernel<kPrimes, kOut>;
+  constexpr int bytes = smem_bytes<kPrimes>();
+  int device, sms, per_sm;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err == cudaSuccess) err = cudaGetDevice(&device);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const int grid = B < sms * per_sm ? B : sms * per_sm;
+  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const unsigned char*>(a),
+                                            static_cast<const unsigned char*>(b),
+                                            static_cast<const bf16*>(twiddles), out, B, p1,
+                                            p2, crt_inverse);
+  return cudaGetLastError();
+}
+
+}  // namespace ntt
+
+// ---------------------------------------------------------------------------
+// Packed single-prime counts (replaces conv_pallas.conv_small_packed)
+// ---------------------------------------------------------------------------
+
+constexpr int kXPerThread = 16;  // 256 threads = 64 rows y x 4 groups of 16 x
+
 __global__ void __launch_bounds__(kThreadsPerBlock)
-conv_dense_kernel(const void* __restrict__ a, const void* __restrict__ b,
-                  void* __restrict__ out) {
+conv_dense_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
+                  unsigned* __restrict__ out, int p) {
   __shared__ u64 sa[128];  // a's columns twice: sa[j] = a[j % 64]
   __shared__ u64 sb[64];   // rev(b[c])
   const size_t board = blockIdx.x;
-  load_board<kPacked>(a, board, sa);
-  load_board<kPacked>(b, board, sb);
-  __syncthreads();
   if (threadIdx.x < 64) {
-    sa[threadIdx.x + 64] = sa[threadIdx.x];
-    sb[threadIdx.x] = __brevll(sb[threadIdx.x]);
+    sa[threadIdx.x] = sa[threadIdx.x + 64] = a[board * 64 + threadIdx.x];
+    sb[threadIdx.x] = __brevll(b[board * 64 + threadIdx.x]);
   }
   __syncthreads();
 
@@ -207,33 +577,16 @@ conv_dense_kernel(const void* __restrict__ a, const void* __restrict__ b,
     for (int i = 0; i < kXPerThread; ++i) acc[i] += __popcll(col[i] & r);
   }
 
-  const size_t cell0 = board * 4096 + static_cast<size_t>(x0) * 64 + y;
 #pragma unroll
   for (int i = 0; i < kXPerThread; ++i) {
-    const int v = kEpilogue == kCounts ? acc[i] : acc[i] % kModulus;
-    if (kEpilogue == kCounts || kEpilogue == kResidue) {
-      static_cast<int*>(out)[cell0 + i * 64] = v;
-    } else if (kEpilogue == kResidueMask) {
-      static_cast<signed char*>(out)[cell0 + i * 64] = v != 0;
-    } else {
-      // a warp holds 32 consecutive rows of one column: one ballot is the
-      // column word's low (rows 0-31) or high (32-63) half
-      const unsigned bits = __ballot_sync(kFullMask, v != 0);
-      if ((threadIdx.x & 31) == 0)
-        static_cast<unsigned*>(out)[(board * 64 + x0 + i) * 2 + (y >> 5)] = bits;
-    }
+    // a warp holds 32 consecutive rows of one column: one ballot is the
+    // column word's low (rows 0-31) or high (32-63) half
+    const unsigned bits = __ballot_sync(kFullMask, acc[i] % p != 0);
+    if ((threadIdx.x & 31) == 0) out[(board * 64 + x0 + i) * 2 + (y >> 5)] = bits;
   }
 }
 
 inline dim3 warp_grid(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
-
-template <bool kPacked, int kEpilogue>
-cudaError_t launch_dense(const void* a, const void* b, void* out, int B,
-                         cudaStream_t stream) {
-  if (B <= 0) return cudaErrorInvalidValue;
-  conv_dense_kernel<kPacked, kEpilogue><<<B, kThreadsPerBlock, 0, stream>>>(a, b, out);
-  return cudaGetLastError();
-}
 
 }  // namespace
 
@@ -256,22 +609,29 @@ extern "C" cudaError_t life_counts_sparse(const u64* a, const u64* b, u64* out,
   return cudaGetLastError();
 }
 
-// a, b: dense bytes [B, 64, 64]; out: int32 [B, 64, 64] exact counts.
-extern "C" cudaError_t life_conv_counts(const void* a, const void* b, int* out,
-                                        int B, cudaStream_t stream) {
-  return launch_dense<false, kCounts>(a, b, out, B, stream);
+// a, b: dense bytes [B, 64, 64], 16-byte aligned; twiddles: bf16 [4, 64, 64]
+// (W, V mod p1, then mod p2); out: int32 [B, 64, 64] exact counts.
+extern "C" cudaError_t life_conv_counts(const void* a, const void* b, const void* twiddles,
+                                        int* out, int B, int p1, int p2, int crt_inverse,
+                                        cudaStream_t stream) {
+  return ntt::launch<2, ntt::kCounts>(a, b, twiddles, out, B, p1, p2, crt_inverse, stream);
 }
 
-// a, b: dense bytes [B, 64, 64]; out: int8 [B, 64, 64] count % 193 != 0
-// when out_or, else int32 [B, 64, 64] count % 193.
-extern "C" cudaError_t life_conv_small(const void* a, const void* b, void* out,
-                                       int B, int out_or, cudaStream_t stream) {
-  return out_or ? launch_dense<false, kResidueMask>(a, b, out, B, stream)
-                : launch_dense<false, kResidue>(a, b, out, B, stream);
+// a, b: dense bytes [B, 64, 64], 16-byte aligned; twiddles: bf16 [2, 64, 64]
+// (W, V mod p) or more; out: int8 [B, 64, 64] count % p != 0 when out_or,
+// else int32 [B, 64, 64] count % p.
+extern "C" cudaError_t life_conv_small(const void* a, const void* b, const void* twiddles,
+                                       void* out, int B, int p, int out_or,
+                                       cudaStream_t stream) {
+  return out_or ? ntt::launch<1, ntt::kMask>(a, b, twiddles, out, B, p, p, 0, stream)
+                : ntt::launch<1, ntt::kResidue>(a, b, twiddles, out, B, p, p, 0, stream);
 }
 
-// a, b, out: int64 [B, 64]; out = the boards of count % 193 != 0.
+// a, b, out: int64 [B, 64]; out = the boards of count % p != 0.
 extern "C" cudaError_t life_conv_small_packed(const u64* a, const u64* b, u64* out,
-                                              int B, cudaStream_t stream) {
-  return launch_dense<true, kResiduePacked>(a, b, out, B, stream);
+                                              int B, int p, cudaStream_t stream) {
+  if (B <= 0 || p < 2) return cudaErrorInvalidValue;
+  conv_dense_kernel<<<B, kThreadsPerBlock, 0, stream>>>(a, b, reinterpret_cast<unsigned*>(out),
+                                                         p);
+  return cudaGetLastError();
 }

@@ -11,10 +11,12 @@ twin.  A CUDA tensor never falls back to the twin: anything the kernel does
 not take raises.
 
 The TPU's batch tiles, padding and interpret flags have no counterpart: the
-kernels take any batch.  The single-prime kernels compute the counts mod 193
-(``conv_pallas``'s NTT is exact in that ring), so their results here are the
-residues of the exact counts on every input, in or out of the "< 193"
-contract.
+kernels take any batch.  The dense counts are a number-theoretic transform
+on the tensor cores, with the primes, twiddles and CRT inverse of
+:mod:`..core.ntt`, which the plain twins compute as well.  The single-prime
+kernels compute the counts mod 193 (``conv_pallas``'s NTT is exact in that
+ring), so their results here are the residues of the exact counts on every
+input, in or out of the "< 193" contract.
 
 ``LAUNCHES`` counts kernel launches per entry point, so a run can show that
 its main path went through the kernels.
@@ -26,6 +28,7 @@ import torch
 
 from ..core import bitops
 from ..core import board as B
+from ..core import ntt
 from . import _build
 from .stable_cuda import first_cell_mask
 from .step_cuda import _launch, _stream
@@ -34,7 +37,7 @@ LAUNCHES = {"convolve_sparse_fused": 0, "counts_sparse_fused": 0,
             "conv_counts_fused": 0, "conv_small_fused": 0, "conv_small_packed": 0}
 
 MAX_PLANES = 13  # counter planes of the peel kernel: every count <= 4096 fits
-MODULUS = 193  # the prime of conv_pallas's single-prime kernels
+MODULUS = ntt.PRIMES[0]  # the prime of conv_pallas's single-prime kernels
 
 
 def reset_launches():
@@ -138,8 +141,8 @@ def counts_sparse_fused(a, b, n_planes=6):
 
 
 # ---------------------------------------------------------------------------
-# Dense counts (replaces conv_pallas.conv_counts_fused, conv_small_fused and
-# conv_small_packed)
+# Dense counts (replaces conv_pallas.conv_counts_fused and conv_small_fused:
+# a tensor-core NTT; conv_small_packed: bit-parallel popcounts)
 # ---------------------------------------------------------------------------
 
 
@@ -159,6 +162,24 @@ def _dense_pair(da, db):
     return da.contiguous().view(torch.uint8), db.contiguous().view(torch.uint8)
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes (the
+    kernel reads 16-byte chunks)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+_TWIDDLES = {}
+
+
+def _twiddles(device):
+    """W and V of each prime of :mod:`..core.ntt` as ``bfloat16[4, 64, 64]``
+    on ``device`` (exact: every entry is below 257), built once a device."""
+    if device not in _TWIDDLES:
+        mats = [ntt.matrix(p, inverse) for p in ntt.PRIMES for inverse in (False, True)]
+        _TWIDDLES[device] = torch.stack(mats).to(device=device, dtype=torch.bfloat16)
+    return _TWIDDLES[device]
+
+
 def _packed_pair(pa, pb):
     for name, p in (("pa", pa), ("pb", pb)):
         if not isinstance(p, torch.Tensor) or p.dtype != torch.int64:
@@ -174,7 +195,7 @@ def _packed_pair(pa, pb):
 
 def packed_counts_plain(pa, pb):
     """Exact circular-convolution counts ``int32[..., 64, 64]`` of boards
-    ``int64[..., 64]``, by the kernels' formula
+    ``int64[..., 64]``, by the packed kernel's formula
     ``count[x][y] = sum_u popcount(a[u] & rotl(rev(b[x - u]), y + 1))``."""
     # rot[..., c, y] = rotl(rev(b[c]), y + 1)
     k = torch.remainder(torch.arange(1, 65, device=pb.device), 64)
@@ -187,11 +208,13 @@ def packed_counts_plain(pa, pb):
 
 
 def conv_counts_fused_plain(da, db):
-    return packed_counts_plain(B.from_dense(da != 0), B.from_dense(db != 0))
+    """The two-prime NTT with its CRT (:func:`..core.ntt.counts`)."""
+    return ntt.counts(da != 0, db != 0).to(torch.int32)
 
 
 def conv_small_fused_plain(da, db, out_or=True):
-    residue = conv_counts_fused_plain(da, db) % MODULUS
+    """The single-prime NTT mod 193 (:func:`..core.ntt.residues`)."""
+    residue = ntt.residues(da != 0, db != 0, MODULUS).to(torch.int32)
     return (residue != 0).to(torch.int8) if out_or else residue
 
 
@@ -201,14 +224,18 @@ def conv_small_packed_plain(pa, pb):
 
 def conv_counts_fused(da, db):
     """Exact circular-convolution counts of dense 0/1 fields ``[B, 64, 64]``
-    (bool or 8-bit) -> ``int32[B, 64, 64]``, every count <= 4096."""
+    (bool or 8-bit, non-zero = ON) -> ``int32[B, 64, 64]``, every count
+    <= 4096."""
     da, db = _dense_pair(da, db)
     if not da.is_cuda:
         return conv_counts_fused_plain(da, db)
+    da, db = _aligned(da), _aligned(db)
     out = torch.empty(da.shape, dtype=torch.int32, device=da.device)
+    p1, p2 = ntt.PRIMES
     with torch.cuda.device(da.device):
         _launch(_build.library().life_conv_counts, da.data_ptr(), db.data_ptr(),
-                out.data_ptr(), da.shape[0], _stream(da.device))
+                _twiddles(da.device).data_ptr(), out.data_ptr(), da.shape[0], p1, p2,
+                ntt.CRT_INVERSE, _stream(da.device))
     LAUNCHES["conv_counts_fused"] += 1
     return out
 
@@ -221,11 +248,13 @@ def conv_small_fused(da, db, out_or=True):
     out_or = bool(out_or)
     if not da.is_cuda:
         return conv_small_fused_plain(da, db, out_or)
+    da, db = _aligned(da), _aligned(db)
     out = torch.empty(da.shape, dtype=torch.int8 if out_or else torch.int32,
                       device=da.device)
     with torch.cuda.device(da.device):
         _launch(_build.library().life_conv_small, da.data_ptr(), db.data_ptr(),
-                out.data_ptr(), da.shape[0], int(out_or), _stream(da.device))
+                _twiddles(da.device).data_ptr(), out.data_ptr(), da.shape[0], MODULUS,
+                int(out_or), _stream(da.device))
     LAUNCHES["conv_small_fused"] += 1
     return out
 
@@ -239,6 +268,6 @@ def conv_small_packed(pa, pb):
     out = torch.empty_like(pa)
     with torch.cuda.device(pa.device):
         _launch(_build.library().life_conv_small_packed, pa.data_ptr(), pb.data_ptr(),
-                out.data_ptr(), pa.shape[0], _stream(pa.device))
+                out.data_ptr(), pa.shape[0], MODULUS, _stream(pa.device))
     LAUNCHES["conv_small_packed"] += 1
     return out

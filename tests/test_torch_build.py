@@ -37,6 +37,15 @@ def test_ptxas_report_names_each_kernel():
         ("beam_kernel<256>", 173, 172), ("rollout_kernel", 32, 0)]
 
 
+NTT = "_ZN47_GLOBAL__N__f662ddb2_14_life_conv_cu_e29dcd4a3ntt15ntt_conv_kernelILi{}ELi{}EEEvPKhS3_PK13__nv_bfloat16Pviiii"
+
+
+@pytest.mark.parametrize("args", [(2, 0), (1, 1), (1, 2)])
+def test_kernel_label_keeps_every_template_argument(args):
+    assert chip_smoke.kernel_label(NTT.format(*args)) == f"ntt_conv_kernel<{args[0]}, {args[1]}>"
+    assert chip_smoke.kernel_label(ROLLOUT) == "rollout_kernel"
+
+
 def _sass(name, body):
     """A ``cuobjdump -sass`` listing of one function from (opcode, operands)."""
     lines = [f"\t\tFunction : {name}",
@@ -72,3 +81,20 @@ def test_sass_loop_without_whole_generations_is_refused(shuffles):
     code = chip_smoke.sass_functions(_sass(ROLLOUT, body))["rollout_kernel"]
     with pytest.raises(AssertionError, match="no generation loop"):
         chip_smoke.instructions_per_generation(code)
+
+
+def _ntt_listing(hmma):
+    body = [("LDSM.16.M88.4", "R4, [R2]"), ("HMMA.16816.F32.BF16", "R8, R4, R12, R8")] * hmma
+    body += [("FRND.FLOOR", "R1, R2"), ("EXIT", "")]
+    return "".join(_sass(NTT.format(*args), body) for args in ((2, 0), (1, 1), (1, 2)))
+
+
+def test_ntt_sass_counts_tensor_core_instructions():
+    counts = chip_smoke.ntt_sass_counts(chip_smoke.sass_functions(_ntt_listing(3)))
+    assert counts == {name: (3, 3, 1, 8) for name in
+                      ("ntt_conv_kernel<2, 0>", "ntt_conv_kernel<1, 1>", "ntt_conv_kernel<1, 2>")}
+
+
+def test_ntt_sass_without_hmma_is_refused():
+    with pytest.raises(AssertionError, match="lacks HMMA"):
+        chip_smoke.ntt_sass_counts(chip_smoke.sass_functions(_ntt_listing(0)))

@@ -92,6 +92,55 @@ def test_conv_counts_fused_matches_pallas(rng):
     assert (expect[3] == 4096).all() and expect[:3].max() > 257  # the CRT matters
 
 
+def _edge_pairs(rng):
+    """An all-OFF pair, a single cell against a single cell, and single cells
+    against p=0.5 boards (the counts are the board translated by the cell)."""
+    da = np.zeros((4, 64, 64), bool)
+    db = rng.random((4, 64, 64)) < 0.5
+    db[0] = False
+    cells = [(0, 0), (17, 63), (63, 5), (40, 22)]
+    for i, (x, y) in enumerate(cells):
+        da[i, x, y] = True
+    db[1] = False
+    db[1, 63, 63] = True
+    return da, db, cells
+
+
+@pytest.mark.parametrize("kernel", ["counts", "residue", "mask"])
+def test_dense_counts_edge_pairs_match_pallas(rng, kernel):
+    da, db, cells = _edge_pairs(rng)
+    ta, tdb = torch.from_numpy(da), torch.from_numpy(db)
+    if kernel == "counts":
+        expect = CP.conv_counts_fused(jnp.asarray(da), jnp.asarray(db), interpret=True)
+        got = conv_cuda.conv_counts_fused(ta, tdb)
+    else:
+        out_or = kernel == "mask"
+        expect = CP.conv_small_fused(jnp.asarray(da), jnp.asarray(db), out_or=out_or,
+                                     interpret=True)
+        got = conv_cuda.conv_small_fused(ta, tdb, out_or=out_or)
+    assert (got.numpy() == np.asarray(expect)).all()
+    assert int(got[0].max()) == 0
+    assert int(got[1].sum()) == 1 and int(got[1, 16, 62]) == 1  # (17, 63) + (63, 63)
+    for i in (2, 3):  # a single cell translates the other board
+        x, y = cells[i]
+        moved = tb.to_dense(tb.move(tb.from_dense(tdb[i]), x, y))
+        assert torch.equal(got[i] != 0, moved)
+
+
+def test_dense_counts_take_any_non_zero_byte_as_on(rng):
+    """Bytes other than 1 (unsigned and negative) are ON cells."""
+    da = rng.random((3, 64, 64)) < 0.5
+    db = rng.random((3, 64, 64)) < 0.5
+    ta, tdb = torch.from_numpy(da), torch.from_numpy(db)
+    wide = torch.from_numpy(da * rng.integers(1, 256, da.shape).astype(np.uint8))
+    signed = torch.from_numpy(db * rng.integers(-128, 0, db.shape).astype(np.int8))
+    assert torch.equal(conv_cuda.conv_counts_fused(wide, signed),
+                       conv_cuda.conv_counts_fused(ta, tdb))
+    for out_or in (True, False):
+        assert torch.equal(conv_cuda.conv_small_fused(wide, signed, out_or=out_or),
+                           conv_cuda.conv_small_fused(ta, tdb, out_or=out_or))
+
+
 @pytest.mark.parametrize("out_or", [True, False])
 def test_conv_small_fused_matches_pallas(rng, out_or):
     """Includes p=0.5 pairs whose counts pass 193: outside the kernel's

@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from lifeapi_tpu_torch.core import board as B
-from lifeapi_tpu_torch.core import rle
+from lifeapi_tpu_torch.core import ntt, rle
 from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, stable_cuda, step_cuda
 from lifeapi_tpu_torch.search import rollout_inputs
 from lifeapi_tpu_torch.stable import bitplane as BP
@@ -295,6 +295,79 @@ def test_dense_counts_epilogues_agree(device):
     assert torch.equal(packed, B.from_dense(mask != 0))
     peeled = sum(B.to_dense(p).to(torch.int32) << i for i, p in enumerate(planes))
     assert torch.equal(peeled, counts[:64])
+
+
+def _ntt_operands(batch, device):
+    """p=0.5 pairs (counts above 257), with an all-ON pair, an all-OFF pair,
+    a single-cell pair and an ON board against an OFF one in front."""
+    rng = np.random.default_rng(batch)
+    da = rng.random((batch, 64, 64)) < 0.5
+    db = rng.random((batch, 64, 64)) < 0.5
+    fronts = [(True, True), (False, False), ((3, 60), (63, 9)), (True, False)]
+    for i, (fa, fb) in enumerate(fronts[:batch]):
+        for d, f in ((da, fa), (db, fb)):
+            d[i] = f if isinstance(f, bool) else False
+            if not isinstance(f, bool):
+                d[i][f] = True
+    return torch.from_numpy(da).to(device), torch.from_numpy(db).to(device)
+
+
+@pytest.mark.parametrize("batch", [1, 5, 1000])
+def test_ntt_kernels_match_twins_and_peel(device, batch):
+    """The NTT kernels [13] and [14] against their twins and against the
+    peel [12] at 13 planes, on one board, on fewer boards than resident
+    blocks and on a batch the persistent blocks share unevenly."""
+    da, db = _ntt_operands(batch, device)
+    counts = _conv_pair(conv_cuda, "conv_counts_fused", (da, db))[0]
+    residue = _conv_pair(conv_cuda, "conv_small_fused", (da, db), dict(out_or=False))[0]
+    mask = _conv_pair(conv_cuda, "conv_small_fused", (da, db), dict(out_or=True))[0]
+    planes = conv_cuda.counts_sparse_fused(B.from_dense(da), B.from_dense(db), 13)
+    peeled = sum(B.to_dense(p).to(torch.int32) << i for i, p in enumerate(planes))
+    assert torch.equal(counts, peeled)
+    assert torch.equal(residue, counts % 193)
+    assert torch.equal(mask, (counts % 193 != 0).to(torch.int8))
+    assert int(counts[0].min()) == 4096 and int(counts.max()) == 4096
+    if batch > 1:
+        assert int(counts[1].max()) == 0 and int(mask[1].max()) == 0
+    if batch > 2:
+        cell = torch.zeros((64, 64), dtype=torch.int32, device=device)
+        cell[(3 + 63) % 64, (60 + 9) % 64] = 1  # a single cell times a single cell
+        assert torch.equal(counts[2], cell)
+        assert int(counts[3].max()) == 0
+    if batch > 4:
+        assert int(counts[4:].max()) >= 257 and int(residue.max()) < 193
+
+
+def test_ntt_kernels_take_unaligned_fields_and_other_on_bytes(device):
+    """A field whose data does not start on 16 bytes, and ON bytes other
+    than 1, give the counts of the 0/1 fields."""
+    da, db = _ntt_operands(7, device)
+    want = conv_cuda.conv_counts_fused(da, db)
+    store = torch.zeros(7 * 4096 + 1, dtype=torch.uint8, device=device)
+    shifted = store[1:].view(7, 64, 64)
+    shifted.copy_(da.to(torch.uint8) * 77)
+    noisy = db.to(torch.int8) * -3
+    assert shifted.data_ptr() % 16
+    assert torch.equal(conv_cuda.conv_counts_fused(shifted, noisy), want)
+    assert torch.equal(conv_cuda.conv_small_fused(shifted, noisy, out_or=False), want % 193)
+
+
+def test_cuda_tensors_never_reach_the_ntt_twins(device, monkeypatch):
+    da, db = _ntt_operands(9, device)
+    want = ntt.counts(da, db).to(torch.int32)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a CUDA tensor reached a plain twin")
+
+    monkeypatch.setattr(conv_cuda, "conv_counts_fused_plain", refuse)
+    monkeypatch.setattr(conv_cuda, "conv_small_fused_plain", refuse)
+    before = dict(conv_cuda.LAUNCHES)
+    counts = conv_cuda.conv_counts_fused(da, db)
+    residue = conv_cuda.conv_small_fused(da, db, out_or=False)
+    torch.cuda.synchronize()
+    assert conv_cuda.LAUNCHES["conv_counts_fused"] == before["conv_counts_fused"] + 1
+    assert conv_cuda.LAUNCHES["conv_small_fused"] == before["conv_small_fused"] + 1
+    assert torch.equal(counts, want) and torch.equal(residue, want % 193)
 
 
 @pytest.mark.parametrize("mix", ["elemwise", "rolls"])
