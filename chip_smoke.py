@@ -6,7 +6,9 @@
 Phases, each printing what it saw:
 
 1. environment: the card's name and power limit; build the CUDA kernels
-   of ``lifeapi_tpu_torch/csrc`` with nvcc;
+   of ``lifeapi_tpu_torch/csrc`` with nvcc; each kernel's registers and
+   spills (ptxas), and the resident blocks an SM of the NTT and beam
+   kernels (the CUDA runtime's occupancy calculator);
 2. the main path, with the kernels' launch counters set to 0 just before:
    the headline rollout (8192 random boards, 512 generations), the MPC
    solver in its demo and bench configurations, and the catalyst search on
@@ -22,8 +24,9 @@ Phases, each printing what it saw:
    of the four solver kernels against its twin (bit-exact, on the bench
    shapes and on random, seeded and bounded instances), the known answers
    (pop-7 eater on every problem, 49 -> 40 unknowns, a lone cell proved
-   inconsistent, bound 7 finds nothing) and every board found checked to be
-   a still life;
+   inconsistent, bound 7 finds nothing), the beam kernel on uneven
+   instances at every frontier, and every board found checked to be a
+   still life;
 5. the convolution layer's path ([conv]), with the conv and calibration
    counters set to 0 just before: the catalyst search over the offsets
    ``candidate_offsets`` keeps (4025; 195 interacted, 3845 recovered, 15
@@ -43,9 +46,11 @@ Phases, each printing what it saw:
    against the beam's plain twin and the JAX package's count, tier 3's
    soundness, the dense propagate against kernel B, and kernel [4] against
    its twin and kernel [1];
-7. timings on the card (CUDA events, medians after a warm-up), the
-   calibrated word-op ceilings, every kernel's bound, and the NTT kernels'
-   tensor-core instructions (HMMA) in the SASS of the library just built.
+7. timings on the card (CUDA events, medians after a warm-up; device
+   times from torch.profiler with the SM clock read under the same load),
+   the calibrated word-op ceilings, every kernel's bound (the rollout and
+   solver kernels' from the SASS of the library just built), and the NTT
+   kernels' tensor-core instructions (HMMA) in that SASS.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -122,13 +127,25 @@ SHFL_PER_GENERATION = 16  # 4 column exchanges x (lo, hi) x two 32-bit halves
 ROLLOUT_KERNELS = {"rollout": "rollout_kernel", "rollout_lohi": "rollout_lohi_kernel",
                    "controlled_rollout": "controlled_kernel",
                    "catalyst_rollout": "catalyst_kernel"}
-# life_stable.cu stable_step: sync 26, two count9 46 (8 shuffles and selects
-# each), nibble sums 21, update 55, signal 53, two hollow ZOIs 18, apply 19,
-# the fixpoint's vote and copy-back 12
+# Hand counts of life_stable.cu, kept for kernel A and printed beside the
+# SASS bounds of kernels B-D: stable_step: sync 26, two count9 46 (8
+# shuffles and selects each), nibble sums 21, update 55, signal 53, two
+# hollow ZOIs 18, apply 19, the fixpoint's vote and copy-back 12
 STABLE_STEP_OPS = 250
 # priority: two count9 46, vulnerable 306 (four is_forced 264), three hollow
 # ZOIs 27, levels 16
 PRIORITY_OPS = 395
+# Kernels B-D (life_stable.cu fixpoint_kernel, beam_kernel) are held to their
+# SASS, as the rollouts: warp instructions per board-step (the fixpoint
+# loop: stable_step, the votes and, in B and C, the copy-back) and per
+# priority board (the straight-line block of priority()), one warp per
+# board, over the issue peak.  The loop and the block are told by their
+# 32-bit shuffles: two count9 (16 each) and two hollow ZOIs (8 each) a
+# step, two count9 and three hollow ZOIs in priority().
+STEP_SHUFFLES, PRIORITY_SHUFFLES = 48, 56
+SOLVER_KERNELS = {"propagate_fixpoint": "fixpoint_kernel<0>",
+                  "propagate_fixpoint_priorities": "fixpoint_kernel<1>",
+                  "beam_search": "beam_kernel<4>"}  # the bench's frontier
 # life_conv.cu peel(): ballot, shuffle of the word, clear, 2 shuffles + 2
 # selects of a, variable rotate 2, index arithmetic 1 (per word)
 PEEL_OPS = 8
@@ -142,8 +159,8 @@ PEEL_OR_OPS, PEEL_COUNT_OPS = 1, 26  # OR into acc; ripple through 13 planes (AN
 # along both).  The element-wise mods and the CRT are left out.
 BF16_FLOP_PER_S = 989e12
 NTT_FLOP_PER_PRIME = 6 * 2 * 64**3
-# The NTT kernel of [13] and [14] (life_conv.cu ntt_conv_kernel<primes,
-# out>) also reduces every stage mod p on the ALUs: 7 x 4096 reductions a
+# The NTT kernel of [13]-[15] (life_conv.cu ntt_conv_kernel<primes, out>)
+# also reduces every stage mod p on the ALUs: 7 x 4096 reductions a
 # board and prime (both forward stages of both boards, the product, both
 # inverse stages) and 4096 CRT steps for two primes, each MOD_INSTRUCTIONS
 # thread instructions (mod_p: FMUL, FRND.FLOOR, FFMA, FSETP, FADD, FSEL),
@@ -151,10 +168,12 @@ NTT_FLOP_PER_PRIME = 6 * 2 * 64**3
 NTT_KERNEL = "ntt_conv_kernel"
 MOD_REDUCTIONS_PER_PRIME = 7 * 4096
 MOD_INSTRUCTIONS = 6
-# [15]'s conv_dense_kernel's own work, printed as its algorithm bound:
-# threads x c x (variable rotate 2 + 16 x (AND, POPC, ADD)), word-ops at the
-# elemwise ceiling
-DENSE_OPS_PER_BOARD = 256 * 64 * (2 + 16 * 3)
+
+# Device times at these shapes before the kernels' redesign (the beam kernel
+# as one block of F warps at 173 registers, [15] on a popcount body), on an
+# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside this
+# run's.
+DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484}
 
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
 BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
@@ -230,20 +249,24 @@ def oracle_run(words, generations):
 
 
 def kernel_label(mangled):
-    """``beam_kernel<256>`` or ``ntt_conv_kernel<2, 0>`` from an entry
-    function's mangled name (an identifier is mangled as its length, then
-    its letters; integer template arguments as ``Li<n>E``)."""
-    for m in re.finditer(r"\d+", mangled):
-        digits, rest = m.group(), mangled[m.end():]
-        for i in range(len(digits)):
-            n = int(digits[i:])
-            if n <= len(rest) and rest[:n].endswith("_kernel"):
-                args = re.match(r"I((?:L[ib]\d+E)+)E", rest[n:])
-                if not args:
-                    return rest[:n]
-                values = re.findall(r"(\d+)E", args.group(1))
-                return f"{rest[:n]}<{', '.join(values)}>"
-    return mangled
+    """``beam_kernel<4>`` or ``ntt_conv_kernel<2, 0>`` from an entry
+    function's mangled name.  The name is read from its start: ``_ZN``, then
+    each enclosing namespace and the function as its length and its letters
+    (the anonymous namespace's name holds a hash of the source's path, whose
+    digits must not be taken for a length), then integer template arguments
+    as ``I`` ``Li<n>E``... ``E``."""
+    pos = 3 if mangled.startswith("_ZN") else 2 if mangled.startswith("_Z") else None
+    name = None
+    while pos is not None and (length := re.match(r"\d+", mangled[pos:])):
+        pos += length.end()
+        name = mangled[pos:pos + int(length.group())]
+        pos += len(name)
+    if name is None or not name.endswith("_kernel"):
+        return mangled
+    args = re.match(r"I((?:L[ib]\d+E)+)E", mangled[pos:])
+    if not args:
+        return name
+    return f"{name}<{', '.join(re.findall(r'(\d+)E', args.group(1)))}>"
 
 
 def ptxas_report(log):
@@ -276,16 +299,34 @@ def sass_functions(listing):
     return funcs
 
 
-def instructions_per_generation(code):
-    """Instructions per generation of the loop (a backward branch and what
-    it jumps over) that holds the most shuffles."""
-    best = (0, 0)
+def _branch_target(op, args):
+    """The address a branch or a reconvergence point (BSSY) names, or None."""
+    if op.startswith(("BRA", "BSSY", "JMP", "CALL")):
+        m = re.search(r"0x([0-9a-f]+)", args)
+        return int(m.group(1), 16) if m else None
+    return None
+
+
+def _shuffles(ops):
+    return sum(op.startswith("SHFL") for op in ops)
+
+
+def loops(code):
+    """(shuffles, instructions) of every loop of a function's SASS: a
+    backward branch and what it jumps over."""
+    found = []
     for addr, op, args in code:
-        target = re.search(r"0x([0-9a-f]+)", args) if op.startswith("BRA") else None
-        if target and int(target.group(1), 16) <= addr:
-            body = [o for a, o, _ in code if int(target.group(1), 16) <= a <= addr]
-            best = max(best, (sum(o.startswith("SHFL") for o in body), len(body)))
-    shuffles, n = best
+        target = _branch_target(op, args) if op.startswith("BRA") else None
+        if target is not None and target <= addr:
+            body = [o for a, o, _ in code if target <= a <= addr]
+            found.append((_shuffles(body), len(body)))
+    return found
+
+
+def instructions_per_generation(code):
+    """Instructions per generation of the loop that holds the most
+    shuffles."""
+    shuffles, n = max(loops(code), default=(0, 0))
     check(shuffles > 0 and shuffles % SHFL_PER_GENERATION == 0,
           f"no generation loop found in the SASS ({shuffles} shuffles)")
     return n * SHFL_PER_GENERATION / shuffles
@@ -308,6 +349,51 @@ def rollout_sass_counts(funcs):
             for name, fn in ROLLOUT_KERNELS.items()}
 
 
+def basic_blocks(code):
+    """A function's SASS cut into basic blocks: a block ends after a branch,
+    exit, return or call, and a new one starts at every address a branch or
+    a BSSY names."""
+    targets = {t for _, op, args in code if (t := _branch_target(op, args)) is not None}
+    blocks, block = [], []
+    for addr, op, args in code:
+        if addr in targets and block:
+            blocks.append(block)
+            block = []
+        block.append((addr, op, args))
+        if op.startswith(("BRA", "BRX", "JMP", "JMX", "EXIT", "RET", "CALL")):
+            blocks.append(block)
+            block = []
+    return blocks + ([block] if block else [])
+
+
+def loop_instructions(code, shuffles):
+    """Instructions per pass of the innermost loop that holds ``shuffles``
+    shuffles a pass: of the loops that hold a positive multiple of them,
+    the one with the fewest instructions; k times the shuffles count k
+    passes."""
+    passes = [(size, n) for n, size in loops(code) if n and n % shuffles == 0]
+    check(passes, f"no loop of {shuffles} shuffles a pass in the SASS")
+    size, n = min(passes)
+    return size * shuffles / n
+
+
+def block_instructions(code, shuffles):
+    """Instructions of the smallest basic block that holds exactly
+    ``shuffles`` shuffles."""
+    sizes = [len(b) for b in basic_blocks(code) if _shuffles(op for _, op, _ in b) == shuffles]
+    check(sizes, f"no basic block of {shuffles} shuffles in the SASS")
+    return min(sizes)
+
+
+def solver_sass_counts(funcs):
+    """{entry: (warp instructions per board-step, per priority board or None)}
+    of kernels B, C and D, from their SASS."""
+    return {name: (loop_instructions(funcs[fn], STEP_SHUFFLES),
+                   None if name == "propagate_fixpoint"
+                   else block_instructions(funcs[fn], PRIORITY_SHUFFLES))
+            for name, fn in SOLVER_KERNELS.items()}
+
+
 def ntt_sass_counts(funcs):
     """{instantiation: (HMMA, LDSM, FRND, instructions)} of the NTT kernels
     in the SASS; fail unless each multiplies on the tensor cores (HMMA)."""
@@ -317,7 +403,7 @@ def ntt_sass_counts(funcs):
             ops = [op for _, op, _ in code]
             counts[name] = tuple(sum(o.startswith(p) for o in ops)
                                  for p in ("HMMA", "LDSM", "FRND")) + (len(ops),)
-    check(len(counts) == 3 and all(c[0] > 0 for c in counts.values()),
+    check(len(counts) == 4 and all(c[0] > 0 for c in counts.values()),
           f"the NTT kernels' SASS lacks HMMA: {counts}")
     return counts
 
@@ -329,6 +415,23 @@ def issue_peak():
         check=True, capture_output=True, text=True, timeout=60).stdout.split()[0]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     return sms * SCHEDULERS_PER_SM * float(mhz) * 1e6, sms, float(mhz)
+
+
+def print_occupancy():
+    """Resident blocks an SM (the CUDA runtime's occupancy calculator),
+    registers and local bytes a thread of every NTT instantiation and of the
+    beam kernel at each frontier; fail if the beam kernel spills."""
+    from lifeapi_tpu_torch.ops import conv_cuda, stable_cuda
+
+    for name, (blocks, regs, local) in conv_cuda.ntt_kernel_info().items():
+        print(f"[env] occupancy: {name}: {blocks} resident blocks of 4 warps an SM, "
+              f"{regs} registers, {local} local bytes a thread")
+    for frontier in (2, 4, 8, 16):
+        blocks, regs, local = stable_cuda.beam_kernel_info(frontier)
+        print(f"[env] occupancy: beam_kernel<{frontier}>: {blocks} resident blocks of "
+              f"{frontier} warps an SM ({blocks * frontier} warps), {regs} registers, "
+              f"{local} local bytes a thread")
+        check(local == 0, f"beam_kernel<{frontier}> spills ({local} local bytes a thread)")
 
 
 def max_err(got, want):
@@ -441,6 +544,38 @@ def profiled_device_ms(fn, kernel, n=20):
         torch.cuda.synchronize()
     total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
     return total_us / n / 1e3
+
+
+def sm_clock_under(fn, seconds=5.0):
+    """The SM clock in MHz (nvidia-smi) read while fn runs on the card, call
+    after call."""
+    proc = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm",
+                             "--format=csv,noheader,nounits"],
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        while proc.poll() is None and time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+        out = proc.communicate(timeout=60)[0]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    return out.split()[0]
+
+
+def device_ms_at(fn, kernel, n=20):
+    """(profiled_device_ms, sm_clock_under) of fn."""
+    return profiled_device_ms(fn, kernel, n), sm_clock_under(fn)
+
+
+def before_redesign(name, dev_ms):
+    """The kernel's device time before its redesign, and this run's speed-up."""
+    if name not in DEVICE_MS_BEFORE:
+        return ""
+    before = DEVICE_MS_BEFORE[name]
+    return f"; before the redesign {before:.4f} ms on the device ({before / dev_ms:.3g}x)"
 
 
 def wall(fn, n):
@@ -596,12 +731,24 @@ def stable_phase(dev):
     lone = BP.make(state=B.from_cells([(40, 40)], batch=(2,), device=dev))
     lone_res = C.complete_stable_beam(lone, frontier=8, iters=16, minimise=False)
     check(bool(lone_res.proved_inconsistent.all()), "a lone ON cell was not proved inconsistent")
+    kernel_vs_plain("beam_search", (BP.to_planes(lone).contiguous(),),
+                    dict(frontier=8, iters=16, minimise=False), err)
+    # slots whose fixpoints differ by up to 12 steps in a round, most problems
+    # dropping ok children (complete false) at F=2, at every frontier
+    uneven = planes_of(*block_instances(256, 11, 8, 4, 56, 0.5, ring2=True), dev)
+    for frontier, iters in ((2, 8), (4, 12), (8, 12), (16, 6)):
+        _, _, _, complete, _ = kernel_vs_plain(
+            "beam_search", (uneven,), dict(frontier=frontier, iters=iters, minimise=True), err)
+        if frontier == 2:
+            n_dropped = int((~complete).sum())
+    check(n_dropped > 0, "F=2 on the uneven set dropped no child")
     print(f"[stable] kernels == plain twins: step, fixpoint and priorities on the "
           f"{FIX_B} fixpoint boards and on 1024 random instances ({n_abort} abort "
           f"their first step, {n_incons} inconsistent); beam on all {BEAM_B} bench "
           f"problems, the queued results on 3 chunks of {BEAM_B}, 1024 random "
           f"instances at F=8 (both minimise values), seeded and bounded (7: nothing "
-          f"found, 8: pop 7) at B=64; lone cell proved inconsistent")
+          f"found, 8: pop 7) at B=64, the lone cell (proved inconsistent), 256 uneven "
+          f"instances at F=2, 4, 8, 16 (F=2: {n_dropped} drop an ok child)")
     print(f"[counters] {launches}")
     return launches, err, (beam_bst, queue_bst, fix_bst)
 
@@ -630,21 +777,21 @@ def stable_timings(inputs, ms, plain_ms, card):
         lambda: SC.beam_search(beam_planes, **kw),
         lambda: SC.beam_search_plain(beam_planes, **kw), reps=2)
     device_ms = {
-        "propagate_step": profiled_device_ms(lambda: SC.propagate_step(fix_planes), "step_kernel"),
-        "propagate_fixpoint": profiled_device_ms(lambda: SC.propagate_fixpoint(fix_planes),
-                                                 "fixpoint_kernel"),
-        "propagate_fixpoint_priorities": profiled_device_ms(
+        "propagate_step": device_ms_at(lambda: SC.propagate_step(fix_planes), "step_kernel"),
+        "propagate_fixpoint": device_ms_at(lambda: SC.propagate_fixpoint(fix_planes),
+                                           "fixpoint_kernel"),
+        "propagate_fixpoint_priorities": device_ms_at(
             lambda: SC.propagate_fixpoint_priorities(fix_planes), "fixpoint_kernel"),
-        "beam_search": profiled_device_ms(lambda: SC.beam_search(beam_planes, **kw),
-                                          "beam_kernel"),
+        "beam_search": device_ms_at(lambda: SC.beam_search(beam_planes, **kw), "beam_kernel"),
     }
     print(f"[time] card: {card}")
     for name, shape in (("propagate_step", f"B={FIX_B}"), ("propagate_fixpoint", f"B={FIX_B}"),
                         ("propagate_fixpoint_priorities", f"B={FIX_B}"),
                         ("beam_search", f"B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}")):
+        dev_ms, mhz = device_ms[name]
         print(f"[time] {name} {shape}: kernel {ms[name]:.4f} ms a call "
-              f"({device_ms[name]:.4f} ms of it on the device, profiler), "
-              f"plain {plain_ms[name]:.4f} ms")
+              f"({dev_ms:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), "
+              f"plain {plain_ms[name]:.4f} ms{before_redesign(name, dev_ms)}")
     for name, what in (("propagate_fused", "the host loop over A"),
                        ("propagate_fused_beam", "C and the BitStable packing")):
         print(f"[time] {name} B={FIX_B} ({what}): {ms[name]:.4f} ms a call, plain "
@@ -1075,7 +1222,7 @@ def weld_timings(r, ms, plain_ms, card):
     to end times."""
     from lifeapi_tpu_torch import weld as W
     from lifeapi_tpu_torch.core import board as B
-    from lifeapi_tpu_torch.examples import bellman_pipeline
+    from lifeapi_tpu_torch.examples import bellman_pipeline, portfolio_minimise
     from lifeapi_tpu_torch.ops import stable_cuda as SC
     from lifeapi_tpu_torch.ops import step_cuda
     from lifeapi_tpu_torch.stable import bitplane as BP
@@ -1088,15 +1235,16 @@ def weld_timings(r, ms, plain_ms, card):
         lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
         lambda: step_cuda.rollout_lohi_plain(lo, hi, HEADLINE_T), reps=5)
     boards = step_cuda.from_kernel_layout(lo, hi)
-    dev_ms = profiled_device_ms(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
-                                "rollout_lohi_kernel", n=5)
-    dev_ms_1 = profiled_device_ms(lambda: step_cuda.rollout(boards, HEADLINE_T),
-                                  "rollout_kernel", n=5)
+    dev_ms, mhz = device_ms_at(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
+                               "rollout_lohi_kernel", n=5)
+    dev_ms_1, mhz_1 = device_ms_at(lambda: step_cuda.rollout(boards, HEADLINE_T),
+                                   "rollout_kernel", n=5)
     print(f"[time] card: {card}")
     print(f"[time] rollout_lohi B={HEADLINE_B} T={HEADLINE_T}: kernel "
           f"{ms['rollout_lohi']:.4f} ms a call ({dev_ms:.4f} ms of it on the device, "
-          f"profiler), plain {plain_ms['rollout_lohi']:.4f} ms; kernel [1] on the same "
-          f"boards {dev_ms_1:.4f} ms on the device ([4] / [1]: {dev_ms / dev_ms_1:.4f})")
+          f"profiler, SM clock {mhz} MHz), plain {plain_ms['rollout_lohi']:.4f} ms; kernel "
+          f"[1] on the same boards {dev_ms_1:.4f} ms on the device at {mhz_1} MHz "
+          f"([4] / [1]: {dev_ms / dev_ms_1:.4f})")
     runs = [bellman_pipeline.run(dev) for _ in range(3)]
     e2e = [sum(x["stages"].values()) for x in runs]
     stages = {k: statistics.median(x["stages"][k] for x in runs) for k in runs[0]["stages"]}
@@ -1105,14 +1253,24 @@ def weld_timings(r, ms, plain_ms, card):
           f"four-way background check); stages: "
           + ", ".join(f"{k} {v * 1e3:.3f} ms" for k, v in stages.items()))
     a, b, good, _ = catxeater(dev)
-    tier1_s = wall(lambda: W.unweldable_mask(a, b, starting_good=good, engine="beam",
-                                             batch_size=4096, beam_iters=24,
-                                             escalate=False), 3)
+    unweld_kw = dict(starting_good=good, engine="beam", batch_size=4096, beam_iters=24)
+    tier1_s = wall(lambda: W.unweldable_mask(a, b, escalate=False, **unweld_kw), 3)
+    tier3 = W._tier3
+    W._tier3 = lambda *args: None  # tiers 1 and 2 only
+    try:
+        tiers12_s = wall(lambda: W.unweldable_mask(a, b, escalate=True, escalate_frontier=8,
+                                                   **unweld_kw), 3)
+    finally:
+        W._tier3 = tier3
     print(f"[time] unweldable_mask catxeater, {r.n_tested} placements: tier 1 median "
           f"{tier1_s * 1e3:.3f} ms over 3 ({r.n_tested / tier1_s:.6g} placements/s); "
-          f"escalated (F=8, 512 iters, DFS wall budget 4 s) "
+          f"tiers 1 and 2 (F=8, 512 iters on the {r.tier1_stats['tier1_residue']}-placement "
+          f"residue) median {tiers12_s * 1e3:.3f} ms over 3, so tier 2 "
+          f"{(tiers12_s - tier1_s) * 1e3:.3f} ms; escalated with tier 3 (DFS wall budget 4 s) "
           f"{r.e2e_s['unweldable escalated']:.3f} s, one run")
-    print(f"[time] portfolio end to end: {r.e2e_s['portfolio'] * 1e3:.3f} ms, one run")
+    portfolio_s = wall(lambda: portfolio_minimise.run(dev), 3)
+    print(f"[time] portfolio end to end: median {portfolio_s * 1e3:.3f} ms over 3 (first, "
+          f"counted run {r.e2e_s['portfolio'] * 1e3:.3f} ms)")
     dense_s = wall(lambda: P.propagate(r.problems), 3)
     bst = BP.from_dense_stable(r.problems)
     fused_s = wall(lambda: SC.propagate_fused_inkernel(bst), 5)
@@ -1145,6 +1303,14 @@ def fft_counts(da, db):
     return torch.round(torch.fft.irfft2(fa * fb, s=(64, 64)))
 
 
+def fft_packed_mask(a, b):
+    """The library yardstick of [15]: the torch.fft counts of the boards'
+    cells, mod 193, != 0, packed (timed only; the port never calls it)."""
+    from lifeapi_tpu_torch.core import board as B
+
+    return B.from_dense(fft_counts(B.to_dense(a), B.to_dense(b)) % 193 != 0)
+
+
 def conv_timings(x, ms, plain_ms, lib_ms, card):
     """Each conv kernel against its twin at the path's shapes, in turns, the
     FFT yardstick, the calibration ceilings, the path's end-to-end rates and
@@ -1172,12 +1338,12 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
     kernel_names = {"convolve_sparse_fused": "conv_sparse_kernel",
                     "counts_sparse_fused": "counts_sparse_kernel",
                     "conv_counts_fused": NTT_KERNEL, "conv_small_fused": NTT_KERNEL,
-                    "conv_small_packed": "conv_dense_kernel"}
-    device_ms = {name: profiled_device_ms(lambda: getattr(CC, name)(*args, **kw),
-                                          kernel_names[name])
+                    "conv_small_packed": NTT_KERNEL}
+    device_ms = {name: device_ms_at(lambda: getattr(CC, name)(*args, **kw), kernel_names[name])
                  for name, (args, kw, _) in cases.items()}
     lib_ms["conv_counts_fused"] = event_ms(lambda: fft_counts(x.dense_a, x.dense_b), 5)
     lib_ms["conv_small_fused"] = event_ms(lambda: fft_counts(*corr_in), 5)
+    lib_ms["conv_small_packed"] = event_ms(lambda: fft_packed_mask(x.a, x.mid_b), 5)
     ceilings = {}
     for mix in CAL.MIXES:
         t = event_ms(lambda: CAL.calibrate(*x.calib, CALIB_ITERS, mix), 5)
@@ -1189,9 +1355,10 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
     print(f"[time] card: {card}")
     for name, (args, _, _) in cases.items():
         lib = f", torch.fft yardstick {lib_ms[name]:.4f} ms" if name in lib_ms else ""
+        dev_ms, mhz = device_ms[name]
         print(f"[time] {name} B={args[0].shape[0]}: kernel {ms[name]:.4f} ms a call "
-              f"({device_ms[name]:.4f} ms of it on the device, profiler), plain "
-              f"{plain_ms[name]:.4f} ms{lib}")
+              f"({dev_ms:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), plain "
+              f"{plain_ms[name]:.4f} ms{lib}{before_redesign(name, dev_ms)}")
     for mix, rate in ceilings.items():
         print(f"[time] calibrate {mix}, {CALIB_ROWS} rows x {CALIB_ITERS} iterations: "
               f"{rate:.6g} 64-bit word-ops/s")
@@ -1217,6 +1384,8 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
             lambda: CV.convolve(x.p01, x.pattern7), CONV_B),
         f"match_live, {CONV_B} states x 100-cell pattern": (
             lambda: CV.match_live(x.a, x.pattern100), CONV_B),
+        f"convolve default route (packed single-prime), {CONV_B} pairs of 49-192 cells": (
+            lambda: CV.convolve(x.a, x.mid_b), CONV_B),
         f"orbit sweep, {CONV_B} boards": (lambda: orbit_sweep(x.orbit_boards), CONV_B),
     }
     for what, (fn, n) in e2e.items():
@@ -1236,7 +1405,8 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
 def solver_work(stable_inputs):
     """The data-dependent work of the solver kernels on the fixpoint and
     beam inputs: (fixpoint board-steps, beam board-steps, beam priority
-    boards).  A board-step is one propagation step of one alive board.  The
+    boards).  A board-step is one propagation step of one alive board; a
+    priority board is one ok slot of one round.  The
     plain twins run with their masked fixpoint split into single steps, so
     the boards each step keeps alive can be counted; their results are
     checked against the kernels', which do the same work."""
@@ -1245,13 +1415,11 @@ def solver_work(stable_inputs):
 
     beam_bst, _, fix_bst = stable_inputs
     work = {"board_steps": 0, "priority_boards": 0}
-    fixpoint = SC._fixpoint
+    fixpoint, slot_priorities = SC._fixpoint, SC._slot_priorities
 
     def counted(planes, max_iters, alive=None):
         alive = (torch.ones(planes.shape[:-2], dtype=torch.bool, device=planes.device)
                  if alive is None else alive)
-        if alive.dim() == 2:  # a beam round: the block ranks all F slots' priorities
-            work["priority_boards"] += alive.shape[1] * int(alive.any(dim=1).sum())
         aborted, changed = torch.zeros_like(alive), torch.zeros_like(alive)
         for _ in range(max_iters):
             if not bool(alive.any()):
@@ -1262,17 +1430,21 @@ def solver_work(stable_inputs):
             alive = alive & ~ab & ch
         return planes, aborted, changed
 
+    def counted_priorities(planes, ok):  # a beam round: the ok slots' priorities
+        work["priority_boards"] += int(ok.sum())
+        return slot_priorities(planes, ok)
+
     fix_planes = BP.to_planes(fix_bst).contiguous()
     beam_planes = BP.to_planes(beam_bst).contiguous()
     kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
-    SC._fixpoint = counted
+    SC._fixpoint, SC._slot_priorities = counted, counted_priorities
     try:
         fix = SC.propagate_fixpoint_plain(fix_planes)
         fix_steps = work["board_steps"]
         work["board_steps"] = 0
         beam = SC.beam_search_plain(beam_planes, **kw)
     finally:
-        SC._fixpoint = fixpoint
+        SC._fixpoint, SC._slot_priorities = fixpoint, slot_priorities
     for got, want in ((fix, SC.propagate_fixpoint(fix_planes)),
                       (beam, SC.beam_search(beam_planes, **kw))):
         check(all(torch.equal(g, w) for g, w in zip(got, want)),
@@ -1284,12 +1456,12 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
     """bound_ms and bound_by of every kernel at the shapes timed above: the
     larger of its bytes (each input read once, each output written once)
     over the memory rate and its operations over the card's rate for them:
-    the rollout kernels' SASS over the issue peak, the other kernels'
-    word-ops over the calibrated ceiling of their mix, the dense counts'
-    NTT FLOP over the bf16 tensor-core peak.  Data-dependent work is what
-    this run's inputs need: the fixpoint steps and priorities of
-    solver_work, the steps of A that the solver phase's one propagate_fused
-    call launched, the cells the peel takes."""
+    the rollout and solver kernels' SASS over the issue peak, kernel A's,
+    the peel's and the calibration's word-ops over the calibrated ceiling of
+    their mix, the dense counts' NTT FLOP over the bf16 tensor-core peak.
+    Data-dependent work is what this run's inputs need: the fixpoint steps
+    and priorities of solver_work, the steps of A that the solver phase's
+    one propagate_fused call launched, the cells the peel takes."""
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
     from lifeapi_tpu_torch.stable import bitplane as BP
@@ -1298,18 +1470,26 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
     host_loop_steps = stable_launches["propagate_fused"]
     funcs = library_sass(lib_path)
     sass = rollout_sass_counts(funcs)
+    solver = solver_sass_counts(funcs)
     issue, sms, mhz = issue_peak()
     print(f"[bound] issue peak {issue:.6g} warp instructions/s ({sms} SMs x "
           f"{SCHEDULERS_PER_SM} schedulers x {mhz:g} MHz); SASS warp instructions per "
           f"board-generation: " + ", ".join(f"{k} {v:g}" for k, v in sass.items()))
+    for name, (step, prio) in solver.items():
+        print(f"[bound] SASS of {SOLVER_KERNELS[name]} ({name}): {step:g} warp instructions "
+              f"per board-step (fixpoint loop)"
+              + (f", {prio} per priority board (priority block)" if prio else ""))
     for name, (hmma, ldsm, frnd, n) in ntt_sass_counts(funcs).items():
         print(f"[bound] SASS of {name}: {hmma} HMMA (tensor cores), {ldsm} LDSM, "
               f"{frnd} FRND (one per mod reduction), {n} instructions")
     # each board's peel ends with a round that finds its operand empty
     peeled = int(B.population(x.tr_b).sum()) + CONV_B
-    board, words, solver = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
+    board, words, solver_board = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
     step_ops = words * STABLE_STEP_OPS
+    prio_ops = words * PRIORITY_OPS
     rates = {**ceilings, "bf16 tensor-core FLOP": BF16_FLOP_PER_S, "issue": issue}
+    fix_c = fix_steps * solver["propagate_fixpoint_priorities"][0] \
+        + FIX_B * solver["propagate_fixpoint_priorities"][1]
     work = {  # name: (bytes, operations, the rate they run at)
         "rollout": (2 * HEADLINE_B * board,
                     HEADLINE_B * HEADLINE_T * sass["rollout"], "issue"),
@@ -1320,18 +1500,17 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
                                "issue"),
         "catalyst_rollout": (4 * 4096 * board + 64 * board + 4096,
                              4096 * 64 * sass["catalyst_rollout"], "issue"),
-        "propagate_step": (FIX_B * (2 * solver + 2 * board), FIX_B * step_ops, "rolls"),
-        "propagate_fused": (host_loop_steps * FIX_B * (2 * solver + 2 * board),
+        "propagate_step": (FIX_B * (2 * solver_board + 2 * board), FIX_B * step_ops, "rolls"),
+        "propagate_fused": (host_loop_steps * FIX_B * (2 * solver_board + 2 * board),
                             host_loop_steps * FIX_B * step_ops, "rolls"),
-        "propagate_fixpoint": (FIX_B * (2 * solver + 2), fix_steps * step_ops, "rolls"),
-        "propagate_fixpoint_priorities": (
-            FIX_B * (2 * solver + 2 + 4 * board),
-            fix_steps * step_ops + FIX_B * words * PRIORITY_OPS, "rolls"),
-        "propagate_fused_beam": (
-            FIX_B * (2 * solver + 2 + 4 * board),
-            fix_steps * step_ops + FIX_B * words * PRIORITY_OPS, "rolls"),
-        "beam_search": (BEAM_B * (solver + board + 4 + 3),
-                        beam_steps * step_ops + beam_prio * words * PRIORITY_OPS, "rolls"),
+        "propagate_fixpoint": (FIX_B * (2 * solver_board + 2),
+                               fix_steps * solver["propagate_fixpoint"][0], "issue"),
+        "propagate_fixpoint_priorities": (FIX_B * (2 * solver_board + 2 + 4 * board), fix_c,
+                                          "issue"),
+        "propagate_fused_beam": (FIX_B * (2 * solver_board + 2 + 4 * board), fix_c, "issue"),
+        "beam_search": (BEAM_B * (solver_board + board + 4 + 3),
+                        beam_steps * solver["beam_search"][0]
+                        + beam_prio * solver["beam_search"][1], "issue"),
         "convolve_sparse_fused": (3 * CONV_B * board,
                                   peeled * words * (PEEL_OPS + PEEL_OR_OPS), "rolls"),
         "counts_sparse_fused": ((2 + 13) * CONV_B * board,
@@ -1347,8 +1526,8 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
     }
     print(f"[bound] data-dependent work: propagate_fused {host_loop_steps} launches of A; "
           f"fixpoint {fix_steps} board-steps over {FIX_B} "
-          f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards over "
-          f"{BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
+          f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards (ok "
+          f"slots) over {BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
     bounds = {}
     for name, (nbytes, ops, rate) in work.items():
         ops = int(ops)
@@ -1361,7 +1540,17 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]}; the kernel's {ms[name]:.4f} ms is "
               f"{ms[name] / bounds[name][0]:.3g}x it")
-    for name, primes in (("conv_counts_fused", 2), ("conv_small_fused", 1)):
+    hand = {"propagate_fixpoint": fix_steps * step_ops,
+            "propagate_fixpoint_priorities": fix_steps * step_ops + FIX_B * prio_ops,
+            "propagate_fused_beam": fix_steps * step_ops + FIX_B * prio_ops,
+            "beam_search": beam_steps * step_ops + beam_prio * prio_ops}
+    for name, ops in hand.items():
+        hand_ms = ops / ceilings["rolls"] * 1e3
+        print(f"[bound] {name}, hand count (not the bound): {ops} word-ops at the rolls "
+              f"ceiling ({hand_ms:.4f} ms); the kernel's {ms[name]:.4f} ms is "
+              f"{ms[name] / hand_ms:.3g}x it")
+    for name, primes in (("conv_counts_fused", 2), ("conv_small_fused", 1),
+                         ("conv_small_packed", 1)):
         reductions = CONV_B * (primes * MOD_REDUCTIONS_PER_PRIME + (primes - 1) * 4096)
         warp_instructions = reductions * MOD_INSTRUCTIONS // 32
         mod_ms = warp_instructions / issue * 1e3
@@ -1369,11 +1558,6 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
               f"{MOD_INSTRUCTIONS} instructions = {warp_instructions} warp instructions "
               f"over the issue peak ({mod_ms:.4f} ms); the kernel's {ms[name]:.4f} ms is "
               f"{ms[name] / mod_ms:.3g}x it")
-    own = CONV_B * DENSE_OPS_PER_BOARD
-    own_ms = own / ceilings["elemwise"] * 1e3
-    print(f"[bound] algorithm bound of [15]'s conv_dense_kernel (its own bit-parallel work, "
-          f"not the function's): {own} word-ops, elemwise ({own_ms:.4f} ms); "
-          f"conv_small_packed {ms['conv_small_packed'] / own_ms:.3g}x it")
     return bounds
 
 
@@ -1403,6 +1587,7 @@ def main():
     print(f"[env] built {lib_path.name} in {time.perf_counter() - t0:.1f} s")
     for name, regs, spill in ptxas_report(lib_path.with_suffix(".log").read_text()):
         print(f"[env] ptxas: {name}: {regs} registers, {spill} bytes spill stores")
+    print_occupancy()
 
     # -- inputs of the main path ----------------------------------------------
     gen = torch.Generator(device=dev).manual_seed(0)

@@ -7,7 +7,7 @@
 // Board layout in device memory: int64[B, 64], one 64-bit word per column x,
 // bit y = cell (x, y); dense fields are [B, 64, 64] indexed [x, y].
 //
-// Three kernel bodies:
+// Two kernel bodies:
 //  * The peel (replaces lifeapi_tpu/ops/conv_sparse_pallas.py
 //    conv_sparse_lohi and counts_sparse_lohi).  One warp per board, lane l
 //    holding columns l and l + 32 (warp_board.cuh).  Each round peels the
@@ -25,18 +25,9 @@
 //    128-lane tile until its densest operand is empty; here a sparse board
 //    never waits on a dense one.
 //  * The dense counts as a tensor-core NTT (replaces
-//    lifeapi_tpu/ops/conv_pallas.py conv_counts_fused and conv_small_fused):
-//    ntt_conv_kernel, described where it is defined below.
-//  * The packed single-prime counts (replaces conv_pallas.conv_small_packed)
-//    by bit-parallel AND + popcount on the packed columns:
-//        count[x][y] = sum_u popcount(a[u] & rotl(rev(b[(x - u) mod 64]), y + 1)),
-//    then the mask count % p != 0 packed to int64 words.  One block of 256
-//    threads per board, both boards' 1 KB of words in shared memory (a
-//    doubled to 128 words so no index wraps).  Thread t owns y = t % 64 and
-//    16 consecutive x, so every shared read in the inner loop is a
-//    broadcast.  Bound: popcount issue (2 32-bit POPC per AND, 262,144 ANDs
-//    per board), not bytes (1.5 KB per board); its move onto the NTT body,
-//    unpacking the bits in the kernel, is a later redesign.
+//    lifeapi_tpu/ops/conv_pallas.py conv_counts_fused, conv_small_fused and
+//    conv_small_packed): ntt_conv_kernel, described where it is defined
+//    below; the packed mode reads and writes int64 boards.
 
 #include <cuda_bf16.h>
 
@@ -141,8 +132,8 @@ counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
 }
 
 // ---------------------------------------------------------------------------
-// Dense counts as a tensor-core NTT (replaces conv_pallas.conv_counts_fused
-// and conv_small_fused)
+// Dense counts as a tensor-core NTT (replaces conv_pallas.conv_counts_fused,
+// conv_small_fused and conv_small_packed)
 // ---------------------------------------------------------------------------
 //
 // The circular convolution of two 64x64 0/1 fields is V (W A W . W B W) V
@@ -151,19 +142,21 @@ counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
 // conv_counts_fused takes the primes 193 and 257 and combines the two
 // residues by CRT into the exact count (<= 4096 < 193 * 257);
 // conv_small_fused takes 193 alone and returns the residue, or the mask
-// residue != 0.  Every stage is exact: residues and twiddles are integers
+// residue != 0; conv_small_packed is that mask on packed boards, int64[B, 64]
+// in and out, as the TPU kernel expands the bits in the kernel and repacks
+// the mask.  Every stage is exact: residues and twiddles are integers
 // <= 256, exact in bf16; a 0/1 input times a twiddle sums to <= 16384, the
 // later stages to <= 64 * 256^2 = 2^22 < 2^24, and the pointwise product
 // to <= 65536, all exact in the f32 accumulators; each sum is reduced mod p
 // (mod_p) before it feeds the next stage.
 //
 // Bound.  The function moves 4 KB + 4 KB in and 16 KB (int32) or 4 KB
-// (int8) out per board, 0.03 ms at B = 4096; its six 64^3 products per
-// prime are 2 * 6 * 64^3 FLOP, 0.013 ms per prime at the bf16 tensor-core
-// peak; its 7 x 4096 mod reductions per prime (and 4096 CRT steps), some 6
-// instructions each, are of the same order at the issue peak.  So the
-// design keeps every stage on the tensor cores and on chip: device memory
-// sees each byte once.
+// (int8) out per board, 0.03 ms at B = 4096 (packed: 512 B + 512 B in and
+// 512 B out, 0.002 ms); its six 64^3 products per prime are 2 * 6 * 64^3
+// FLOP, 0.013 ms per prime at the bf16 tensor-core peak; its 7 x 4096 mod
+// reductions per prime (and 4096 CRT steps), some 6 instructions each, are
+// of the same order at the issue peak.  So the design keeps every stage on
+// the tensor cores and on chip: device memory sees each byte once.
 //
 // Design.  One block of 4 warps per board at a time, persistent over the
 // batch (grid = SMs x resident blocks), the twiddles in shared memory for
@@ -185,8 +178,12 @@ counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
 // fragments.  The next board's bytes arrive by cp.async during the current
 // board's products; the bytes are turned into bf16 0/1 (non-zero = ON) in
 // shared memory, and the results are staged through shared memory for
-// 16-byte stores.  The two primes run one after the other, the first
-// prime's residues kept in registers as bf16 pairs for the CRT.
+// 16-byte stores.  Packed boards arrive as 2 x 512 bytes and are expanded
+// bit by bit into the same tiles; each result word is assembled in
+// registers (a lane holds 16 of a row's 64 cells, the quad ORs its four
+// parts by shuffles) and stored directly.  The two primes run one after the
+// other, the first prime's residues kept in registers as bf16 pairs for
+// the CRT.
 
 namespace ntt {
 
@@ -197,18 +194,22 @@ constexpr int kTile = 64 * kStride;
 constexpr int kTileBytes = kTile * 2;
 constexpr int kIntStride = 72;      // int32 per staging row
 constexpr int kByteStride = 80;     // int8 per staging row
-constexpr int kRawBytes = 2 * 4096;
 constexpr int kMaxPrime = 257;      // residues <= 256 are exact in bf16
 
-enum Out { kCounts = 0, kResidue = 1, kMask = 2 };
+// kPacked: int64[B, 64] boards in, the mask residue != 0 as int64[B, 64] out
+enum Out { kCounts = 0, kResidue = 1, kMask = 2, kPacked = 3 };
 
 using bf16 = __nv_bfloat16;
+
+// bytes of one input board: 64 x 64 cells, or 64 words of 64 bits
+template <int kOut>
+__host__ __device__ constexpr int board_bytes() { return kOut == kPacked ? 512 : 4096; }
 
 // shared memory: W, V of each prime, the two boards' bf16 tiles (which
 // double as the output staging, 64 x 72 int32), the corner-turn tile and
 // the next boards' raw bytes
-template <int kPrimes>
-constexpr int smem_bytes() { return (2 * kPrimes + 3) * kTileBytes + kRawBytes; }
+template <int kPrimes, int kOut>
+constexpr int smem_bytes() { return (2 * kPrimes + 3) * kTileBytes + 2 * board_bytes<kOut>(); }
 
 struct Prime {
   float p, rinv;
@@ -352,30 +353,43 @@ __device__ __forceinline__ void to_operand(const float (&acc)[8][4], unsigned (&
 }
 
 // Issue the cp.async copies of one board pair's bytes into raw.
+template <int kOut>
 __device__ __forceinline__ void fetch(const unsigned char* a, const unsigned char* b,
                                       int board, unsigned char* raw) {
-  const size_t at = static_cast<size_t>(board) * 4096;
-  for (int c = threadIdx.x; c < 256; c += kThreads) {
+  constexpr int kBytes = board_bytes<kOut>();
+  const size_t at = static_cast<size_t>(board) * kBytes;
+  for (int c = threadIdx.x; c < kBytes / 16; c += kThreads) {
     cp_async16(raw + 16 * c, a + at + 16 * c);
-    cp_async16(raw + 4096 + 16 * c, b + at + 16 * c);
+    cp_async16(raw + kBytes + 16 * c, b + at + 16 * c);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// raw bytes (non-zero = ON) -> bf16 0/1 tiles [x][y]: each 16-byte chunk
-// is 16 cells of one column x.
+// The next board pair's raw input -> bf16 0/1 tiles [x][y], 16 cells of one
+// column x per step: dense bytes (non-zero = ON), 16 bytes a step; or packed
+// words, whose 16-bit pieces are spread so that bit 2i of the piece lands
+// in the low half of h[i] and bit 2i + 1 in its high half.
+template <int kOut>
 __device__ __forceinline__ void unpack(const unsigned char* raw, bf16* xa, bf16* xb) {
   for (int c = threadIdx.x; c < 512; c += kThreads) {
-    const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * c);
-    const unsigned words[4] = {v.x, v.y, v.z, v.w};
+    const int chunk = c & 255;  // column chunk >> 2, rows 16 (chunk & 3) + 0..15
     unsigned h[8];
+    if constexpr (kOut == kPacked) {
+      const unsigned half = reinterpret_cast<const unsigned*>(raw)[c >> 1];
+      const unsigned bits = (c & 1) ? half >> 16 : half & 0xffffu;
+      const unsigned spread = (bits & 0x5555u) | ((bits >> 1) & 0x5555u) << 16;
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const unsigned on = __vcmpne4(words[i], 0u);  // 0xff in each ON byte
-      h[2 * i] = __byte_perm(on, 0u, 0x1100) & 0x3f803f80u;  // bf16 1.0 = 0x3f80
-      h[2 * i + 1] = __byte_perm(on, 0u, 0x3322) & 0x3f803f80u;
+      for (int i = 0; i < 8; ++i) h[i] = ((spread >> (2 * i)) & 0x10001u) * 0x3f80u;
+    } else {
+      const uint4 v = *reinterpret_cast<const uint4*>(raw + 16 * c);
+      const unsigned words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const unsigned on = __vcmpne4(words[i], 0u);  // 0xff in each ON byte
+        h[2 * i] = __byte_perm(on, 0u, 0x1100) & 0x3f803f80u;  // bf16 1.0 = 0x3f80
+        h[2 * i + 1] = __byte_perm(on, 0u, 0x3322) & 0x3f803f80u;
+      }
     }
-    const int chunk = c & 255;
     uint4* dst = reinterpret_cast<uint4*>((c < 256 ? xa : xb) + (chunk >> 2) * kStride +
                                           ((chunk & 3) << 4));
     dst[0] = make_uint4(h[0], h[1], h[2], h[3]);
@@ -420,6 +434,32 @@ __device__ __forceinline__ void store_board(const float (&res)[8][4], unsigned c
   }
 }
 
+// Store the mask residue != 0 of a board as packed words.  Lane (g, t) =
+// (lane >> 2, lane & 3) holds rows x = 16 strip + g and x + 8 at columns
+// y = 8 nt + 2t and + 1: 16 bits of each row's word, which the quad's four
+// lanes OR together.
+__device__ __forceinline__ void store_packed(const float (&res)[8][4], void* out, int board,
+                                             int strip, int lane) {
+  u64 w0 = 0, w1 = 0;
+#pragma unroll
+  for (int nt = 0; nt < 8; ++nt) {
+    w0 |= static_cast<u64>((res[nt][0] != 0.f) | ((res[nt][1] != 0.f) << 1)) << (8 * nt);
+    w1 |= static_cast<u64>((res[nt][2] != 0.f) | ((res[nt][3] != 0.f) << 1)) << (8 * nt);
+  }
+  w0 <<= 2 * (lane & 3);
+  w1 <<= 2 * (lane & 3);
+#pragma unroll
+  for (int m = 1; m <= 2; m <<= 1) {
+    w0 |= __shfl_xor_sync(kFullMask, w0, m);
+    w1 |= __shfl_xor_sync(kFullMask, w1, m);
+  }
+  if ((lane & 3) == 0) {
+    u64* dst = static_cast<u64*>(out) + static_cast<size_t>(board) * 64 + strip * 16 + (lane >> 2);
+    dst[0] = w0;
+    dst[8] = w1;
+  }
+}
+
 template <int kPrimes, int kOut>
 __global__ void __launch_bounds__(kThreads)
 ntt_conv_kernel(const unsigned char* __restrict__ a, const unsigned char* __restrict__ b,
@@ -440,13 +480,13 @@ ntt_conv_kernel(const unsigned char* __restrict__ a, const unsigned char* __rest
                            {static_cast<float>(p2), 1.f / static_cast<float>(p2)}};
 
   int board = blockIdx.x;
-  fetch(a, b, board, raw);
+  fetch<kOut>(a, b, board, raw);
   for (; board < B; board += gridDim.x) {
     asm volatile("cp.async.wait_all;\n" ::: "memory");
     __syncthreads();  // the bytes are in; the last board's staging is read
-    unpack(raw, xa, xb);
+    unpack<kOut>(raw, xa, xb);
     __syncthreads();
-    if (board + gridDim.x < B) fetch(a, b, board + gridDim.x, raw);
+    if (board + gridDim.x < B) fetch<kOut>(a, b, board + gridDim.x, raw);
 
     float res[8][4];
     unsigned first[8][2];  // the first prime's residues, bf16 pairs
@@ -510,13 +550,29 @@ ntt_conv_kernel(const unsigned char* __restrict__ a, const unsigned char* __rest
           res[nt][i] = c1[i] + primes[0].p * mod_p((res[nt][i] - c1[i] + m2.p) * crt, m2);
       }
     }
-    // the board tiles are free: every warp passed the barrier after its
-    // last stage-1 read
-    store_board<kOut>(res, reinterpret_cast<unsigned char*>(xa), out, board, strip, lane);
+    if constexpr (kOut == kPacked) {
+      store_packed(res, out, board, strip, lane);
+    } else {
+      // the board tiles are free: every warp passed the barrier after its
+      // last stage-1 read
+      store_board<kOut>(res, reinterpret_cast<unsigned char*>(xa), out, board, strip, lane);
+    }
   }
 }
 
 inline bool prime_ok(int p) { return p > 2 && p <= kMaxPrime; }
+
+// Opt the instantiation into its shared memory; resident blocks an SM.
+template <int kPrimes, int kOut>
+cudaError_t configure(int& per_sm) {
+  auto kernel = ntt_conv_kernel<kPrimes, kOut>;
+  constexpr int bytes = smem_bytes<kPrimes, kOut>();
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
+  return err;
+}
 
 template <int kPrimes, int kOut>
 cudaError_t launch(const void* a, const void* b, const void* twiddles, void* out, int B,
@@ -524,67 +580,33 @@ cudaError_t launch(const void* a, const void* b, const void* twiddles, void* out
   if (B <= 0 || !prime_ok(p1) ||
       (kPrimes == 2 && (!prime_ok(p2) || crt_inverse < 0 || crt_inverse >= p2)))
     return cudaErrorInvalidValue;
-  auto kernel = ntt_conv_kernel<kPrimes, kOut>;
-  constexpr int bytes = smem_bytes<kPrimes>();
   int device, sms, per_sm;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         bytes);
+  cudaError_t err = configure<kPrimes, kOut>(per_sm);
   if (err == cudaSuccess) err = cudaGetDevice(&device);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, bytes);
   if (err != cudaSuccess) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
   const int grid = B < sms * per_sm ? B : sms * per_sm;
-  kernel<<<grid, kThreads, bytes, stream>>>(static_cast<const unsigned char*>(a),
-                                            static_cast<const unsigned char*>(b),
-                                            static_cast<const bf16*>(twiddles), out, B, p1,
-                                            p2, crt_inverse);
+  ntt_conv_kernel<kPrimes, kOut><<<grid, kThreads, smem_bytes<kPrimes, kOut>(), stream>>>(
+      static_cast<const unsigned char*>(a), static_cast<const unsigned char*>(b),
+      static_cast<const bf16*>(twiddles), out, B, p1, p2, crt_inverse);
   return cudaGetLastError();
 }
 
-}  // namespace ntt
-
-// ---------------------------------------------------------------------------
-// Packed single-prime counts (replaces conv_pallas.conv_small_packed)
-// ---------------------------------------------------------------------------
-
-constexpr int kXPerThread = 16;  // 256 threads = 64 rows y x 4 groups of 16 x
-
-__global__ void __launch_bounds__(kThreadsPerBlock)
-conv_dense_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
-                  unsigned* __restrict__ out, int p) {
-  __shared__ u64 sa[128];  // a's columns twice: sa[j] = a[j % 64]
-  __shared__ u64 sb[64];   // rev(b[c])
-  const size_t board = blockIdx.x;
-  if (threadIdx.x < 64) {
-    sa[threadIdx.x] = sa[threadIdx.x + 64] = a[board * 64 + threadIdx.x];
-    sb[threadIdx.x] = __brevll(b[board * 64 + threadIdx.x]);
-  }
-  __syncthreads();
-
-  const int y = threadIdx.x & 63;
-  const int x0 = (threadIdx.x >> 6) * kXPerThread;
-  const int k = (y + 1) & 63;
-  int acc[kXPerThread];
-#pragma unroll
-  for (int i = 0; i < kXPerThread; ++i) acc[i] = 0;
-  for (int c = 0; c < 64; ++c) {
-    // count[x][y] += popcount(a[x - c] & rotl(rev(b[c]), y + 1))
-    const u64 r = rotl(sb[c], k);
-    const u64* col = sa + (x0 - c + 64);
-#pragma unroll
-    for (int i = 0; i < kXPerThread; ++i) acc[i] += __popcll(col[i] & r);
-  }
-
-#pragma unroll
-  for (int i = 0; i < kXPerThread; ++i) {
-    // a warp holds 32 consecutive rows of one column: one ballot is the
-    // column word's low (rows 0-31) or high (32-63) half
-    const unsigned bits = __ballot_sync(kFullMask, acc[i] % p != 0);
-    if ((threadIdx.x & 31) == 0) out[(board * 64 + x0 + i) * 2 + (y >> 5)] = bits;
-  }
+// info = {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread} of one instantiation.
+template <int kPrimes, int kOut>
+cudaError_t info(int* out) {
+  cudaFuncAttributes attr;
+  cudaError_t err = configure<kPrimes, kOut>(out[0]);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, ntt_conv_kernel<kPrimes, kOut>);
+  if (err != cudaSuccess) return err;
+  out[1] = attr.numRegs;
+  out[2] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }
+
+}  // namespace ntt
 
 inline dim3 warp_grid(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
@@ -627,11 +649,20 @@ extern "C" cudaError_t life_conv_small(const void* a, const void* b, const void*
                 : ntt::launch<1, ntt::kResidue>(a, b, twiddles, out, B, p, p, 0, stream);
 }
 
-// a, b, out: int64 [B, 64]; out = the boards of count % p != 0.
-extern "C" cudaError_t life_conv_small_packed(const u64* a, const u64* b, u64* out,
-                                              int B, int p, cudaStream_t stream) {
-  if (B <= 0 || p < 2) return cudaErrorInvalidValue;
-  conv_dense_kernel<<<B, kThreadsPerBlock, 0, stream>>>(a, b, reinterpret_cast<unsigned*>(out),
-                                                         p);
-  return cudaGetLastError();
+// a, b: boards int64 [B, 64], 16-byte aligned; twiddles as life_conv_small;
+// out: int64 [B, 64], the boards of count % p != 0.
+extern "C" cudaError_t life_conv_small_packed(const void* a, const void* b,
+                                              const void* twiddles, void* out, int B, int p,
+                                              cudaStream_t stream) {
+  return ntt::launch<1, ntt::kPacked>(a, b, twiddles, out, B, p, p, 0, stream);
+}
+
+// info[3 k .. 3 k + 2] = ntt::info of instantiation k: <2, kCounts>,
+// <1, kResidue>, <1, kMask>, <1, kPacked>.
+extern "C" cudaError_t life_conv_ntt_info(int* info) {
+  cudaError_t err = ntt::info<2, ntt::kCounts>(info);
+  if (err == cudaSuccess) err = ntt::info<1, ntt::kResidue>(info + 3);
+  if (err == cudaSuccess) err = ntt::info<1, ntt::kMask>(info + 6);
+  if (err == cudaSuccess) err = ntt::info<1, ntt::kPacked>(info + 9);
+  return err;
 }

@@ -26,10 +26,11 @@
 //    slowest board converges gives the same result board by board.
 //  * Bound: integer instruction throughput, about 700 64-bit logic ops per
 //    lane per step (each two 32-bit ALU instructions) and 16 shuffles.
-//    Registers, not bytes, are the scarce resource: the step needs the board
-//    twice (a step that aborts keeps the planes it started from) plus the
-//    counts and circuit temporaries, so ptxas may spill; the compiler's
-//    report is kept beside the library.
+//    Registers, not bytes, are the scarce resource: kernels B and C need the
+//    board twice (a step that aborts keeps the planes it started from) plus
+//    the counts and circuit temporaries; kernel D needs it once and is held
+//    to 128 registers for occupancy.  The compiler's report is kept beside
+//    the library.
 
 #include "warp_board.cuh"
 
@@ -45,7 +46,6 @@ constexpr int kPlanes = 10;
 constexpr int kBoardWords = kPlanes * 64;
 constexpr int kWarpsPerBlock = 4;
 constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
-constexpr int kMaxFrontier = 16;
 constexpr int kLeafSentinel = 1 << 20;  // > every leaf key pop * 16 + slot
 constexpr int kSeedGrowthCap = 33;      // 32 dilations cover the torus
 constexpr int kInt32Max = 0x7fffffff;
@@ -371,14 +371,13 @@ __device__ __forceinline__ void stable_step(Board& P, int lane, u64 changed[2], 
   }
 }
 
-// The masked fixpoint (_run_fixpoint) of the warp's board: step while alive;
-// a step that aborts leaves the planes as they were before it and stops the
-// board, a step that changes nothing stops it.  Returns whether the board
-// aborted; changed_ever says whether any applied or aborting step changed a
-// cell.  `alive` must be warp-uniform.
-__device__ __forceinline__ bool fixpoint(Board& P, int lane, int max_iters, bool alive,
+// The masked fixpoint (_run_fixpoint) of the warp's board: a step that
+// aborts leaves the planes as they were before it and stops the board, a
+// step that changes nothing stops it.  Returns whether the board aborted;
+// changed_ever says whether any applied or aborting step changed a cell.
+__device__ __forceinline__ bool fixpoint(Board& P, int lane, int max_iters,
                                          bool& changed_ever) {
-  bool aborted = false;
+  bool aborted = false, alive = true;
   changed_ever = false;
   for (int it = 0; alive && it < max_iters; ++it) {
     Board next = P;
@@ -528,7 +527,7 @@ fixpoint_kernel(const u64* __restrict__ in, u64* __restrict__ out,
   Board P;
   load_board(P, in + static_cast<size_t>(board) * kBoardWords, lane);
   bool changed_ever;
-  const bool aborted = fixpoint(P, lane, max_iters, true, changed_ever);
+  const bool aborted = fixpoint(P, lane, max_iters, changed_ever);
   store_board(P, out + static_cast<size_t>(board) * kBoardWords, lane);
   if (lane == 0) {
     consistent[board] = aborted ? 0 : 1;
@@ -548,13 +547,12 @@ fixpoint_kernel(const u64* __restrict__ in, u64* __restrict__ out,
 
 // -- kernel D: the whole beam search -----------------------------------------
 
-// Seed-proximity restriction (reference useSeed, LifeStable.hpp:1366-1375):
-// grow the seed's ZOI until it touches the settable set (at most 33 times),
-// then intersect every level with it.  An empty seed leaves the levels as
-// they are.
-__device__ __forceinline__ void seed_restrict(u64 levels[4][2], bool ok, const u64 seed[2],
-                                              int lane) {
-  const bool has_set = ok && __any_sync(kFullMask, (levels[3][0] | levels[3][1]) != 0);
+// Seed-proximity restriction (reference useSeed, LifeStable.hpp:1366-1375)
+// of an ok slot's levels: grow the seed's ZOI until it touches the settable
+// set (at most 33 times), then intersect every level with it.  An empty
+// seed leaves the levels as they are.
+__device__ __forceinline__ void seed_restrict(u64 levels[4][2], const u64 seed[2], int lane) {
+  const bool has_set = __any_sync(kFullMask, (levels[3][0] | levels[3][1]) != 0);
   const bool seed_empty = !__any_sync(kFullMask, (seed[0] | seed[1]) != 0);
   u64 sz[2] = {seed_empty ? kOnes : seed[0], seed_empty ? kOnes : seed[1]};
   for (int it = 0; it < kSeedGrowthCap; ++it) {
@@ -594,86 +592,115 @@ __device__ __forceinline__ int branch_cell(const u64 levels[4][2], int& bit) {
   return lo ? src : 32 + src;
 }
 
+// The beam's fixpoint: fixpoint() without the rollback.  A slot whose step
+// aborts is not ok, so none of its children is active and it is no round's
+// leaf: its planes are never read again, and the step can run in place.
+// Dropping the second board frees 40 registers a thread.
+__device__ __forceinline__ bool fixpoint_in_place(Board& P, int lane, int max_iters,
+                                                  bool alive) {
+  bool aborted = false;
+  for (int it = 0; alive && it < max_iters; ++it) {
+    u64 changed[2], abort[2];
+    stable_step(P, lane, changed, abort);
+    aborted = __any_sync(kFullMask, (abort[0] | abort[1]) != 0);
+    const bool changed_any = __any_sync(kFullMask, (changed[0] | changed[1]) != 0);
+    alive = !aborted && changed_any;
+  }
+  return aborted;
+}
+
 // Kernel D.  Replaces lifeapi_tpu/ops/stable_pallas.py beam_search_planes
 // (_beam_kernel), decision for decision: the entire beam search, one block
-// per problem, one warp per frontier slot, F = blockDim.x / 32.  Each round:
-// masked fixpoint per warp; population (__popc and a warp reduce) and the
-// bound; priorities and the seed restriction; leaf test; then, across the
-// block through shared memory, the harvest (key pop * 16 + slot, lowest slot
-// on ties), the ranks of the 2F children (key score * 2F + child, child =
-// slot for OFF and F + slot for ON, score pop or pop + 1 for ok slots and
-// 1 << 20 otherwise), the drop accounting, and the gather: slot j loads the
-// parent of the child ranked j from shared memory and applies its OFF/ON
-// rule.  Bound: the integer instructions of the fixpoints, as for kernel
-// B; the cross-slot work is a few hundred scalar ops per round, the gather F x 5 KB
-// of shared memory.  The round loop is block-uniform (it ends when no slot
-// is active or after `iters` rounds) and every __syncthreads lies outside
-// warp-divergent code.  kMaxThreads bounds the block for the register
-// budget: 256 lets ptxas use up to 255 registers a thread (F <= 8).
-template <int kMaxThreads>
-__global__ void __launch_bounds__(kMaxThreads)
+// per problem, one warp per frontier slot, F = kF a power of two in
+// [2, 16].  Each round: the fixpoint per warp (in place, above);
+// population (__popc and a warp reduce) and the bound; for the ok slots
+// only (a slot that is not ok branches on nothing), the priorities, the
+// seed restriction, the leaf test and the branch cell; then, across the
+// block through shared memory, the harvest (key pop * 16 + slot, lowest
+// slot on ties), the ranks of the 2F children (key score * 2F + child,
+// child = slot for OFF and F + slot for ON, score pop or pop + 1 for ok
+// slots and 1 << 20 otherwise), the drop accounting, and the gather: slot
+// j loads the parent of the child ranked j from shared memory and applies
+// its OFF/ON rule.  The harvest and the ranking run across the lanes of
+// every warp, lane c holding child c (a warp min-reduce, and 2F shuffles
+// of the keys per rank), so the cross-slot work is a few dozen
+// instructions a round.
+//
+// Bound: the integer instructions of the fixpoints and the priorities, as
+// for kernels B and C.  Occupancy hides their dependent LOP3 / SHFL chains
+// and the slots that wait at the round's barriers for the longest
+// fixpoint; the register budget sets it: __launch_bounds__ asks for 16
+// warps an SM at every F (4 blocks at F = 4), which caps ptxas at 128
+// registers a thread.  The round loop is block-uniform (it ends when no
+// slot is active or after `iters` rounds) and every __syncthreads lies
+// outside warp-divergent code.
+constexpr int kBeamWarpsPerSM = 16;
+
+template <int kF>
+__global__ void __launch_bounds__(kF * 32, kBeamWarpsPerSM / kF)
 beam_kernel(const u64* __restrict__ in, const u64* __restrict__ seed,
             const int* __restrict__ bound, u64* __restrict__ best_out,
             int* __restrict__ best_pop_out, uint8_t* __restrict__ found_out,
             uint8_t* __restrict__ complete_out, uint8_t* __restrict__ exhausted_out,
             int iters, bool minimise, int max_fix_iters) {
   extern __shared__ u64 parents[];  // [F][10][64]
-  __shared__ int s_pop[kMaxFrontier];
-  __shared__ int s_ok[kMaxFrontier];    // ok after the leaf test
-  __shared__ int s_leaf[kMaxFrontier];
-  __shared__ int s_col[kMaxFrontier];   // branch cell column, -1 for none
-  __shared__ int s_bit[kMaxFrontier];
+  __shared__ u64 s_seed[64];
+  __shared__ int s_pop[kF];
+  __shared__ int s_ok[kF];    // ok after the leaf test
+  __shared__ int s_leaf[kF];
+  __shared__ int s_col[kF];   // branch cell column, -1 for none
+  __shared__ int s_bit[kF];
 
-  const int F = blockDim.x >> 5;
   const int slot = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const size_t problem = blockIdx.x;
 
   Board P;
   load_board(P, in + problem * kBoardWords, lane);
-  u64 seed_w[2] = {0, 0};
-  if (seed != nullptr) {
-    seed_w[0] = seed[problem * 64 + lane];
-    seed_w[1] = seed[problem * 64 + 32 + lane];
-  }
+  const bool seeded = seed != nullptr;
+  if (seeded && threadIdx.x < 64) s_seed[threadIdx.x] = seed[problem * 64 + threadIdx.x];
   u64* best = best_out + problem * 64;
   if (slot == 0) {
     best[lane] = 0;
     best[lane + 32] = 0;
   }
+  __syncthreads();  // the seed is in
   // Block-wide state, computed identically by every thread.
   int best_pop = bound != nullptr ? bound[problem] : kInt32Max;
   bool found = false, complete = true, any_active = true;
   bool active = slot == 0;
 
   for (int it = 0; it < iters && any_active; ++it) {
-    bool changed_ever;
-    const bool aborted = fixpoint(P, lane, max_fix_iters, active, changed_ever);
-    bool ok = active && !aborted;
+    const bool aborted = fixpoint_in_place(P, lane, max_fix_iters, active);
     const int pop = static_cast<int>(__reduce_add_sync(
         kFullMask, static_cast<unsigned>(__popcll(P.p[0][0]) + __popcll(P.p[0][1]))));
     // population bound (reference LifeStable.hpp:1351-1355), or first
     // solution only
-    ok = ok && (minimise ? pop < best_pop : !found);
-    u64 lv[4][2];
-    priority(P, lane, lv);
-    if (seed != nullptr) seed_restrict(lv, ok, seed_w, lane);
-    const bool leaf = ok && !__any_sync(kFullMask, (lv[3][0] | lv[3][1]) != 0);
-    int bit;
-    const int col = branch_cell(lv, bit);
+    const bool ok = active && !aborted && (minimise ? pop < best_pop : !found);
+    bool leaf = false;
+    int col = -1, bit = 0;
+    if (ok) {  // warp-uniform
+      u64 lv[4][2];
+      priority(P, lane, lv);
+      if (seeded) {
+        const u64 sw[2] = {s_seed[lane], s_seed[lane + 32]};
+        seed_restrict(lv, sw, lane);
+      }
+      leaf = !__any_sync(kFullMask, (lv[3][0] | lv[3][1]) != 0);
+      if (!leaf) col = branch_cell(lv, bit);
+    }
     if (lane == 0) {
       s_pop[slot] = pop;
       s_ok[slot] = ok && !leaf;
       s_leaf[slot] = leaf;
-      s_col[slot] = ok && !leaf ? col : -1;
+      s_col[slot] = col;
       s_bit[slot] = bit;
     }
     __syncthreads();
 
     // harvest: the round's best leaf, lowest slot on ties
-    int gmin = kLeafSentinel;
-    for (int j = 0; j < F; ++j)
-      if (s_leaf[j]) gmin = min(gmin, s_pop[j] * 16 + j);
+    const int leaf_key = lane < kF && s_leaf[lane] ? s_pop[lane] * 16 + lane : kLeafSentinel;
+    const int gmin = __reduce_min_sync(kFullMask, leaf_key);
     if (gmin < kLeafSentinel && (gmin >> 4) < best_pop) {
       if (slot == (gmin & 15)) {
         best[lane] = P.p[0][0];
@@ -683,24 +710,20 @@ beam_kernel(const u64* __restrict__ in, const u64* __restrict__ seed,
       found = true;
     }
 
-    // rank the 2F children; slot j takes the child ranked j.  An ok child
-    // ranked F or later is dropped: the search is no longer exhaustive.
-    int child = 0;
-    any_active = false;
-    for (int c = 0; c < 2 * F; ++c) {
-      const int pc = c < F ? c : c - F;
-      const int kc = (s_ok[pc] ? s_pop[pc] + (c >= F) : kLeafSentinel) * 2 * F + c;
-      int rank = 0;
-      for (int d = 0; d < 2 * F; ++d) {
-        const int pd = d < F ? d : d - F;
-        rank += (s_ok[pd] ? s_pop[pd] + (d >= F) : kLeafSentinel) * 2 * F + d < kc;
-      }
-      if (rank == slot) child = c;
-      if (rank >= F && s_ok[pc]) complete = false;
-      any_active = any_active || s_ok[pc];
-    }
-    const bool on = child >= F;
-    const int parent = on ? child - F : child;
+    // rank the 2F children, lane c holding child c (of slot c mod F); slot j
+    // takes the child ranked j.  An ok child ranked F or later is dropped:
+    // the search is no longer exhaustive.
+    const bool child_ok = lane < 2 * kF && s_ok[lane & (kF - 1)];
+    const int key =
+        (child_ok ? s_pop[lane & (kF - 1)] + (lane >= kF) : kLeafSentinel) * 2 * kF + lane;
+    int rank = 0;
+#pragma unroll
+    for (int d = 0; d < 2 * kF; ++d) rank += __shfl_sync(kFullMask, key, d) < key;
+    const int child = __ffs(__ballot_sync(kFullMask, lane < 2 * kF && rank == slot)) - 1;
+    if (__any_sync(kFullMask, child_ok && rank >= kF)) complete = false;
+    any_active = __any_sync(kFullMask, child_ok);
+    const bool on = child >= kF;
+    const int parent = child & (kF - 1);
     const int cell_col = s_col[parent];
     const int cell_bit = s_bit[parent];
     active = s_ok[parent] != 0;
@@ -708,7 +731,7 @@ beam_kernel(const u64* __restrict__ in, const u64* __restrict__ seed,
     // gather: every slot's parent planes go through shared memory
     store_board(P, parents + slot * kBoardWords, lane);
     __syncthreads();
-    load_board(P, parents + parent * kBoardWords, lane);
+    if (parent != slot) load_board(P, parents + parent * kBoardWords, lane);
     const u64 m[2] = {cell_col == lane ? 1ull << cell_bit : 0,
                       cell_col == lane + 32 ? 1ull << cell_bit : 0};
 #pragma unroll
@@ -736,19 +759,44 @@ beam_kernel(const u64* __restrict__ in, const u64* __restrict__ seed,
 
 inline dim3 grid_for(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
-template <int kMaxThreads>
+// beam_kernel<kF>'s dynamic shared memory, the F parent boards of a round,
+// which the kernel is opted into (80 KB at F = 16).
+template <int kF>
+constexpr int beam_smem() { return kF * kBoardWords * static_cast<int>(sizeof(u64)); }
+
+template <int kF>
+cudaError_t configure_beam() {
+  return cudaFuncSetAttribute(beam_kernel<kF>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              beam_smem<kF>());
+}
+
+template <int kF>
 cudaError_t launch_beam(const u64* in, const u64* seed, const int* bound, u64* best,
                         int* best_pop, uint8_t* found, uint8_t* complete,
-                        uint8_t* exhausted, int B, int F, int iters, bool minimise,
+                        uint8_t* exhausted, int B, int iters, bool minimise,
                         int max_fix_iters, cudaStream_t stream) {
-  const int smem = F * kBoardWords * static_cast<int>(sizeof(u64));
-  cudaError_t err = cudaFuncSetAttribute(
-      beam_kernel<kMaxThreads>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const cudaError_t err = configure_beam<kF>();
   if (err != cudaSuccess) return err;
-  beam_kernel<kMaxThreads><<<B, F * 32, smem, stream>>>(
+  beam_kernel<kF><<<B, kF * 32, beam_smem<kF>(), stream>>>(
       in, seed, bound, best, best_pop, found, complete, exhausted, iters, minimise,
       max_fix_iters);
   return cudaGetLastError();
+}
+
+// info = {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread} of beam_kernel<kF>.
+template <int kF>
+cudaError_t beam_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = configure_beam<kF>();
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], beam_kernel<kF>, kF * 32,
+                                                        beam_smem<kF>());
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, beam_kernel<kF>);
+  if (err != cudaSuccess) return err;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
 }
 
 }  // namespace
@@ -793,12 +841,28 @@ extern "C" cudaError_t life_stable_beam(const u64* in, const u64* seed, const in
                                         uint8_t* complete, uint8_t* exhausted, int B, int F,
                                         int iters, int minimise, int max_fix_iters,
                                         cudaStream_t stream) {
-  if (B <= 0 || iters < 0 || max_fix_iters < 0 || F < 2 || F > kMaxFrontier ||
-      (F & (F - 1)) != 0)
-    return cudaErrorInvalidValue;
-  if (F <= 8)
-    return launch_beam<256>(in, seed, bound, best, best_pop, found, complete, exhausted, B,
-                            F, iters, minimise != 0, max_fix_iters, stream);
-  return launch_beam<512>(in, seed, bound, best, best_pop, found, complete, exhausted, B,
-                          F, iters, minimise != 0, max_fix_iters, stream);
+  if (B <= 0 || iters < 0 || max_fix_iters < 0) return cudaErrorInvalidValue;
+  const bool m = minimise != 0;
+  switch (F) {
+    case 2: return launch_beam<2>(in, seed, bound, best, best_pop, found, complete, exhausted,
+                                  B, iters, m, max_fix_iters, stream);
+    case 4: return launch_beam<4>(in, seed, bound, best, best_pop, found, complete, exhausted,
+                                  B, iters, m, max_fix_iters, stream);
+    case 8: return launch_beam<8>(in, seed, bound, best, best_pop, found, complete, exhausted,
+                                  B, iters, m, max_fix_iters, stream);
+    case 16: return launch_beam<16>(in, seed, bound, best, best_pop, found, complete,
+                                    exhausted, B, iters, m, max_fix_iters, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// info = beam_info of beam_kernel<F>, F a power of two in [2, 16].
+extern "C" cudaError_t life_stable_beam_info(int F, int* info) {
+  switch (F) {
+    case 2: return beam_info<2>(info);
+    case 4: return beam_info<4>(info);
+    case 8: return beam_info<8>(info);
+    case 16: return beam_info<16>(info);
+    default: return cudaErrorInvalidValue;
+  }
 }

@@ -39,11 +39,13 @@ SIGNATURES = {
     "life_stable_fixpoint": (_P, _P, _P, _P, _I, _I, _P),
     "life_stable_fixpoint_priorities": (_P, _P, _P, _P, _P, _I, _I, _P),
     "life_stable_beam": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    "life_stable_beam_info": (_I, _P),
     "life_conv_sparse": (_P, _P, _P, _I, _P),
     "life_counts_sparse": (_P, _P, _P, _I, _I, _P),
     "life_conv_counts": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "life_conv_small": (_P, _P, _P, _P, _I, _I, _I, _P),
-    "life_conv_small_packed": (_P, _P, _P, _I, _I, _P),
+    "life_conv_small_packed": (_P, _P, _P, _P, _I, _I, _P),
+    "life_conv_ntt_info": (_P,),
     "life_calibrate": (_P, _P, _P, _I, _I, _I, _P),
 }
 

@@ -13,7 +13,8 @@ not take raises.
 The TPU's batch tiles, padding and interpret flags have no counterpart: the
 kernels take any batch.  The dense counts are a number-theoretic transform
 on the tensor cores, with the primes, twiddles and CRT inverse of
-:mod:`..core.ntt`, which the plain twins compute as well.  The single-prime
+:mod:`..core.ntt`, which the plain twins compute as well; on packed boards
+the kernel expands the bits and packs the mask on chip.  The single-prime
 kernels compute the counts mod 193 (``conv_pallas``'s NTT is exact in that
 ring), so their results here are the residues of the exact counts on every
 input, in or out of the "< 193" contract.
@@ -23,6 +24,8 @@ its main path went through the kernels.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -141,8 +144,8 @@ def counts_sparse_fused(a, b, n_planes=6):
 
 
 # ---------------------------------------------------------------------------
-# Dense counts (replaces conv_pallas.conv_counts_fused and conv_small_fused:
-# a tensor-core NTT; conv_small_packed: bit-parallel popcounts)
+# Dense counts (replaces conv_pallas.conv_counts_fused, conv_small_fused and
+# conv_small_packed: a tensor-core NTT)
 # ---------------------------------------------------------------------------
 
 
@@ -164,7 +167,7 @@ def _dense_pair(da, db):
 
 def _aligned(t):
     """``t``, or a copy of it where its data does not start on 16 bytes (the
-    kernel reads 16-byte chunks)."""
+    kernel reads 16-byte chunks; an ``int64[B, 64]`` slice may start on 8)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -195,8 +198,9 @@ def _packed_pair(pa, pb):
 
 def packed_counts_plain(pa, pb):
     """Exact circular-convolution counts ``int32[..., 64, 64]`` of boards
-    ``int64[..., 64]``, by the packed kernel's formula
-    ``count[x][y] = sum_u popcount(a[u] & rotl(rev(b[x - u]), y + 1))``."""
+    ``int64[..., 64]``, by bit-parallel popcounts
+    ``count[x][y] = sum_u popcount(a[u] & rotl(rev(b[x - u]), y + 1))``: an
+    algorithm independent of the NTT, which the tests hold the twins to."""
     # rot[..., c, y] = rotl(rev(b[c]), y + 1)
     k = torch.remainder(torch.arange(1, 65, device=pb.device), 64)
     rot = bitops.rotl64(bitops.reverse64(pb)[..., :, None], k)
@@ -219,7 +223,8 @@ def conv_small_fused_plain(da, db, out_or=True):
 
 
 def conv_small_packed_plain(pa, pb):
-    return B.from_dense(packed_counts_plain(pa, pb) % MODULUS != 0)
+    """The single-prime NTT mod 193 of the boards' cells, ``!= 0``, packed."""
+    return B.from_dense(ntt.residues(B.to_dense(pa), B.to_dense(pb), MODULUS) != 0)
 
 
 def conv_counts_fused(da, db):
@@ -265,9 +270,25 @@ def conv_small_packed(pa, pb):
     pa, pb = _packed_pair(pa, pb)
     if not pa.is_cuda:
         return conv_small_packed_plain(pa, pb)
+    pa, pb = _aligned(pa), _aligned(pb)
     out = torch.empty_like(pa)
     with torch.cuda.device(pa.device):
         _launch(_build.library().life_conv_small_packed, pa.data_ptr(), pb.data_ptr(),
-                out.data_ptr(), pa.shape[0], MODULUS, _stream(pa.device))
+                _twiddles(pa.device).data_ptr(), out.data_ptr(), pa.shape[0], MODULUS,
+                _stream(pa.device))
     LAUNCHES["conv_small_packed"] += 1
     return out
+
+
+NTT_INSTANTIATIONS = ("ntt_conv_kernel<2, 0>", "ntt_conv_kernel<1, 1>",
+                      "ntt_conv_kernel<1, 2>", "ntt_conv_kernel<1, 3>")
+
+
+def ntt_kernel_info(device=None):
+    """{instantiation: (resident blocks an SM, registers a thread, local
+    bytes a thread)} of the NTT kernel on a CUDA ``device``, from the CUDA
+    runtime's occupancy calculator and the kernels' attributes."""
+    info = (ctypes.c_int * (3 * len(NTT_INSTANTIATIONS)))()
+    with torch.cuda.device(device):
+        _launch(_build.library().life_conv_ntt_info, info)
+    return {name: tuple(info[3 * k:3 * k + 3]) for k, name in enumerate(NTT_INSTANTIATIONS)}

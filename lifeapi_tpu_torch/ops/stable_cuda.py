@@ -21,6 +21,8 @@ main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..core import board as B
@@ -352,6 +354,12 @@ def _seed_restrict(levels, ok, seed):
     return levels & sz[..., None, :]
 
 
+def _slot_priorities(planes, ok):
+    """The branch levels of a beam round's slots: those of the ok slots; a
+    slot that is not ok branches on nothing, and the kernel skips it."""
+    return torch.where(ok[..., None, None], _priority_planes(planes), 0)
+
+
 def beam_search_plain(planes, *, frontier, iters, minimise, seed=None, bound=None):
     """The beam search in plain PyTorch: ``complete.beam_search_jnp``
     round for round, with the kernels' fixpoint and priority functions
@@ -377,7 +385,7 @@ def beam_search_plain(planes, *, frontier, iters, minimise, seed=None, bound=Non
             ok = ok & (pop < best_pop[:, None])
         else:
             ok = ok & ~found[:, None]
-        levels = _priority_planes(cur)
+        levels = _slot_priorities(cur, ok)
         if seed is not None:
             levels = _seed_restrict(levels, ok, seed)
         is_leaf = ok & B.is_empty(levels[:, :, 3])
@@ -457,3 +465,13 @@ def beam_search(planes, *, frontier, iters, minimise, seed=None, bound=None):
                 int(bool(minimise)), MAX_ITERS, _stream(dev))
     LAUNCHES["beam_search"] += 1
     return best, best_pop, flags[0], flags[1], flags[2]
+
+
+def beam_kernel_info(frontier, device=None):
+    """(resident blocks an SM, registers a thread, local bytes a thread) of
+    the beam kernel at ``frontier`` on a CUDA ``device``, from the CUDA
+    runtime's occupancy calculator and the kernel's attributes."""
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        _launch(_build.library().life_stable_beam_info, int(frontier), info)
+    return tuple(info)

@@ -37,13 +37,22 @@ def test_ptxas_report_names_each_kernel():
         ("beam_kernel<256>", 173, 172), ("rollout_kernel", 32, 0)]
 
 
-NTT = "_ZN47_GLOBAL__N__f662ddb2_14_life_conv_cu_e29dcd4a3ntt15ntt_conv_kernelILi{}ELi{}EEEvPKhS3_PK13__nv_bfloat16Pviiii"
+NTT = "_ZN45_GLOBAL__N__afda5bfd_12_life_conv_cu_3420d7983ntt15ntt_conv_kernelILi{}ELi{}EEEvPKhS3_PK13__nv_bfloat16Pviiii"
 
 
-@pytest.mark.parametrize("args", [(2, 0), (1, 1), (1, 2)])
+@pytest.mark.parametrize("args", [(2, 0), (1, 1), (1, 2), (1, 3)])
 def test_kernel_label_keeps_every_template_argument(args):
     assert chip_smoke.kernel_label(NTT.format(*args)) == f"ntt_conv_kernel<{args[0]}, {args[1]}>"
     assert chip_smoke.kernel_label(ROLLOUT) == "rollout_kernel"
+
+
+def test_kernel_label_is_not_fooled_by_the_path_hash():
+    """The anonymous namespace's name hashes the source's path; here its
+    digits 52 would, read as a length, span exactly to ``..._kernel``."""
+    mangled = "_ZN48_GLOBAL__N__1ab52fd4_15_life_rollout_cu_d2d3041c19rollout_lohi_kernelEPKjS1_PjS2_ii"
+    assert chip_smoke.kernel_label(mangled) == "rollout_lohi_kernel"
+    assert chip_smoke.kernel_label("_Z14rollout_kernelPKyPyii") == "rollout_kernel"
+    assert chip_smoke.kernel_label("_ZN3foo3barEv") == "_ZN3foo3barEv"
 
 
 def _sass(name, body):
@@ -83,18 +92,82 @@ def test_sass_loop_without_whole_generations_is_refused(shuffles):
         chip_smoke.instructions_per_generation(code)
 
 
+NTT_ARGS = ((2, 0), (1, 1), (1, 2), (1, 3))
+
+
 def _ntt_listing(hmma):
     body = [("LDSM.16.M88.4", "R4, [R2]"), ("HMMA.16816.F32.BF16", "R8, R4, R12, R8")] * hmma
     body += [("FRND.FLOOR", "R1, R2"), ("EXIT", "")]
-    return "".join(_sass(NTT.format(*args), body) for args in ((2, 0), (1, 1), (1, 2)))
+    return "".join(_sass(NTT.format(*args), body) for args in NTT_ARGS)
 
 
 def test_ntt_sass_counts_tensor_core_instructions():
     counts = chip_smoke.ntt_sass_counts(chip_smoke.sass_functions(_ntt_listing(3)))
-    assert counts == {name: (3, 3, 1, 8) for name in
-                      ("ntt_conv_kernel<2, 0>", "ntt_conv_kernel<1, 1>", "ntt_conv_kernel<1, 2>")}
+    assert counts == {f"ntt_conv_kernel<{p}, {o}>": (3, 3, 1, 8) for p, o in NTT_ARGS}
 
 
 def test_ntt_sass_without_hmma_is_refused():
     with pytest.raises(AssertionError, match="lacks HMMA"):
         chip_smoke.ntt_sass_counts(chip_smoke.sass_functions(_ntt_listing(0)))
+
+
+STABLE = "_ZN47_GLOBAL__N__f662ddb2_14_life_stable_cu_e29dcd4a{}EvPKyPyPhS3_S1_ii"
+SOLVER_NAMES = {"fixpoint_kernel<0>": "15fixpoint_kernelILb0EE",
+                "fixpoint_kernel<1>": "15fixpoint_kernelILb1EE",
+                "beam_kernel<4>": "11beam_kernelILi4EE"}
+SHFL = ("SHFL.IDX", "PT, R10, R23, R6, 0x1f")
+LOP = ("LOP3.LUT", "R4, R2, R3, R5, 0x96, !PT")
+
+
+def _solver_body(step_unroll=1, priority=True):
+    """A beam-shaped function: a round loop around a fixpoint loop (48
+    shuffles a step, two votes and the branch: 99 instructions a step),
+    then, behind a branch, the priority block (56 shuffles, 168
+    instructions and the branch that ends it) and 40 more shuffles, so the
+    round loop holds 3 x 48 and must not be taken for the fixpoint."""
+    code = [("MOV", "R1, c[0x0][0x28]")]
+    rnd = len(code)
+    code += [("BSSY", "B0, {join}"), LOP]
+    step = len(code)
+    code += ([SHFL, LOP] * 48 + [("VOTE.ANY", "R5, PT, P1"), ("VOTE.ANY", "R6, PT, P2")]) \
+        * step_unroll + [("@P0 BRA", f"{16 * step:#x}")]
+    code += [("REDUX.SUM", "UR4, R7"), ("@!P1 BRA", "{skip}")]
+    code += [SHFL, LOP, LOP] * (56 if priority else 55) + [("@!P2 BRA", "{skip}")]
+    skip = len(code)
+    code += [SHFL] * 40 + [("BSYNC", "B0")]
+    join = len(code)
+    code += [LOP, ("@P3 BRA", f"{16 * rnd:#x}"), ("EXIT", "")]
+    return [(op, args.format(join=f"{16 * join:#x}", skip=f"{16 * skip:#x}"))
+            for op, args in code]
+
+
+def _solver_listing(**kw):
+    return "".join(_sass(STABLE.format(mangled), _solver_body(**kw))
+                   for mangled in SOLVER_NAMES.values())
+
+
+def test_solver_sass_counts_step_and_priority():
+    funcs = chip_smoke.sass_functions(_solver_listing())
+    assert sorted(funcs) == sorted(SOLVER_NAMES)
+    code = funcs["beam_kernel<4>"]
+    assert chip_smoke.loop_instructions(code, chip_smoke.STEP_SHUFFLES) == 99
+    assert chip_smoke.block_instructions(code, chip_smoke.PRIORITY_SHUFFLES) == 169
+    blocks = chip_smoke.basic_blocks(code)
+    assert sum(map(len, blocks)) == len(code)
+    assert [len(b) for b in blocks][:2] == [1, 2]  # the round loop's head starts a block
+    assert chip_smoke.solver_sass_counts(funcs) == {
+        "propagate_fixpoint": (99, None), "propagate_fixpoint_priorities": (99, 169),
+        "beam_search": (99, 169)}
+
+
+def test_solver_sass_unrolled_step_counts_per_pass():
+    code = chip_smoke.sass_functions(_solver_listing(step_unroll=2))["beam_kernel<4>"]
+    assert chip_smoke.loop_instructions(code, chip_smoke.STEP_SHUFFLES) == 197 / 2
+
+
+def test_solver_sass_without_its_shapes_is_refused():
+    code = chip_smoke.sass_functions(_solver_listing(priority=False))["beam_kernel<4>"]
+    with pytest.raises(AssertionError, match="no basic block of 56 shuffles"):
+        chip_smoke.block_instructions(code, chip_smoke.PRIORITY_SHUFFLES)
+    with pytest.raises(AssertionError, match="no loop of 48 shuffles"):
+        chip_smoke.loop_instructions(code[:2], chip_smoke.STEP_SHUFFLES)

@@ -167,6 +167,24 @@ def test_conv_small_packed_matches_pallas(rng):
     assert (convert.board_to_packed(got) == np.asarray(expect)).all()
 
 
+def test_conv_small_packed_unaligned_matches_pallas(rng):
+    """Operands whose data starts 8 bytes past a 16-byte boundary (an
+    ``int64[B, 64]`` slice may), with counts above 193."""
+    da = rng.random((3, 64, 64)) < 0.5
+    db = rng.random((3, 64, 64)) < 0.5
+    expect = CP.conv_small_packed(_packed(da), _packed(db), interpret=True)
+    store = torch.zeros((2, 3 * 64 + 2), dtype=torch.int64)
+    a, b = (s[1:3 * 64 + 1].view(3, 64) for s in store)
+    a.copy_(tb.from_dense(torch.from_numpy(da)))
+    b.copy_(tb.from_dense(torch.from_numpy(db)))
+    assert a.data_ptr() % 16 == 8 and b.data_ptr() % 16 == 8
+    got = conv_cuda.conv_small_packed(a, b)
+    assert (convert.board_to_packed(got) == np.asarray(expect)).all()
+    exact = conv_cuda.conv_counts_fused(torch.from_numpy(da), torch.from_numpy(db))
+    assert int(exact.max()) >= 193
+    assert torch.equal(got, tb.from_dense(exact % 193 != 0))
+
+
 @pytest.mark.parametrize("mix", ["elemwise", "rolls"])
 def test_calibrate_32bit_matches_pallas(rng, mix):
     """With 32-bit words the twin's chain is the TPU kernel's own function,

@@ -111,13 +111,13 @@ def test_rollout_lohi_kernel_rejects_bad_input(device):
 # Still-life kernels (csrc/life_stable.cu) against their twins
 # ---------------------------------------------------------------------------
 
-def _block_instances(rng, b, p_hide):
+def _block_instances(rng, b, p_hide, n_blocks=5):
     """Partial still lifes: 2x2 blocks with cells hidden and a 2-ring of
     unknowns; a high ``p_hide`` makes some of them inconsistent."""
     states, unknowns = [], []
     for _ in range(b):
         truth = np.zeros((64, 64), bool)
-        for _ in range(5):
+        for _ in range(n_blocks):
             x, y = rng.integers(4, 56, 2)
             truth[x:x + 2, y:y + 2] = True
         hide = (rng.random((64, 64)) < p_hide) & H.zoi(truth)
@@ -209,6 +209,51 @@ def test_beam_kernel_matches_plain_twin(device, frontier, iters, minimise):
                     dict(frontier=frontier, iters=iters, minimise=minimise))
     if frontier >= 4 and iters >= 24:
         assert got[2][:4].all() and (got[1][:4] == 7).all()
+
+
+def _fixpoint_spread(planes, frontier, iters, monkeypatch):
+    """The largest difference, in one round of one problem, between the
+    fixpoint lengths (steps) of two active slots, from the plain twin."""
+    fixpoint, spread = stable_cuda._fixpoint, [0]
+
+    def counted(p, max_iters, alive=None):
+        steps = torch.zeros(alive.shape, dtype=torch.int64, device=alive.device)
+        live = alive.clone()
+        aborted, changed = torch.zeros_like(alive), torch.zeros_like(alive)
+        for _ in range(max_iters):
+            if not bool(live.any()):
+                break
+            steps += live
+            p, ab, ch = fixpoint(p, 1, live)
+            aborted, changed = aborted | ab, changed | ch
+            live = live & ~ab & ch
+        longest = torch.where(alive, steps, -1).max(dim=1).values
+        shortest = torch.where(alive, steps, 2**30).min(dim=1).values
+        pairs = alive.sum(dim=1) >= 2
+        spread[0] = max(spread[0], int(torch.where(pairs, longest - shortest, 0).max()))
+        return p, aborted, changed
+
+    with monkeypatch.context() as m:
+        m.setattr(stable_cuda, "_fixpoint", counted)
+        stable_cuda.beam_search_plain(planes, frontier=frontier, iters=iters, minimise=True)
+    return spread[0]
+
+
+@pytest.mark.parametrize("frontier,iters", [(4, 12), (16, 6)])
+def test_beam_kernel_uneven_fixpoints(device, frontier, iters, monkeypatch):
+    """Slots whose fixpoints in one round differ by 8 steps or more: the
+    warps that finish early wait at the round's barrier."""
+    planes = _block_instances(np.random.default_rng(6), 24, 0.5, n_blocks=12).to(device)
+    assert _fixpoint_spread(planes, frontier, iters, monkeypatch) >= 8
+    _run_pair("beam_search", (planes,), dict(frontier=frontier, iters=iters, minimise=True))
+
+
+def test_beam_kernel_drops_children_past_the_frontier(device):
+    """Every problem has more ok children than F = 2 slots in some round, so
+    none is complete, and the kernel drops the same children as the twin."""
+    planes = _block_instances(np.random.default_rng(11), 24, 0.5, n_blocks=8).to(device)
+    got = _run_pair("beam_search", (planes,), dict(frontier=2, iters=8, minimise=True))
+    assert not got[3].any()
 
 
 def test_beam_kernel_seed_and_bound(device):
@@ -338,6 +383,32 @@ def test_ntt_kernels_match_twins_and_peel(device, batch):
         assert int(counts[4:].max()) >= 257 and int(residue.max()) < 193
 
 
+@pytest.mark.parametrize("batch", [1, 5, 1000])
+def test_packed_ntt_kernel_matches_twin_and_dense_mask(device, batch):
+    """[15] on packed boards: all-ON, all-OFF, single cells, an ON board
+    against an OFF one and p=0.5 pairs (counts above 193, where the mask is
+    count % 193 != 0), against its twin and the dense mask kernel, on
+    aligned boards and on boards that start 8 bytes past 16."""
+    da, db = _ntt_operands(batch, device)
+    a, b = B.from_dense(da), B.from_dense(db)
+    got = _conv_pair(conv_cuda, "conv_small_packed", (a, b))[0]
+    mask = conv_cuda.conv_small_fused(da, db, out_or=True)
+    assert torch.equal(got, B.from_dense(mask != 0))
+    assert bool((got[0] == -1).all())  # every count 4096, and 4096 % 193 == 43
+    if batch > 1:
+        assert int(got[1].abs().sum()) == 0
+    if batch > 2:
+        assert torch.equal(got[2], B.from_cells([(2, 5)], device=device))
+    store = torch.zeros((2, batch * 64 + 2), dtype=torch.int64, device=device)
+    ua, ub = (t[1:batch * 64 + 1].view(batch, 64) for t in store)
+    ua.copy_(a)
+    ub.copy_(b)
+    assert ua.data_ptr() % 16 == 8 and ub.data_ptr() % 16 == 8
+    before = conv_cuda.LAUNCHES["conv_small_packed"]
+    assert torch.equal(conv_cuda.conv_small_packed(ua, ub), got)
+    assert conv_cuda.LAUNCHES["conv_small_packed"] == before + 1
+
+
 def test_ntt_kernels_take_unaligned_fields_and_other_on_bytes(device):
     """A field whose data does not start on 16 bytes, and ON bytes other
     than 1, give the counts of the 0/1 fields."""
@@ -368,6 +439,28 @@ def test_cuda_tensors_never_reach_the_ntt_twins(device, monkeypatch):
     assert conv_cuda.LAUNCHES["conv_counts_fused"] == before["conv_counts_fused"] + 1
     assert conv_cuda.LAUNCHES["conv_small_fused"] == before["conv_small_fused"] + 1
     assert torch.equal(counts, want) and torch.equal(residue, want % 193)
+
+
+def test_beam_kernel_never_spills(device):
+    """ptxas gives every instantiation of the beam kernel its registers
+    without spills, and the runtime finds no local memory and 16 warps an
+    SM at every frontier."""
+    import chip_smoke
+    from lifeapi_tpu_torch.ops import _build
+
+    report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    beam = {name: spill for name, _, spill in report if name.startswith("beam_kernel")}
+    assert sorted(beam) == [f"beam_kernel<{f}>" for f in (16, 2, 4, 8)]
+    assert all(spill == 0 for spill in beam.values()), beam
+    for frontier in (2, 4, 8, 16):
+        blocks, regs, local = stable_cuda.beam_kernel_info(frontier)
+        assert local == 0 and regs <= 128 and blocks * frontier == 16, (frontier, blocks, regs)
+
+
+def test_ntt_kernel_occupancy(device):
+    info = conv_cuda.ntt_kernel_info()
+    assert sorted(info) == sorted(conv_cuda.NTT_INSTANTIATIONS)
+    assert all(blocks >= 1 and local == 0 for blocks, _, local in info.values()), info
 
 
 @pytest.mark.parametrize("mix", ["elemwise", "rolls"])

@@ -81,8 +81,9 @@ def test_every_stage_stays_exact(rng, monkeypatch):
 
 
 def test_twins_equal_the_popcount_formula(rng):
-    """The NTT twins against the packed kernel's popcount formula, bit for
-    bit, on counts above 257 and on all-ON pairs (every count 4096)."""
+    """The NTT twins, the packed one included, against the popcount
+    formula, bit for bit, on counts above 257 and on all-ON pairs (every
+    count 4096)."""
     da, db = _dense_pairs(rng)
     packed = conv_cuda.packed_counts_plain(tb.from_dense(da), tb.from_dense(db))
     counts = conv_cuda.conv_counts_fused_plain(da, db)
@@ -92,6 +93,8 @@ def test_twins_equal_the_popcount_formula(rng):
     assert torch.equal(residue, packed % 193)
     mask = conv_cuda.conv_small_fused_plain(da, db)
     assert mask.dtype == torch.int8 and torch.equal(mask, (packed % 193 != 0).to(torch.int8))
+    boards = conv_cuda.conv_small_packed_plain(tb.from_dense(da), tb.from_dense(db))
+    assert torch.equal(boards, tb.from_dense(packed % 193 != 0))
 
 
 def test_ntt_route_of_convolve_counts_is_the_twin(rng):
