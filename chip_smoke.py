@@ -20,7 +20,7 @@ Phases, each printing what it saw:
 4. the still-life solver's path ([stable]), with its own counters set to 0
    just before: the beam completion of the bench problem (8192 problems,
    frontier 4, 24 rounds), the queued beam over 131,072 problems, and the
-   propagate fixpoint of 4096 boards through its three entries; then each
+   propagate fixpoint of 4096 boards through its four entries; then each
    of the four solver kernels against its twin (bit-exact, on the bench
    shapes and on random, seeded and bounded instances), the known answers
    (pop-7 eater on every problem, 49 -> 40 unknowns, a lone cell proved
@@ -47,7 +47,8 @@ Phases, each printing what it saw:
    soundness, the dense propagate against kernel B, and kernel [4] against
    its twin and kernel [1];
 7. timings on the card (CUDA events, medians after a warm-up; device
-   times from torch.profiler with the SM clock read under the same load),
+   times from torch.profiler traces, the mean of the launches each holds,
+   with the SM clock read under the same load),
    the calibrated word-op ceilings, every kernel's bound (the rollout and
    solver kernels' from the SASS of the library just built), and the NTT
    kernels' tensor-core instructions (HMMA) in that SASS.
@@ -80,7 +81,7 @@ REPLACES = {
 # the kernels of REPLACES that the main path drives; rollout_lohi has no
 # caller there and is driven by the [weld] phase
 MAIN_PATH_KERNELS = ("rollout", "controlled_rollout", "catalyst_rollout")
-STABLE_REPLACES = {  # [6] and [9] are entries over kernels A and C
+STABLE_REPLACES = {  # [6] and [9] are entries over kernels B and C
     "propagate_step": "lifeapi_tpu/ops/stable_pallas.py:441",
     "propagate_fused": "lifeapi_tpu/ops/stable_pallas.py:589",
     "propagate_fixpoint": "lifeapi_tpu/ops/stable_pallas.py:487",
@@ -121,12 +122,16 @@ HBM_BYTES_PER_S = 3.35e12
 # so their operations are the SASS instructions of that loop in the library
 # this run built (cuobjdump -sass), one warp per board, over the card's issue
 # peak: one warp instruction per clock per scheduler, four schedulers per SM,
-# at the SM clock's maximum.  A loop's generations are told by its shuffles.
+# at the SM clock's maximum.  A loop's generations are told by its shuffles:
+# 16 a generation where lane l holds columns l and l + 32 (4 column exchanges
+# x (lo, hi) x two 32-bit halves), 8 where it holds columns 2l and 2l + 1
+# (the controlled kernel's life_step_pair: 2 exchanges x (even, odd) x 2).
 SCHEDULERS_PER_SM = 4
-SHFL_PER_GENERATION = 16  # 4 column exchanges x (lo, hi) x two 32-bit halves
-ROLLOUT_KERNELS = {"rollout": "rollout_kernel", "rollout_lohi": "rollout_lohi_kernel",
-                   "controlled_rollout": "controlled_kernel",
-                   "catalyst_rollout": "catalyst_kernel"}
+SHFL_PER_GENERATION = 16
+ROLLOUT_KERNELS = {"rollout": ("rollout_kernel", 16),
+                   "rollout_lohi": ("rollout_lohi_kernel", 16),
+                   "controlled_rollout": ("controlled_kernel", 8),
+                   "catalyst_rollout": ("catalyst_kernel", 16)}
 # Hand counts of life_stable.cu, kept for kernel A and printed beside the
 # SASS bounds of kernels B-D: stable_step: sync 26, two count9 46 (8
 # shuffles and selects each), nibble sums 21, update 55, signal 53, two
@@ -170,10 +175,16 @@ MOD_REDUCTIONS_PER_PRIME = 7 * 4096
 MOD_INSTRUCTIONS = 6
 
 # Device times at these shapes before the kernels' redesign (the beam kernel
-# as one block of F warps at 173 registers, [15] on a popcount body), on an
-# NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6), printed beside this
-# run's.
-DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484}
+# as one block of F warps at 173 registers, [15] on a popcount body, the
+# controlled rollout as 8 boards a block reading its toggles from device
+# memory, propagate_fused as a host loop over kernel A: the whole call), on
+# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6; the last two by
+# device_times.py on the parent tree), printed beside this run's.
+DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484,
+                    "controlled_rollout": 0.0107, "propagate_fused": 0.2055}
+# profiler traces of one device time taken before a run of traces that each
+# miss half of a kernel's launches fails the run
+PROFILE_TRIES = 5
 
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
 BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
@@ -312,24 +323,31 @@ def _shuffles(ops):
 
 
 def loops(code):
-    """(shuffles, instructions) of every loop of a function's SASS: a
-    backward branch and what it jumps over."""
+    """(shuffles, instructions, first address, last address) of every loop
+    of a function's SASS: a backward branch and what it jumps over."""
     found = []
     for addr, op, args in code:
         target = _branch_target(op, args) if op.startswith("BRA") else None
         if target is not None and target <= addr:
             body = [o for a, o, _ in code if target <= a <= addr]
-            found.append((_shuffles(body), len(body)))
+            found.append((_shuffles(body), len(body), target, addr))
     return found
 
 
-def instructions_per_generation(code):
-    """Instructions per generation of the loop that holds the most
-    shuffles."""
-    shuffles, n = max(loops(code), default=(0, 0))
-    check(shuffles > 0 and shuffles % SHFL_PER_GENERATION == 0,
+def instructions_per_generation(code, shuffles_per_generation=SHFL_PER_GENERATION):
+    """Instructions per generation of the generation loop: of the loops
+    that hold shuffles but no other such loop, the one with the most.  Its
+    shuffles count its generations, so a body unrolled k times counts k
+    (and a loop around the generation loops, a chunk loop, is passed
+    over)."""
+    shuffling = [lp for lp in loops(code) if lp[0]]
+    innermost = [(n_shfl, n) for n_shfl, n, first, last in shuffling
+                 if not any(first <= o[2] and o[3] <= last and (o[2], o[3]) != (first, last)
+                            for o in shuffling)]
+    shuffles, n = max(innermost, default=(0, 0))
+    check(shuffles > 0 and shuffles % shuffles_per_generation == 0,
           f"no generation loop found in the SASS ({shuffles} shuffles)")
-    return n * SHFL_PER_GENERATION / shuffles
+    return n * shuffles_per_generation / shuffles
 
 
 def library_sass(lib_path):
@@ -345,8 +363,8 @@ def library_sass(lib_path):
 
 def rollout_sass_counts(funcs):
     """Warp instructions per board-generation of each rollout kernel."""
-    return {name: instructions_per_generation(funcs[fn])
-            for name, fn in ROLLOUT_KERNELS.items()}
+    return {name: instructions_per_generation(funcs[fn], shuffles)
+            for name, (fn, shuffles) in ROLLOUT_KERNELS.items()}
 
 
 def basic_blocks(code):
@@ -371,7 +389,7 @@ def loop_instructions(code, shuffles):
     shuffles a pass: of the loops that hold a positive multiple of them,
     the one with the fewest instructions; k times the shuffles count k
     passes."""
-    passes = [(size, n) for n, size in loops(code) if n and n % shuffles == 0]
+    passes = [(size, n) for n, size, _, _ in loops(code) if n and n % shuffles == 0]
     check(passes, f"no loop of {shuffles} shuffles a pass in the SASS")
     size, n = min(passes)
     return size * shuffles / n
@@ -531,19 +549,68 @@ def check_still_lifes(res, known, unknown, what):
 # ---------------------------------------------------------------------------
 
 
-def profiled_device_ms(fn, kernel, n=20):
-    """Mean device milliseconds per call of fn spent in kernels whose name
-    contains ``kernel`` ("" for every kernel), from torch.profiler."""
-    from torch.profiler import ProfilerActivity, profile
+def launch_count(counter):
+    """The launches counted so far under ``counter`` in the wrappers'
+    ``LAUNCHES``."""
+    from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, stable_cuda, step_cuda
 
+    for module in (step_cuda, stable_cuda, conv_cuda, calibrate_cuda):
+        if counter in module.LAUNCHES:
+            return module.LAUNCHES[counter]
+    raise KeyError(counter)
+
+
+def profiled_device_ms(fn, kernel, counter, n=20, whole_call=False):
+    """Mean device milliseconds per call of fn in the kernels whose name
+    matches the regular expression ``kernel``, or in every kernel of the
+    call when ``whole_call``, from torch.profiler.
+
+    Each kernel event of a trace is one whole launch, but a trace on the
+    card may miss some of the launches.  So a kernel's time per call is the
+    mean of its recorded launches times its launches per call: its events
+    over n, rounded up.  A trace counts if the launches per call of the
+    kernels matching ``kernel`` add up to those that one call, made outside
+    the profiler, adds to ``LAUNCHES[counter]``, and if each kernel it
+    reads kept at least half of its launches; otherwise it is taken again,
+    and after PROFILE_TRIES such traces the run fails."""
+    torch.cuda.synchronize()
+    before = launch_count(counter)
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    per_call = launch_count(counter) - before
+    check(per_call > 0, f"a call of {counter} launched no kernel")
+    for _ in range(PROFILE_TRIES):
+        events = [e for e in _trace(fn, n)
+                  if whole_call or re.search(kernel, e.key)]
+        launches = {e.key: -(-e.count // n) for e in events}
+        matched = sum(c for key, c in launches.items() if re.search(kernel, key))
+        short = {e.key[:60]: f"{e.count} of {launches[e.key] * n}" for e in events
+                 if e.count < launches[e.key] * n}
+        if matched == per_call and all(2 * e.count >= launches[e.key] * n for e in events):
+            if short:
+                print(f"[time] {counter}: a trace of {n} calls missed launches {short}; "
+                      f"their kernels' time is the mean of the launches it holds")
+            return sum(e.device_time_total / e.count * launches[e.key] for e in events) / 1e3
+        print(f"[time] {counter}: a trace of {n} calls held launches of {per_call} a call "
+              f"of {kernel} as {launches}, short {short}; taken again")
+    check(False, f"{counter}: no usable trace in {PROFILE_TRIES}")
+
+
+def _trace(fn, n):
+    """The key averages of the kernels (events with device time) of n calls
+    of fn in one torch.profiler trace, after one call the profiler does not
+    record."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.device_time_total for e in prof.key_averages() if kernel in e.key)
-    return total_us / n / 1e3
+    return [e for e in prof.key_averages() if e.device_time_total > 0]
 
 
 def sm_clock_under(fn, seconds=5.0):
@@ -565,9 +632,9 @@ def sm_clock_under(fn, seconds=5.0):
     return out.split()[0]
 
 
-def device_ms_at(fn, kernel, n=20):
+def device_ms_at(fn, kernel, counter, n=20, whole_call=False):
     """(profiled_device_ms, sm_clock_under) of fn."""
-    return profiled_device_ms(fn, kernel, n), sm_clock_under(fn)
+    return profiled_device_ms(fn, kernel, counter, n, whole_call), sm_clock_under(fn)
 
 
 def before_redesign(name, dev_ms):
@@ -643,6 +710,8 @@ def stable_phase(dev):
     fix = SC.propagate_fused_inkernel(fix_bst)
     fix_loop = SC.propagate_fused(fix_bst)
     fix_prio, levels = SC.propagate_fused_beam(fix_bst)
+    prio_planes = SC.propagate_fixpoint_priorities(BP.to_planes(fix_bst).contiguous())
+    one_step = SC.propagate_step(BP.to_planes(fix_bst).contiguous())
     torch.cuda.synchronize()
     launches = dict(SC.LAUNCHES)
     print(f"[stable] solver path ran in {time.perf_counter() - t0:.2f} s; launches {launches}")
@@ -684,11 +753,28 @@ def stable_phase(dev):
         check(torch.equal(BP.to_planes(other.stable), BP.to_planes(fix.stable))
               and torch.equal(other.consistent, fix.consistent),
               "the three fixpoint entries disagree")
+    check(torch.equal(prio_planes[0], BP.to_planes(fix_prio.stable))
+          and torch.equal(prio_planes[3], torch.stack(levels, dim=-2)),
+          "propagate_fixpoint_priorities != propagate_fused_beam")
+    check(bool((~B.is_empty(one_step[1])).all()) and bool(B.is_empty(one_step[2]).all()),
+          "one propagation step of the fixpoint boards changed nothing or aborted")
+    # [6] is one launch of kernel B with no readback: a synchronising call
+    # raises under the sync debug mode
+    before = dict(SC.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        SC.propagate_fused(fix_bst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    added = {k: v - before[k] for k, v in SC.LAUNCHES.items() if v != before[k]}
+    check(added == {"propagate_fused": 1},
+          f"propagate_fused is not one launch of kernel B: {added}")
     print(f"[stable] bench beam B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}: found "
           f"{int(beam.found.sum())}/{BEAM_B}, best_pop {beam.best_pop.unique().tolist()}, "
           f"every board a still life; queued {n_queued}: found {int(queued.found.sum())}, "
           f"== per-chunk calls on 3 chunks; fixpoint B={FIX_B}: unknowns "
-          f"{unk_before} -> {unk_after.unique().tolist()}, consistent")
+          f"{unk_before} -> {unk_after.unique().tolist()}, consistent, the four entries "
+          f"equal; propagate_fused one launch of kernel B, no readback")
 
     # every kernel against its twin, first at the shapes of the path; the
     # two BitStable entries against their plain versions
@@ -708,6 +794,15 @@ def stable_phase(dev):
     _, _, abort = kernel_vs_plain("propagate_step", (rand,), {}, err)
     _, consistent, _, _ = kernel_vs_plain("propagate_fixpoint_priorities", (rand,), {}, err)
     kernel_vs_plain("propagate_fixpoint", (rand,), {}, err)
+    # [6] (kernel B) against its plain version (the host loop over A's
+    # twin), inconsistent boards included, at two step caps and the default
+    for cap in ({"max_iters": 1}, {"max_iters": 2}, {}):
+        got = SC.propagate_fused(BP.from_planes(rand), **cap)
+        want = SC.propagate_fused_plain(BP.from_planes(rand), **cap)
+        torch.cuda.synchronize()
+        for g, w in zip(entry_outputs(got), entry_outputs(want)):
+            err["propagate_fused"] = max(err["propagate_fused"], max_err(g, w))
+            check(torch.equal(g, w), f"propagate_fused {cap} != its plain version")
     n_abort = int((~B.is_empty(abort)).sum())
     n_incons = int((~consistent).sum())
     check(n_abort > 0 and n_incons > 0, "the random instances gave no inconsistent board")
@@ -744,7 +839,8 @@ def stable_phase(dev):
     check(n_dropped > 0, "F=2 on the uneven set dropped no child")
     print(f"[stable] kernels == plain twins: step, fixpoint and priorities on the "
           f"{FIX_B} fixpoint boards and on 1024 random instances ({n_abort} abort "
-          f"their first step, {n_incons} inconsistent); beam on all {BEAM_B} bench "
+          f"their first step, {n_incons} inconsistent), propagate_fused on both at caps "
+          f"1, 2 and {SC.MAX_ITERS}; beam on all {BEAM_B} bench "
           f"problems, the queued results on 3 chunks of {BEAM_B}, 1024 random "
           f"instances at F=8 (both minimise values), seeded and bounded (7: nothing "
           f"found, 8: pop 7) at B=64, the lone cell (proved inconsistent), 256 uneven "
@@ -753,9 +849,9 @@ def stable_phase(dev):
     return launches, err, (beam_bst, queue_bst, fix_bst)
 
 
-def stable_timings(inputs, ms, plain_ms, card):
-    """Kernel against twin at the bench shapes, in turns, and the solver's
-    end-to-end rates."""
+def stable_timings(inputs, ms, plain_ms, dev_ms, card):
+    """Kernel against twin at the bench shapes, in turns, the device times,
+    and the solver's end-to-end rates."""
     from lifeapi_tpu_torch.ops import stable_cuda as SC
     from lifeapi_tpu_torch.stable import bitplane as BP
     from lifeapi_tpu_torch.stable import complete as C
@@ -776,31 +872,45 @@ def stable_timings(inputs, ms, plain_ms, card):
     ms["beam_search"], plain_ms["beam_search"] = paired_ms(
         lambda: SC.beam_search(beam_planes, **kw),
         lambda: SC.beam_search_plain(beam_planes, **kw), reps=2)
-    device_ms = {
-        "propagate_step": device_ms_at(lambda: SC.propagate_step(fix_planes), "step_kernel"),
+    # the two BitStable entries: every kernel of the call (the packing too)
+    dev_ms.update({
+        "propagate_step": device_ms_at(lambda: SC.propagate_step(fix_planes), "step_kernel",
+                                       "propagate_step"),
+        "propagate_fused": device_ms_at(lambda: SC.propagate_fused(fix_bst), "fixpoint_kernel",
+                                        "propagate_fused", whole_call=True),
         "propagate_fixpoint": device_ms_at(lambda: SC.propagate_fixpoint(fix_planes),
-                                           "fixpoint_kernel"),
+                                           "fixpoint_kernel", "propagate_fixpoint"),
         "propagate_fixpoint_priorities": device_ms_at(
-            lambda: SC.propagate_fixpoint_priorities(fix_planes), "fixpoint_kernel"),
-        "beam_search": device_ms_at(lambda: SC.beam_search(beam_planes, **kw), "beam_kernel"),
-    }
+            lambda: SC.propagate_fixpoint_priorities(fix_planes), "fixpoint_kernel",
+            "propagate_fixpoint_priorities"),
+        "propagate_fused_beam": device_ms_at(lambda: SC.propagate_fused_beam(fix_bst),
+                                             "fixpoint_kernel", "propagate_fused_beam",
+                                             whole_call=True),
+        "beam_search": device_ms_at(lambda: SC.beam_search(beam_planes, **kw), "beam_kernel",
+                                    "beam_search"),
+    })
+    fused_ms, inkernel_ms = paired_ms(lambda: SC.propagate_fused(fix_bst),
+                                      lambda: SC.propagate_fused_inkernel(fix_bst), reps=10)
     print(f"[time] card: {card}")
-    for name, shape in (("propagate_step", f"B={FIX_B}"), ("propagate_fixpoint", f"B={FIX_B}"),
+    for name, shape in (("propagate_step", f"B={FIX_B}"),
+                        ("propagate_fused", f"B={FIX_B}, the whole call"),
+                        ("propagate_fixpoint", f"B={FIX_B}"),
                         ("propagate_fixpoint_priorities", f"B={FIX_B}"),
+                        ("propagate_fused_beam", f"B={FIX_B}, the whole call"),
                         ("beam_search", f"B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}")):
-        dev_ms, mhz = device_ms[name]
+        d, mhz = dev_ms[name]
         print(f"[time] {name} {shape}: kernel {ms[name]:.4f} ms a call "
-              f"({dev_ms:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), "
-              f"plain {plain_ms[name]:.4f} ms{before_redesign(name, dev_ms)}")
-    for name, what in (("propagate_fused", "the host loop over A"),
-                       ("propagate_fused_beam", "C and the BitStable packing")):
-        print(f"[time] {name} B={FIX_B} ({what}): {ms[name]:.4f} ms a call, plain "
-              f"{plain_ms[name]:.4f} ms")
+              f"({d:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), "
+              f"plain {plain_ms[name]:.4f} ms{before_redesign(name, d)}")
+    print(f"[time] propagate_fused against propagate_fused_inkernel, B={FIX_B}, medians "
+          f"of 10 calls each in turns: {fused_ms:.4f} ms and {inkernel_ms:.4f} ms "
+          f"({fused_ms / inkernel_ms:.3g}x)")
 
     beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
                                                dense=False)
     beam_s = wall(beam_call, 5)
-    busy = profiled_device_ms(beam_call, "", n=5) / (wall(beam_call, 5) * 1e3)
+    busy = (profiled_device_ms(beam_call, "beam_kernel", "beam_search", n=5, whole_call=True)
+            / (wall(beam_call, 5) * 1e3))
     queued_s = wall(lambda: C.complete_stable_beam_queued(
         queue_bst, chunk=BEAM_B, frontier=BEAM_F, iters=BEAM_ITERS), 3)
     n_queued = queue_bst.state.shape[0]
@@ -1217,9 +1327,9 @@ def weld_phase(dev):
     return launches, err, r
 
 
-def weld_timings(r, ms, plain_ms, card):
-    """Kernel [4] against its twin, its device time, and the weld path's end
-    to end times."""
+def weld_timings(r, ms, plain_ms, dev_ms, card):
+    """Kernel [4] against its twin, its and [1]'s device times, and the weld
+    path's end to end times."""
     from lifeapi_tpu_torch import weld as W
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.examples import bellman_pipeline, portfolio_minimise
@@ -1235,16 +1345,17 @@ def weld_timings(r, ms, plain_ms, card):
         lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
         lambda: step_cuda.rollout_lohi_plain(lo, hi, HEADLINE_T), reps=5)
     boards = step_cuda.from_kernel_layout(lo, hi)
-    dev_ms, mhz = device_ms_at(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
-                               "rollout_lohi_kernel", n=5)
-    dev_ms_1, mhz_1 = device_ms_at(lambda: step_cuda.rollout(boards, HEADLINE_T),
-                                   "rollout_kernel", n=5)
+    dev_ms["rollout_lohi"] = device_ms_at(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
+                                          "rollout_lohi_kernel", "rollout_lohi", n=5)
+    dev_ms["rollout"] = device_ms_at(lambda: step_cuda.rollout(boards, HEADLINE_T),
+                                     "rollout_kernel", "rollout", n=5)
+    (d, mhz), (d_1, mhz_1) = dev_ms["rollout_lohi"], dev_ms["rollout"]
     print(f"[time] card: {card}")
     print(f"[time] rollout_lohi B={HEADLINE_B} T={HEADLINE_T}: kernel "
-          f"{ms['rollout_lohi']:.4f} ms a call ({dev_ms:.4f} ms of it on the device, "
+          f"{ms['rollout_lohi']:.4f} ms a call ({d:.4f} ms of it on the device, "
           f"profiler, SM clock {mhz} MHz), plain {plain_ms['rollout_lohi']:.4f} ms; kernel "
-          f"[1] on the same boards {dev_ms_1:.4f} ms on the device at {mhz_1} MHz "
-          f"([4] / [1]: {dev_ms / dev_ms_1:.4f})")
+          f"[1] on the same boards {d_1:.4f} ms on the device at {mhz_1} MHz "
+          f"([4] / [1]: {d / d_1:.4f})")
     runs = [bellman_pipeline.run(dev) for _ in range(3)]
     e2e = [sum(x["stages"].values()) for x in runs]
     stages = {k: statistics.median(x["stages"][k] for x in runs) for k in runs[0]["stages"]}
@@ -1311,11 +1422,11 @@ def fft_packed_mask(a, b):
     return B.from_dense(fft_counts(B.to_dense(a), B.to_dense(b)) % 193 != 0)
 
 
-def conv_timings(x, ms, plain_ms, lib_ms, card):
-    """Each conv kernel against its twin at the path's shapes, in turns, the
-    FFT yardstick, the calibration ceilings, the path's end-to-end rates and
-    the routing probes' host cost.  Returns the ceilings (word-ops/s by
-    mix)."""
+def conv_timings(x, ms, plain_ms, lib_ms, dev_ms, card):
+    """Each conv kernel against its twin at the path's shapes, in turns, its
+    device time, the FFT yardstick, the calibration ceilings, the path's
+    end-to-end rates and the routing probes' host cost.  Returns the
+    ceilings (word-ops/s by mix)."""
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.core import convolve as CV
@@ -1339,8 +1450,9 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
                     "counts_sparse_fused": "counts_sparse_kernel",
                     "conv_counts_fused": NTT_KERNEL, "conv_small_fused": NTT_KERNEL,
                     "conv_small_packed": NTT_KERNEL}
-    device_ms = {name: device_ms_at(lambda: getattr(CC, name)(*args, **kw), kernel_names[name])
-                 for name, (args, kw, _) in cases.items()}
+    dev_ms.update({name: device_ms_at(lambda: getattr(CC, name)(*args, **kw),
+                                      kernel_names[name], name)
+                   for name, (args, kw, _) in cases.items()})
     lib_ms["conv_counts_fused"] = event_ms(lambda: fft_counts(x.dense_a, x.dense_b), 5)
     lib_ms["conv_small_fused"] = event_ms(lambda: fft_counts(*corr_in), 5)
     lib_ms["conv_small_packed"] = event_ms(lambda: fft_packed_mask(x.a, x.mid_b), 5)
@@ -1352,18 +1464,22 @@ def conv_timings(x, ms, plain_ms, lib_ms, card):
             ms["calibrate"] = t
             plain_ms["calibrate"] = event_ms(
                 lambda: CAL.calibrate_plain(*x.calib, CALIB_ITERS, mix), 1)
+            dev_ms["calibrate"] = device_ms_at(
+                lambda: CAL.calibrate(*x.calib, CALIB_ITERS, mix), "calibrate_kernel",
+                "calibrate", n=5)
     print(f"[time] card: {card}")
     for name, (args, _, _) in cases.items():
         lib = f", torch.fft yardstick {lib_ms[name]:.4f} ms" if name in lib_ms else ""
-        dev_ms, mhz = device_ms[name]
+        d, mhz = dev_ms[name]
         print(f"[time] {name} B={args[0].shape[0]}: kernel {ms[name]:.4f} ms a call "
-              f"({dev_ms:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), plain "
-              f"{plain_ms[name]:.4f} ms{lib}{before_redesign(name, dev_ms)}")
+              f"({d:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), plain "
+              f"{plain_ms[name]:.4f} ms{lib}{before_redesign(name, d)}")
     for mix, rate in ceilings.items():
         print(f"[time] calibrate {mix}, {CALIB_ROWS} rows x {CALIB_ITERS} iterations: "
               f"{rate:.6g} 64-bit word-ops/s")
-    print(f"[time] calibrate elemwise: kernel {ms['calibrate']:.4f} ms, plain "
-          f"{plain_ms['calibrate']:.4f} ms")
+    d, mhz = dev_ms["calibrate"]
+    print(f"[time] calibrate elemwise: kernel {ms['calibrate']:.4f} ms ({d:.4f} ms on the "
+          f"device, profiler, SM clock {mhz} MHz), plain {plain_ms['calibrate']:.4f} ms")
 
     glider, eater = (B.from_cells(c, device=x.a.device) for c in (GLIDER, EATER))
     offsets = search.candidate_offsets(glider, eater)
@@ -1452,7 +1568,7 @@ def solver_work(stable_inputs):
     return fix_steps, work["board_steps"], work["priority_boards"]
 
 
-def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
+def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     """bound_ms and bound_by of every kernel at the shapes timed above: the
     larger of its bytes (each input read once, each output written once)
     over the memory rate and its operations over the card's rate for them:
@@ -1460,14 +1576,18 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
     the peel's and the calibration's word-ops over the calibrated ceiling of
     their mix, the dense counts' NTT FLOP over the bf16 tensor-core peak.
     Data-dependent work is what this run's inputs need: the fixpoint steps
-    and priorities of solver_work, the steps of A that the solver phase's
-    one propagate_fused call launched, the cells the peel takes."""
+    and priorities of solver_work, the cells the peel takes."""
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
     from lifeapi_tpu_torch.stable import bitplane as BP
 
+    def on_device(name, bound_ms):
+        if name not in dev_ms:
+            return ""
+        d, mhz = dev_ms[name]
+        return f"; on the device {d:.4f} ms ({mhz} MHz), {d / bound_ms:.3g}x it"
+
     fix_steps, beam_steps, beam_prio = solver_work(stable_inputs)
-    host_loop_steps = stable_launches["propagate_fused"]
     funcs = library_sass(lib_path)
     sass = rollout_sass_counts(funcs)
     solver = solver_sass_counts(funcs)
@@ -1501,8 +1621,9 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
         "catalyst_rollout": (4 * 4096 * board + 64 * board + 4096,
                              4096 * 64 * sass["catalyst_rollout"], "issue"),
         "propagate_step": (FIX_B * (2 * solver_board + 2 * board), FIX_B * step_ops, "rolls"),
-        "propagate_fused": (host_loop_steps * FIX_B * (2 * solver_board + 2 * board),
-                            host_loop_steps * FIX_B * step_ops, "rolls"),
+        # [6] is one launch of kernel B, so its work is B's
+        "propagate_fused": (FIX_B * (2 * solver_board + 2),
+                            fix_steps * solver["propagate_fixpoint"][0], "issue"),
         "propagate_fixpoint": (FIX_B * (2 * solver_board + 2),
                                fix_steps * solver["propagate_fixpoint"][0], "issue"),
         "propagate_fixpoint_priorities": (FIX_B * (2 * solver_board + 2 + 4 * board), fix_c,
@@ -1524,8 +1645,7 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
         "calibrate": (3 * CALIB_ROWS * board,
                       CALIB_ROWS * words * CALIB_ITERS * ops_per_iter("elemwise"), "elemwise"),
     }
-    print(f"[bound] data-dependent work: propagate_fused {host_loop_steps} launches of A; "
-          f"fixpoint {fix_steps} board-steps over {FIX_B} "
+    print(f"[bound] data-dependent work: fixpoint {fix_steps} board-steps over {FIX_B} "
           f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards (ok "
           f"slots) over {BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
     bounds = {}
@@ -1538,17 +1658,26 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
                 if rate == "issue" else f"word-ops, {rate}")
         print(f"[bound] {name}: {nbytes} bytes ({by_bytes:.4f} ms), {ops} {unit} "
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
-              f"{bounds[name][1]}; the kernel's {ms[name]:.4f} ms is "
-              f"{ms[name] / bounds[name][0]:.3g}x it")
+              f"{bounds[name][1]}; the kernel's call {ms[name]:.4f} ms is "
+              f"{ms[name] / bounds[name][0]:.3g}x it{on_device(name, bounds[name][0])}")
     hand = {"propagate_fixpoint": fix_steps * step_ops,
             "propagate_fixpoint_priorities": fix_steps * step_ops + FIX_B * prio_ops,
             "propagate_fused_beam": fix_steps * step_ops + FIX_B * prio_ops,
             "beam_search": beam_steps * step_ops + beam_prio * prio_ops}
+    # [2]'s batch is too small to fill the card: the least time one warp
+    # takes to step one board, its T generations of the loop's instructions
+    # at one a clock, is a second bound beside the bytes
+    one_warp_ms = 32 * sass["controlled_rollout"] / (mhz * 1e6) * 1e3
+    print(f"[bound] controlled_rollout, second bound: one warp's 32 generations x "
+          f"{sass['controlled_rollout']:g} instructions at one a clock, {mhz:g} MHz "
+          f"({one_warp_ms:.4f} ms); the kernel's call {ms['controlled_rollout']:.4f} ms is "
+          f"{ms['controlled_rollout'] / one_warp_ms:.3g}x it"
+          f"{on_device('controlled_rollout', one_warp_ms)}")
     for name, ops in hand.items():
         hand_ms = ops / ceilings["rolls"] * 1e3
         print(f"[bound] {name}, hand count (not the bound): {ops} word-ops at the rolls "
-              f"ceiling ({hand_ms:.4f} ms); the kernel's {ms[name]:.4f} ms is "
-              f"{ms[name] / hand_ms:.3g}x it")
+              f"ceiling ({hand_ms:.4f} ms); the kernel's call {ms[name]:.4f} ms is "
+              f"{ms[name] / hand_ms:.3g}x it{on_device(name, hand_ms)}")
     for name, primes in (("conv_counts_fused", 2), ("conv_small_fused", 1),
                          ("conv_small_packed", 1)):
         reductions = CONV_B * (primes * MOD_REDUCTIONS_PER_PRIME + (primes - 1) * 4096)
@@ -1556,8 +1685,8 @@ def kernel_bounds(ceilings, stable_inputs, stable_launches, x, ms, lib_path):
         mod_ms = warp_instructions / issue * 1e3
         print(f"[bound] {name}, second bound: {reductions} mod reductions x "
               f"{MOD_INSTRUCTIONS} instructions = {warp_instructions} warp instructions "
-              f"over the issue peak ({mod_ms:.4f} ms); the kernel's {ms[name]:.4f} ms is "
-              f"{ms[name] / mod_ms:.3g}x it")
+              f"over the issue peak ({mod_ms:.4f} ms); the kernel's call {ms[name]:.4f} ms is "
+              f"{ms[name] / mod_ms:.3g}x it{on_device(name, mod_ms)}")
     return bounds
 
 
@@ -1701,7 +1830,7 @@ def main():
     err["rollout_lohi"] = weld_err["rollout_lohi"]
 
     # -- 7. timings ---------------------------------------------------------------
-    ms, plain_ms, lib_ms = {}, {}, {}
+    ms, plain_ms, lib_ms, dev_ms = {}, {}, {}, {}
     ms["rollout"], plain_ms["rollout"] = paired_ms(
         lambda: step_cuda.rollout(boards, HEADLINE_T),
         lambda: step_cuda.rollout_plain(boards, HEADLINE_T), reps=5)
@@ -1711,17 +1840,38 @@ def main():
     ms["catalyst_rollout"], plain_ms["catalyst_rollout"] = paired_ms(
         lambda: step_cuda.catalyst_rollout(*inputs),
         lambda: step_cuda.catalyst_rollout_plain(*inputs), reps=10)
+    dev_ms["controlled_rollout"] = device_ms_at(
+        lambda: step_cuda.controlled_rollout(starts, toggles), "controlled_kernel",
+        "controlled_rollout")
+    dev_ms["catalyst_rollout"] = device_ms_at(lambda: step_cuda.catalyst_rollout(*inputs),
+                                              "catalyst_kernel", "catalyst_rollout")
     steps = HEADLINE_B * HEADLINE_T
     print(f"[time] card: {card}")
     print(f"[time] rollout B={HEADLINE_B} T={HEADLINE_T}: kernel {ms['rollout']:.4f} ms "
           f"({steps / ms['rollout'] * 1e3:.4g} steps/s), plain {plain_ms['rollout']:.4f} ms "
           f"({steps / plain_ms['rollout'] * 1e3:.4g} steps/s)")
-    print(f"[time] catalyst rollout 4096 offsets, horizon 64: kernel "
-          f"{ms['catalyst_rollout']:.4f} ms ({4096 / ms['catalyst_rollout'] * 1e3:.4g} "
-          f"placements/s), plain {plain_ms['catalyst_rollout']:.4f} ms "
-          f"({4096 / plain_ms['catalyst_rollout'] * 1e3:.4g} placements/s)")
-    print(f"[time] controlled rollout 64 candidates, horizon 32: kernel "
-          f"{ms['controlled_rollout']:.4f} ms, plain {plain_ms['controlled_rollout']:.4f} ms")
+    for name, what in (("catalyst_rollout", "catalyst rollout 4096 offsets, horizon 64"),
+                       ("controlled_rollout", "controlled rollout 64 candidates, horizon 32")):
+        d, mhz = dev_ms[name]
+        print(f"[time] {what}: kernel {ms[name]:.4f} ms a call ({d:.4f} ms of it on the "
+              f"device, profiler, SM clock {mhz} MHz), plain {plain_ms[name]:.4f} ms"
+              f"{before_redesign(name, d)}")
+    # [2]'s device time against its horizon: the intercept is what a launch
+    # costs whatever T is, the slope what one warp's generation costs
+    sweep = {}
+    for t in (0, 32, 128):
+        tog_t = toggles[:1].expand(t, 64, 64).contiguous()
+        sweep[t] = profiled_device_ms(lambda: step_cuda.controlled_rollout(starts, tog_t),
+                                      "controlled_kernel", "controlled_rollout")
+    per_gen_ns = (sweep[128] - sweep[32]) / 96 * 1e6
+    mhz = dev_ms["controlled_rollout"][1]
+    clocks = per_gen_ns * float(mhz) / 1e3 if mhz.isdigit() else float("nan")
+    print(f"[time] controlled kernel, 64 boards, device time at T = 0 / 32 / 128: "
+          + " / ".join(f"{v:.4f}" for v in sweep.values())
+          + f" ms, so {per_gen_ns:.1f} ns a generation ({clocks:.0f} clocks at {mhz} MHz)")
+    print(f"[time] catalyst rollout, 4096 offsets: {4096 / ms['catalyst_rollout'] * 1e3:.4g} "
+          f"placements/s a call, {4096 / dev_ms['catalyst_rollout'][0] * 1e3:.4g} on the "
+          f"device")
     search_med = wall(lambda: search.catalyst_search(glider, eater, full_grid, 64), 5)
     print(f"[time] catalyst_search end to end, 4096 offsets, horizon 64: median "
           f"{search_med * 1e3:.3f} ms ({4096 / search_med:.4g} placements/s) over 5")
@@ -1734,11 +1884,10 @@ def main():
         solve_s.append(time.perf_counter() - t0)
     print(f"[time] MPC bench config (64 candidates, horizon 32, 100 iterations): "
           f"median {statistics.median(solve_s):.3f} s per solve over {len(solve_s)}")
-    stable_timings(stable_inputs, ms, plain_ms, card)
-    ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, card)
-    weld_timings(weld_run, ms, plain_ms, card)
-    bounds = kernel_bounds(ceilings, stable_inputs, stable_launches, conv_inputs, ms,
-                           lib_path)
+    stable_timings(stable_inputs, ms, plain_ms, dev_ms, card)
+    ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, dev_ms, card)
+    weld_timings(weld_run, ms, plain_ms, dev_ms, card)
+    bounds = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms, dev_ms, lib_path)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [

@@ -35,6 +35,8 @@
 
 namespace {
 
+using warp_board::cp_async16;
+using warp_board::cp_async_commit;
 using warp_board::kFullMask;
 
 constexpr int kWarpsPerBlock = 8;
@@ -257,11 +259,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const unsigned (&a)[4], unsig
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
-               :: "r"(smem_addr(dst)), "l"(src) : "memory");
-}
-
 // A fragments of a warp's 16-row strip of a shared tile, row-major [m][k]
 // (four k-blocks of 16).
 __device__ __forceinline__ void load_a(unsigned (&a)[4][4], const bf16* tile, int strip,
@@ -362,7 +359,7 @@ __device__ __forceinline__ void fetch(const unsigned char* a, const unsigned cha
     cp_async16(raw + 16 * c, a + at + 16 * c);
     cp_async16(raw + kBytes + 16 * c, b + at + 16 * c);
   }
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  cp_async_commit();
 }
 
 // The next board pair's raw input -> bf16 0/1 tiles [x][y], 16 cells of one

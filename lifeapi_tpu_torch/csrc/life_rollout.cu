@@ -19,7 +19,9 @@
 //    interleave_split) only saved 32-bit funnel shifts and is not used.
 //  * Horizontal neighbours come from __shfl_sync of the vertical 3-sums; at
 //    the warp's ends (lanes 0 and 31) the torus wrap swaps the two registers
-//    (warp_board.cuh).
+//    (warp_board.cuh).  The controlled kernel alone gives lane l the
+//    adjacent columns 2l and 2l + 1 instead (life_step_pair), which halves
+//    the shuffles and drops the selects.
 //  * Bound: integer-ALU and shuffle issue per board-step (about 50 64-bit
 //    logic ops and 8 64-bit shuffles per lane per generation); the board
 //    never leaves registers, so bytes are not the limit for T >> 1.
@@ -31,6 +33,9 @@
 
 namespace {
 
+using warp_board::cp_async16;
+using warp_board::cp_async_commit;
+using warp_board::cp_async_wait_one;
 using warp_board::from_left;
 using warp_board::from_right;
 using warp_board::kFullMask;
@@ -88,30 +93,92 @@ rollout_kernel(const u64* __restrict__ in, u64* __restrict__ out,
   out[at + 32] = hi;
 }
 
+// -- controlled rollout ---------------------------------------------------------
+
+// One generation of a board whose lane l holds the adjacent columns 2l
+// (even) and 2l + 1 (odd), the controlled kernel's layout.  A column's
+// neighbours are then its partner in the lane and one column of the previous
+// or next lane: 4 64-bit shuffles a generation, not 8, and no selects, since
+// column 63 (lane 31's odd) sits next to column 0 (lane 0's even) as the
+// lanes wrap.  The same netlist as life_step.
+__device__ __forceinline__ void life_step_pair(u64& even, u64& odd, int lane) {
+  const u64 we = rotl1(even), ee = rotr1(even);
+  const u64 wo = rotl1(odd), eo = rotr1(odd);
+  const u64 s0e = we ^ ee, s1e = we & ee;
+  const u64 s0o = wo ^ eo, s1o = wo & eo;
+  const u64 c0e = s0e ^ even, c1e = (s0e & even) | s1e;
+  const u64 c0o = s0o ^ odd, c1o = (s0o & odd) | s1o;
+  // column 2l - 1 is the previous lane's odd, column 2l + 2 the next lane's even
+  const int prev = (lane + 31) & 31, next = (lane + 1) & 31;
+  const u64 u0 = __shfl_sync(kFullMask, c0o, prev);
+  const u64 u1 = __shfl_sync(kFullMask, c1o, prev);
+  const u64 b0 = __shfl_sync(kFullMask, c0e, next);
+  const u64 b1 = __shfl_sync(kFullMask, c1e, next);
+  even = rokicki(even, s0e, s1e, u0, u1, c0o, c1o);
+  odd = rokicki(odd, s0o, s1o, c0e, c1e, b0, b1);
+}
+
+// Toggle rows a stage of the controlled kernel holds: 4 KB a stage, two
+// stages a block, so that blocks of one warp are not held back by shared
+// memory (28 of them fit an SM).
+constexpr int kToggleChunk = 8;
+
+// Issue the copies of `rows` generations of a board's toggles into a stage:
+// each lane copies the 16 bytes of a row that it will read (its columns
+// 2l and 2l + 1), so no lane waits for another's copies.
+__device__ __forceinline__ void stage_toggles(u64 (*stage)[64], const u64* tog,
+                                              size_t stride, int rows, int lane) {
+  for (int r = 0; r < rows; ++r) cp_async16(&stage[r][2 * lane], tog + r * stride + 2 * lane);
+}
+
 // Replaces lifeapi_tpu/ops/step_pallas.py controlled_rollout_eo
 // (_controlled_kernel_eo): at each generation t, XOR toggles[t] into the
-// board, then step.  toggles: [T, B, 64].  The toggle stream is the only
-// traffic that grows with T: 512 bytes per board-step, read coalesced, so
-// at small T or large B the bound can move from the ALUs to these bytes.
-// The design reads each toggle word once, straight into the XOR.
-__global__ void __launch_bounds__(kThreadsPerBlock)
+// board, then step.  toggles: [T, B, 64].  The MPC solver calls it on 64
+// candidates over 32 generations, far too little work to fill the card:
+// the bound there is one warp's dependent chain, T generations of the
+// loop's instructions at one a clock, not the 512 bytes per board-step of
+// toggles or the ALUs.
+//
+// Design: one warp a block and one block a board, so 64 boards run on 64
+// SMs, not 8; lane l holds columns 2l and 2l + 1 (life_step_pair: 8 32-bit
+// shuffles a generation and no selects).  Each lane streams its 16 bytes of
+// every toggle row into shared memory by cp.async, kToggleChunk generations
+// a stage, two stages in flight: the next chunk is copied while this one is
+// stepped, so a generation's XOR reads shared memory instead of waiting on a
+// global load at the head of its chain.  The generation loop is unrolled by
+// 4.  toggles must start on 16 bytes (the wrapper copies it otherwise).
+__global__ void __launch_bounds__(32)
 controlled_kernel(const u64* __restrict__ in,
                   const u64* __restrict__ toggles,
                   u64* __restrict__ out, int B, int T) {
-  const int lane = threadIdx.x & 31;
-  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (board >= B) return;
-  const size_t at = static_cast<size_t>(board) * 64 + lane;
-  const size_t stride = static_cast<size_t>(B) * 64;
-  u64 lo = in[at], hi = in[at + 32];
-  const u64* tog = toggles + at;
-  for (int t = 0; t < T; ++t, tog += stride) {
-    lo ^= tog[0];
-    hi ^= tog[32];
-    life_step(lo, hi, lane);
+  __shared__ __align__(16) u64 stages[2][kToggleChunk][64];
+  const int lane = threadIdx.x;
+  const size_t at = static_cast<size_t>(blockIdx.x) * 64 + 2 * lane;
+  const size_t stride = static_cast<size_t>(B) * 64;  // words between generations
+  const u64* tog = toggles + static_cast<size_t>(blockIdx.x) * 64;
+  u64 even = in[at], odd = in[at + 1];
+  const int chunks = (T + kToggleChunk - 1) / kToggleChunk;
+  if (chunks > 0) stage_toggles(stages[0], tog, stride, min(kToggleChunk, T), lane);
+  cp_async_commit();
+  for (int c = 0; c < chunks; ++c) {
+    const int t0 = c * kToggleChunk;
+    if (c + 1 < chunks)
+      stage_toggles(stages[(c + 1) & 1], tog + (t0 + kToggleChunk) * stride, stride,
+                    min(kToggleChunk, T - t0 - kToggleChunk), lane);
+    cp_async_commit();    // a group every pass, empty at the last
+    cp_async_wait_one();  // chunk c has landed
+    const u64 (*rows)[64] = stages[c & 1];
+    const int n = min(kToggleChunk, T - t0);
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) {
+      const ulonglong2 t = *reinterpret_cast<const ulonglong2*>(&rows[i][2 * lane]);
+      even ^= t.x;
+      odd ^= t.y;
+      life_step_pair(even, odd, lane);
+    }
   }
-  out[at] = lo;
-  out[at + 32] = hi;
+  out[at] = even;
+  out[at + 1] = odd;
 }
 
 // Replaces lifeapi_tpu/ops/step_pallas.py catalyst_rollout_eo
@@ -234,8 +301,8 @@ extern "C" cudaError_t life_controlled_rollout(const u64* in,
                                                u64* out, int B, int T,
                                                cudaStream_t stream) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
-  controlled_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(in, toggles,
-                                                                   out, B, T);
+  if (T > 0 && reinterpret_cast<uintptr_t>(toggles) % 16) return cudaErrorMisalignedAddress;
+  controlled_kernel<<<B, 32, 0, stream>>>(in, toggles, out, B, T);
   return cudaGetLastError();
 }
 

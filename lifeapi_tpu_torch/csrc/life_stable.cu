@@ -488,8 +488,9 @@ __device__ __forceinline__ void store_board(const Board& P, u64* dst, int lane) 
 // (_step_kernel): one fused step of every board, with the cell-level changed
 // and abort masks.  Bound: integer instruction throughput (one step, ~700
 // logic ops per lane) against 5 KB in and 6 KB out per board, so a call is
-// close to the bytes bound; the host loop over it (propagate_fused) pays
-// those bytes every step, which is why kernel B exists.
+// close to the bytes bound.  A loop over it pays those bytes, and on the
+// host a readback, every step: propagate_fused (stable_pallas.py's loop over
+// this kernel) launches kernel B instead.
 __global__ void __launch_bounds__(kThreadsPerBlock)
 step_kernel(const u64* __restrict__ in, u64* __restrict__ out, u64* __restrict__ changed,
             u64* __restrict__ abort, int B) {

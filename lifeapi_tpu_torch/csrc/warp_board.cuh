@@ -1,5 +1,6 @@
 // One 64x64 torus board per warp: the column helpers shared by the port's
-// kernels (life_rollout.cu, life_stable.cu).
+// kernels (life_rollout.cu, life_stable.cu), and the cp.async copies into
+// shared memory (life_rollout.cu, life_conv.cu).
 //
 // Layout: a board is 64 words of 64 bits, one per column x, bit y = cell
 // (x, y) (the reference's LifeState layout).  Lane l of the warp holds
@@ -44,6 +45,24 @@ __device__ __forceinline__ void from_right(u64 lo, u64 hi, int lane,
   const u64 b = __shfl_sync(kFullMask, hi, src);
   out_lo = lane == 31 ? b : a;
   out_hi = lane == 31 ? a : b;
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; both
+// addresses start on 16 bytes.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :: "r"(static_cast<unsigned>(__cvta_generic_to_shared(dst))), "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of copies issued since the last commit.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most one of this thread's groups is still in flight.
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 }  // namespace warp_board

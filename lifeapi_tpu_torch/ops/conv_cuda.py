@@ -34,7 +34,7 @@ from ..core import board as B
 from ..core import ntt
 from . import _build
 from .stable_cuda import first_cell_mask
-from .step_cuda import _launch, _stream
+from .step_cuda import _aligned, _launch, _stream
 
 LAUNCHES = {"convolve_sparse_fused": 0, "counts_sparse_fused": 0,
             "conv_counts_fused": 0, "conv_small_fused": 0, "conv_small_packed": 0}
@@ -163,12 +163,6 @@ def _dense_pair(da, db):
     if not 0 < da.shape[0] < 2**31:
         raise ValueError(f"batch {da.shape[0]} out of range")
     return da.contiguous().view(torch.uint8), db.contiguous().view(torch.uint8)
-
-
-def _aligned(t):
-    """``t``, or a copy of it where its data does not start on 16 bytes (the
-    kernel reads 16-byte chunks; an ``int64[B, 64]`` slice may start on 8)."""
-    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 _TWIDDLES = {}

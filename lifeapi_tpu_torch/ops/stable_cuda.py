@@ -22,6 +22,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
@@ -176,20 +177,27 @@ def propagate_step(planes):
 
 
 def propagate_fused(bst, max_iters=MAX_ITERS):
-    """Fixpoint as a host loop over kernel A with per-board masks
-    (``stable_pallas.propagate_fused``); same contract as
-    :func:`lifeapi_tpu_torch.stable.bitplane.propagate`."""
-    return _host_fixpoint(bst, max_iters, propagate_step, count="propagate_fused")
+    """The masked fixpoint of ``stable_pallas.propagate_fused``; same
+    contract as :func:`lifeapi_tpu_torch.stable.bitplane.propagate`:
+    ``consistent`` is not aborted, ``changed`` counts the aborting step's
+    changes, an inconsistent board keeps its planes from before that step,
+    and each board takes at most ``max_iters`` steps.
+
+    JAX loops over the one-step kernel while any board is active, a
+    predicate that stays on the TPU.  A host loop would read it back once a
+    step; no board's result depends on another's, so on a CUDA tensor the
+    call is one launch of kernel B, each warp looping over its own board
+    with no readback, counted under ``LAUNCHES["propagate_fused"]``.  On a
+    CPU tensor it is :func:`propagate_fused_plain`."""
+    if not bst.state.is_cuda:
+        return propagate_fused_plain(bst, max_iters)
+    return _bitstable_entry(bst, max_iters, partial(
+        _fixpoint_launch, priorities=False, count="propagate_fused"))
 
 
 def propagate_fused_plain(bst, max_iters=MAX_ITERS):
-    """:func:`propagate_fused` over the plain twin of kernel A."""
-    return _host_fixpoint(bst, max_iters, propagate_step_plain)
-
-
-def _host_fixpoint(bst, max_iters, step, count=None):
-    """The masked fixpoint over ``step``; each launch of a kernel through
-    ``step`` also counts under ``LAUNCHES[count]``."""
+    """JAX's structure in plain PyTorch: the masked fixpoint as a loop over
+    the twin of kernel A while any board is active."""
     batch = bst.batch_shape
     planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
     n = planes.shape[0]
@@ -200,9 +208,7 @@ def _host_fixpoint(bst, max_iters, step, count=None):
     max_iters = _max_iters(max_iters)
     it = 0
     while it < max_iters and bool(active.any()):
-        new, ch, ab = step(planes)
-        if count and planes.is_cuda:
-            LAUNCHES[count] += 1
+        new, ch, ab = propagate_step_plain(planes)
         step_changed = ~B.is_empty(ch)
         ok = B.is_empty(ab)
         apply = active & ok
@@ -233,11 +239,11 @@ def propagate_fixpoint_priorities_plain(planes, max_iters=MAX_ITERS):
     return planes, consistent, changed, _priority_planes(planes)
 
 
-def _fixpoint_launch(planes, max_iters, priorities):
-    """Launch kernel B, or kernel C when ``priorities``."""
+def _fixpoint_launch(planes, max_iters, priorities, count):
+    """Launch kernel B, or kernel C when ``priorities``, and count the
+    launch under ``LAUNCHES[count]``, the entry that made it."""
     b = _planes_batch(planes)
     max_iters = _max_iters(max_iters)
-    name = "propagate_fixpoint_priorities" if priorities else "propagate_fixpoint"
     lib = _build.library()
     launcher = lib.life_stable_fixpoint_priorities if priorities else lib.life_stable_fixpoint
     out = torch.empty_like(planes)
@@ -249,7 +255,7 @@ def _fixpoint_launch(planes, max_iters, priorities):
             changed.data_ptr()] + ([levels.data_ptr()] if priorities else [])
     with torch.cuda.device(planes.device):
         _launch(launcher, *args, b, max_iters, _stream(planes.device))
-    LAUNCHES[name] += 1
+    LAUNCHES[count] += 1
     return (out, consistent, changed) + ((levels,) if priorities else ())
 
 
@@ -260,7 +266,7 @@ def propagate_fixpoint(planes, max_iters=MAX_ITERS):
     _planes_batch(planes)
     if not planes.is_cuda:
         return propagate_fixpoint_plain(planes, _max_iters(max_iters))
-    return _fixpoint_launch(planes, max_iters, priorities=False)
+    return _fixpoint_launch(planes, max_iters, priorities=False, count="propagate_fixpoint")
 
 
 def propagate_fixpoint_priorities(planes, max_iters=MAX_ITERS):
@@ -269,7 +275,8 @@ def propagate_fixpoint_priorities(planes, max_iters=MAX_ITERS):
     _planes_batch(planes)
     if not planes.is_cuda:
         return propagate_fixpoint_priorities_plain(planes, _max_iters(max_iters))
-    return _fixpoint_launch(planes, max_iters, priorities=True)
+    return _fixpoint_launch(planes, max_iters, priorities=True,
+                            count="propagate_fixpoint_priorities")
 
 
 def propagate_fused_inkernel(bst, max_iters=MAX_ITERS, simple_phase=False):
@@ -278,12 +285,7 @@ def propagate_fused_inkernel(bst, max_iters=MAX_ITERS, simple_phase=False):
     (consistent, changed); planes of inconsistent boards are unspecified
     (the reference discards them, LifeStable.hpp:723)."""
     _no_simple_phase(simple_phase)
-    batch = bst.batch_shape
-    planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
-    out, consistent, changed = propagate_fixpoint(planes, max_iters)
-    out = out.reshape(*batch, BP.N_PLANES, 64)
-    return BP.BitPropagateResult(BP.from_planes(out), consistent.reshape(batch),
-                                 changed.reshape(batch))
+    return _bitstable_entry(bst, max_iters, propagate_fixpoint)
 
 
 def propagate_fused_beam(bst, max_iters=MAX_ITERS, simple_phase=False):
@@ -291,28 +293,32 @@ def propagate_fused_beam(bst, max_iters=MAX_ITERS, simple_phase=False):
     (``stable_pallas.propagate_fused_beam``) -> (BitPropagateResult,
     levels), ``levels`` the 4-tuple of
     :func:`lifeapi_tpu_torch.stable.bitplane.branch_levels` evaluated on the
-    propagated planes."""
+    propagated planes.  On a CUDA tensor the launch of kernel C counts under
+    ``LAUNCHES["propagate_fused_beam"]``."""
     _no_simple_phase(simple_phase)
-    return _with_levels(bst, max_iters, propagate_fixpoint_priorities,
-                        count="propagate_fused_beam")
+    if not bst.state.is_cuda:
+        return _bitstable_entry(bst, max_iters, propagate_fixpoint_priorities)
+    return _bitstable_entry(bst, max_iters, partial(
+        _fixpoint_launch, priorities=True, count="propagate_fused_beam"))
 
 
 def propagate_fused_beam_plain(bst, max_iters=MAX_ITERS):
     """:func:`propagate_fused_beam` over the plain twin of kernel C."""
-    return _with_levels(bst, max_iters, propagate_fixpoint_priorities_plain)
+    return _bitstable_entry(bst, max_iters, propagate_fixpoint_priorities_plain)
 
 
-def _with_levels(bst, max_iters, fixpoint, count=None):
+def _bitstable_entry(bst, max_iters, fixpoint):
+    """Run ``fixpoint`` on the planes of ``bst`` -> BitPropagateResult, with
+    the 4 levels beside it when ``fixpoint`` returns them."""
     batch = bst.batch_shape
     planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
-    out, consistent, changed, levels = fixpoint(planes, max_iters)
-    if count and planes.is_cuda:
-        LAUNCHES[count] += 1
+    out, consistent, changed, *levels = fixpoint(planes, max_iters)
     out = out.reshape(*batch, BP.N_PLANES, 64)
-    levels = levels.reshape(*batch, 4, 64).unbind(-2)
     res = BP.BitPropagateResult(BP.from_planes(out), consistent.reshape(batch),
                                 changed.reshape(batch))
-    return res, tuple(levels)
+    if not levels:
+        return res
+    return res, tuple(levels[0].reshape(*batch, 4, 64).unbind(-2))
 
 
 # ---------------------------------------------------------------------------

@@ -68,6 +68,12 @@ def _stream(device):
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def _aligned(t):
+    """``t``, or a copy of it where its data does not start on 16 bytes (the
+    kernel reads 16-byte chunks; an ``int64[B, 64]`` slice may start on 8)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 # ---------------------------------------------------------------------------
 # rollout (replaces step_pallas.rollout_eo)
 # ---------------------------------------------------------------------------
@@ -117,6 +123,7 @@ def controlled_rollout(boards, toggles):
     _check("toggles", toggles, (steps, b, 64), device=boards.device)
     if not boards.is_cuda:
         return controlled_rollout_plain(boards, toggles)
+    toggles = _aligned(toggles)
     out = torch.empty_like(boards)
     with torch.cuda.device(boards.device):
         _launch(_build.library().life_controlled_rollout, boards.data_ptr(),

@@ -1,13 +1,15 @@
 """The port's kernel build: what keys a build, and how chip_smoke.py reads
-the compiler's register report and the SASS listing.  No compiler is
-needed."""
+the compiler's register report, the SASS listing and the profiler's
+traces.  No compiler or card is needed."""
 
 import shutil
+from types import SimpleNamespace
 
 import pytest
+import torch
 
 import chip_smoke
-from lifeapi_tpu_torch.ops import _build
+from lifeapi_tpu_torch.ops import _build, step_cuda
 
 PTXAS_LOG = """\
 ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__f662ddb2_14_life_stable_cu_e29dcd4a11beam_kernelILi256EEEvPKyS2_PKiPyPiPhS7_S7_ibi' for 'sm_90a'
@@ -82,6 +84,31 @@ def test_sass_loop_counts_instructions_per_generation():
     assert list(funcs) == ["rollout_kernel"] and len(funcs["rollout_kernel"]) == len(main)
     assert funcs["rollout_kernel"][3] == (0x30, "SHFL.IDX", "PT, R10, R23, R6, 0x1f")
     assert chip_smoke.instructions_per_generation(funcs["rollout_kernel"]) == 73 / 2
+
+
+CONTROLLED = "_ZN48_GLOBAL__N__fb87a2f3_15_life_rollout_cu_d2d3041c17controlled_kernelEPKyS1_Pyii"
+
+
+def test_sass_unrolled_loop_inside_a_chunk_loop_counts_per_generation():
+    """The controlled kernel's shape: a loop over chunks of the toggle
+    stream around a copy loop, a generation loop unrolled 4 times (8
+    shuffles a generation) and its one-generation remainder.  The chunk
+    loop holds the most shuffles (40) but is not the generation loop; the
+    unrolled body's 85 instructions are 4 generations."""
+    code = [("MOV", "R1, c[0x0][0x28]")]
+    chunk = len(code)
+    code += [("IMAD", "R2, R3, R4, R5")]
+    copy = len(code)
+    code += [("LDGSTS.E.BYPASS.128", "[R6], desc[UR4][R8.64]"), ("IADD3", "R7, R7, 0x1, RZ"),
+             ("@P0 BRA", f"{16 * copy:#x}"), ("LDGDEPBAR", ""), ("DEPBAR.LE", "SB0, 0x1")]
+    body = len(code)
+    code += [SHFL, LOP] * 32 + [LOP] * 20 + [("@P1 BRA", f"{16 * body:#x}")]
+    rest = len(code)
+    code += [SHFL] * 8 + [LOP] * 6 + [("@P2 BRA", f"{16 * rest:#x}")]
+    code += [("IADD3", "R9, R9, 0x8, RZ"), ("@P3 BRA", f"{16 * chunk:#x}"), ("EXIT", "")]
+    funcs = chip_smoke.sass_functions(_sass(CONTROLLED, code))
+    assert max(chip_smoke.loops(funcs["controlled_kernel"]))[0] == 40
+    assert chip_smoke.instructions_per_generation(funcs["controlled_kernel"], 8) == 85 / 4
 
 
 @pytest.mark.parametrize("shuffles", [0, 12])
@@ -171,3 +198,76 @@ def test_solver_sass_without_its_shapes_is_refused():
         chip_smoke.block_instructions(code, chip_smoke.PRIORITY_SHUFFLES)
     with pytest.raises(AssertionError, match="no loop of 48 shuffles"):
         chip_smoke.loop_instructions(code[:2], chip_smoke.STEP_SHUFFLES)
+
+
+class _FakeProfile:
+    """torch.profiler.profile's stand-in: each trace gives the next of
+    ``traces``, lists of (kernel, events, device microseconds)."""
+
+    def __init__(self, traces):
+        self.traces = iter(traces)
+
+    def __call__(self, **kwargs):
+        self.events = [SimpleNamespace(key=k, count=c, device_time_total=t)
+                       for k, c, t in next(self.traces)]
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def step(self):
+        pass
+
+    def key_averages(self):
+        return self.events
+
+
+def _device_ms(monkeypatch, traces, launches_a_call=1, **kw):
+    """profiled_device_ms over 5 calls of a stand-in for the rollout that
+    counts ``launches_a_call`` launches, the traces given."""
+    monkeypatch.setattr(torch.profiler, "profile", _FakeProfile(traces))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setitem(step_cuda.LAUNCHES, "rollout", 0)
+
+    def call():
+        step_cuda.LAUNCHES["rollout"] += launches_a_call
+
+    return chip_smoke.profiled_device_ms(call, "rollout_kernel", "rollout", n=5, **kw)
+
+
+def test_device_time_is_the_mean_of_the_launches_a_trace_holds(monkeypatch):
+    full = [("void rollout_kernel(...)", 5, 500.0), ("cudaLaunchKernel", 5, 0.0)]
+    assert _device_ms(monkeypatch, [full]) == pytest.approx(0.1)
+    # a trace that missed launches reads their mean, not their sum over n
+    short = [("void rollout_kernel(...)", 3, 300.0)]
+    assert _device_ms(monkeypatch, [short]) == pytest.approx(0.1)
+    two = [("void rollout_kernel(...)", 8, 400.0)]
+    assert _device_ms(monkeypatch, [two], launches_a_call=2) == pytest.approx(0.1)
+
+
+def test_whole_call_counts_each_kernels_launches_a_call(monkeypatch):
+    partial = [("void rollout_kernel(...)", 5, 500.0), ("elementwise_kernel", 9, 90.0)]
+    got = _device_ms(monkeypatch, [partial], whole_call=True)
+    assert got == pytest.approx(0.12)
+
+
+def test_traces_missing_half_the_launches_are_taken_again(monkeypatch):
+    empty, full = [], [("void rollout_kernel(...)", 5, 500.0)]
+    two = [("void rollout_kernel(...)", 2, 200.0)]
+    assert _device_ms(monkeypatch, [empty, two, full]) == pytest.approx(0.1)
+    # a kernel launched twice a call whose trace holds under one a call
+    ten = [("void rollout_kernel(...)", 10, 1000.0)]
+    assert _device_ms(monkeypatch, [two, ten], launches_a_call=2) == pytest.approx(0.2)
+    few = [("void rollout_kernel(...)", 5, 500.0), ("elementwise_kernel", 2, 20.0)]
+    assert _device_ms(monkeypatch, [few, full], whole_call=True) == pytest.approx(0.1)
+
+
+def test_short_traces_fail_the_run(monkeypatch):
+    short = [("void rollout_kernel(...)", 2, 200.0)]
+    with pytest.raises(AssertionError, match="no usable trace"):
+        _device_ms(monkeypatch, [short] * chip_smoke.PROFILE_TRIES)
+    with pytest.raises(AssertionError, match="launched no kernel"):
+        _device_ms(monkeypatch, [short], launches_a_call=0)

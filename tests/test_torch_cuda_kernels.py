@@ -78,6 +78,28 @@ def test_kernel_rejects_bad_input(device, case):
         kernel(strided, *args[1:])
 
 
+@pytest.mark.parametrize("batch", [1, 64, 1000])
+@pytest.mark.parametrize("steps", [0, 1, 32, 65])
+def test_controlled_kernel_at_every_horizon_and_batch(device, batch, steps):
+    """Kernel [2] against its twin: no generation, one, the MPC horizon of 32
+    (four stages of 8 toggle rows) and 65 (a last stage of one row), on one
+    board, the MPC's 64 candidates and 1000 boards; and on toggles whose data
+    starts 8 bytes past 16, which the wrapper copies."""
+    gen = torch.Generator().manual_seed(steps * 1000 + batch)
+    boards = _random_boards(gen, batch, 0.3, device)
+    toggles = _random_boards(gen, steps * batch, 0.05, device).view(steps, batch, 64)
+    before = step_cuda.LAUNCHES["controlled_rollout"]
+    got = step_cuda.controlled_rollout(boards, toggles)
+    torch.cuda.synchronize()
+    assert step_cuda.LAUNCHES["controlled_rollout"] == before + 1
+    assert torch.equal(got, step_cuda.controlled_rollout_plain(boards, toggles))
+    store = torch.zeros(steps * batch * 64 + 1, dtype=torch.int64, device=device)
+    shifted = store[1:].view(steps, batch, 64)
+    shifted.copy_(toggles)
+    assert steps == 0 or shifted.data_ptr() % 16 == 8
+    assert torch.equal(step_cuda.controlled_rollout(boards, shifted), got)
+
+
 @pytest.mark.parametrize("batch", [1, 33, 1000])
 def test_rollout_lohi_kernel_matches_twin_and_rollout(device, batch):
     """Kernel [4] on the half-word layout against its plain twin and
@@ -175,15 +197,16 @@ def test_stable_kernel_matches_plain_twin(device, name):
 
 @pytest.mark.parametrize("name", ["propagate_fused", "propagate_fused_beam"])
 def test_stable_entries_match_plain_and_count(device, name):
-    """The two BitStable entries ([6] over kernel A, [9] over kernel C)
-    against their plain versions, and their launch counts."""
+    """The two BitStable entries ([6] over kernel B, [9] over kernel C)
+    against their plain versions ([6]'s a host loop over A's twin), and
+    their launch counts: one call, one launch of the inner kernel, counted
+    once, under the entry that made it."""
     bst = BP.from_planes(_stable_inputs(device))
     before = dict(stable_cuda.LAUNCHES)
     got = getattr(stable_cuda, name)(bst)
     torch.cuda.synchronize()
-    inner = "propagate_step" if name == "propagate_fused" else "propagate_fixpoint_priorities"
-    n = stable_cuda.LAUNCHES[name] - before[name]
-    assert n >= 1 and stable_cuda.LAUNCHES[inner] - before[inner] == n
+    added = {k: v - before[k] for k, v in stable_cuda.LAUNCHES.items() if v != before[k]}
+    assert added == {name: 1}
     want = getattr(stable_cuda, f"{name}_plain")(bst)
     if name == "propagate_fused":
         got, want = (got, ()), (want, ())
@@ -191,6 +214,30 @@ def test_stable_entries_match_plain_and_count(device, name):
     assert torch.equal(BP.to_planes(g.stable), BP.to_planes(w.stable))
     assert torch.equal(g.consistent, w.consistent) and torch.equal(g.changed, w.changed)
     assert all(torch.equal(a, b) for a, b in zip(glv, wlv))
+
+
+@pytest.mark.parametrize("max_iters", [1, 2])
+def test_propagate_fused_is_one_launch_at_a_step_cap(device, max_iters):
+    """[6] at a step cap: every board takes at most ``max_iters`` steps, as
+    in the host loop of its plain version, in one launch of kernel B that
+    reads nothing back (a synchronising call raises in the sync debug
+    mode)."""
+    bst = BP.from_planes(_stable_inputs(device))
+    before = dict(stable_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = stable_cuda.propagate_fused(bst, max_iters)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    added = {k: v - before[k] for k, v in stable_cuda.LAUNCHES.items() if v != before[k]}
+    assert added == {"propagate_fused": 1}
+    want = stable_cuda.propagate_fused_plain(bst, max_iters)
+    assert torch.equal(BP.to_planes(got.stable), BP.to_planes(want.stable))
+    assert torch.equal(got.consistent, want.consistent)
+    assert torch.equal(got.changed, want.changed)
+    if max_iters == 1:  # the cap stops some board short of its fixpoint
+        full = stable_cuda.propagate_fused(bst)
+        assert not torch.equal(BP.to_planes(got.stable), BP.to_planes(full.stable))
 
 
 def test_stable_fixpoint_some_boards_abort(device):

@@ -8,6 +8,7 @@ are tested on the card by ``tests/test_torch_cuda_kernels.py``."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 import torch
 
 from lifeapi_tpu.core import board as jb
@@ -97,12 +98,43 @@ def test_fixpoint_priorities_twin_matches_pallas_on_all_boards(rng):
             assert (np.asarray(prio[2 * j + h]).T == packed[:, j, :, h]).all()
 
 
-def test_fused_loop_matches_pallas_and_detects_contradiction(rng):
-    jbst = _instances(rng)
+def _with_lone_cells(jbst):
+    """The instances and two boards holding a lone ON cell and nothing
+    unknown, which propagation proves inconsistent."""
     lone = jb.from_cells([(30, 30)])
     cat = lambda a, b: jnp.concatenate([a, jnp.broadcast_to(b, (2, 64, 2))])
-    jbst = JBP.BitStable(cat(jbst.state, lone), cat(jbst.unknown, jnp.zeros_like(lone)),
+    return JBP.BitStable(cat(jbst.state, lone), cat(jbst.unknown, jnp.zeros_like(lone)),
                          tuple(cat(r, jnp.zeros_like(lone)) for r in jbst.ruled))
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, None])
+def test_fused_entry_matches_pallas_and_the_in_kernel_fixpoint(rng, max_iters):
+    """``propagate_fused`` at a step cap against JAX's loop over the Pallas
+    step kernel, and its plain version (JAX's structure: a loop while any
+    board is active) against the plain twin of kernel B's per-board loop,
+    on every board, the inconsistent ones included: the equality that lets
+    the card run [6] as one launch of kernel B.  ``None`` takes both
+    packages' default cap."""
+    cap = {} if max_iters is None else {"max_iters": max_iters}
+    jbst = _with_lone_cells(_instances(rng))
+    expect = SP.propagate_fused(jbst, batch_tile=10, interpret=True, **cap)
+    bst = convert.bitstable_from_jax(jbst)
+    res = stable_cuda.propagate_fused(bst, **cap)
+    _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
+    assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
+    assert (np.asarray(expect.changed) == res.changed.numpy()).all()
+    plain = stable_cuda.propagate_fused_plain(bst, **cap)
+    planes, consistent, changed = stable_cuda.propagate_fixpoint_plain(
+        BP.to_planes(bst).contiguous(), **cap)
+    assert torch.equal(BP.to_planes(plain.stable), planes)
+    assert torch.equal(plain.consistent, consistent) and torch.equal(plain.changed, changed)
+    assert not consistent[-2:].any()
+    if max_iters == 1:  # some consistent board is still changing after one step
+        assert bool((consistent & changed).any())
+
+
+def test_fused_loop_matches_pallas_and_detects_contradiction(rng):
+    jbst = _with_lone_cells(_instances(rng))
     expect = SP.propagate_fused(jbst, batch_tile=10, interpret=True)
     res = stable_cuda.propagate_fused(convert.bitstable_from_jax(jbst))
     _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
