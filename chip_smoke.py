@@ -7,8 +7,8 @@ Phases, each printing what it saw:
 
 1. environment: the card's name and power limit; build the CUDA kernels
    of ``lifeapi_tpu_torch/csrc`` with nvcc; each kernel's registers and
-   spills (ptxas), and the resident blocks an SM of the NTT and beam
-   kernels (the CUDA runtime's occupancy calculator);
+   spills (ptxas), and the resident blocks an SM of the NTT, beam and
+   fixpoint kernels (the CUDA runtime's occupancy calculator);
 2. the main path, with the kernels' launch counters set to 0 just before:
    the headline rollout (8192 random boards, 512 generations), the MPC
    solver in its demo and bench configurations, and the catalyst search on
@@ -22,7 +22,9 @@ Phases, each printing what it saw:
    frontier 4, 24 rounds), the queued beam over 131,072 problems, and the
    propagate fixpoint of 4096 boards through its four entries; then each
    of the four solver kernels against its twin (bit-exact, on the bench
-   shapes and on random, seeded and bounded instances), the known answers
+   shapes and on random, seeded and bounded instances; kernels B and C
+   through every entry at three step caps), each BitStable entry shown to
+   be one launch of B or C and no other kernel, the known answers
    (pop-7 eater on every problem, 49 -> 40 unknowns, a lone cell proved
    inconsistent, bound 7 finds nothing), the beam kernel on uneven
    instances at every frontier, and every board found checked to be a
@@ -58,6 +60,7 @@ line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
 CUDA, or when any check fails, the script exits non-zero.
 """
 
+import itertools
 import json
 import re
 import statistics
@@ -177,14 +180,25 @@ MOD_INSTRUCTIONS = 6
 # Device times at these shapes before the kernels' redesign (the beam kernel
 # as one block of F warps at 173 registers, [15] on a popcount body, the
 # controlled rollout as 8 boards a block reading its toggles from device
-# memory, propagate_fused as a host loop over kernel A: the whole call), on
-# an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6; the last two by
-# device_times.py on the parent tree), printed beside this run's.
+# memory; kernels B and C as one warp a board at 167 registers with the
+# BitStable entries stacking the planes first: the whole call for [6] and
+# [9]), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6; [2] and
+# [6]-[9] by device_times.py on the parent tree), printed beside this run's.
 DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484,
-                    "controlled_rollout": 0.0107, "propagate_fused": 0.2055}
+                    "controlled_rollout": 0.0107, "propagate_fused": 0.0396,
+                    "propagate_fixpoint": 0.0244, "propagate_fixpoint_priorities": 0.0332,
+                    "propagate_fused_beam": 0.0476}
 # profiler traces of one device time taken before a run of traces that each
 # miss half of a kernel's launches fails the run
 PROFILE_TRIES = 5
+# the BitStable entries over kernels B and C, and the counter each launch
+# adds to: [6], [7] (as propagate_fixpoint's) and [9]
+ENTRY_COUNTERS = {"propagate_fused": "propagate_fused",
+                  "propagate_fused_inkernel": "propagate_fixpoint",
+                  "propagate_fused_beam": "propagate_fused_beam"}
+# input copies the L2-rotated device times of [6]-[9] cycle through: 4 x 21
+# MB of planes, more than the H100's 50 MB of L2
+L2_ROTATION = 4
 
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
 BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
@@ -437,9 +451,16 @@ def issue_peak():
 
 def print_occupancy():
     """Resident blocks an SM (the CUDA runtime's occupancy calculator),
-    registers and local bytes a thread of every NTT instantiation and of the
-    beam kernel at each frontier; fail if the beam kernel spills."""
+    registers and local bytes a thread of every NTT instantiation, of the
+    beam kernel at each frontier and of the fixpoint kernels B and C; fail
+    if the beam or a fixpoint kernel spills."""
     from lifeapi_tpu_torch.ops import conv_cuda, stable_cuda
+
+    for priorities in (0, 1):
+        blocks, regs, local = stable_cuda.fixpoint_kernel_info(priorities)
+        print(f"[env] occupancy: fixpoint_kernel<{priorities}>: {blocks} resident blocks of 4 "
+              f"warps an SM ({4 * blocks} warps), {regs} registers, {local} local bytes a thread")
+        check(local == 0, f"fixpoint_kernel<{priorities}> spills ({local} local bytes a thread)")
 
     for name, (blocks, regs, local) in conv_cuda.ntt_kernel_info().items():
         print(f"[env] occupancy: {name}: {blocks} resident blocks of 4 warps an SM, "
@@ -526,6 +547,48 @@ def entry_outputs(result):
 
     res, levels = (result, ()) if isinstance(result, BP.BitPropagateResult) else result
     return (BP.to_planes(res.stable), res.consistent, res.changed, *levels)
+
+
+def entry_vs_plain(name, bst, kwargs, err):
+    """A BitStable entry ([6], [7] or [9]) and its plain version on the same
+    card inputs; fail unless they agree bit for bit.  [7]'s error counts as
+    propagate_fixpoint's."""
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+
+    got = getattr(SC, name)(bst, **kwargs)
+    want = getattr(SC, f"{name}_plain")(bst, **kwargs)
+    torch.cuda.synchronize()
+    key = ENTRY_COUNTERS[name]
+    for g, w in zip(entry_outputs(got), entry_outputs(want), strict=True):
+        err[key] = max(err[key], max_err(g, w))
+        check(torch.equal(g, w), f"{name} {kwargs} != its plain version")
+    return got
+
+
+def check_one_launch(name, bst):
+    """One call of a BitStable entry is one launch of kernel B or C and
+    nothing else: no readback (a synchronising call raises under the sync
+    debug mode), its counter alone moves, by one, and a profiler trace of a
+    call holds one fixpoint_kernel event and no other kernel (no stack, copy
+    or fill).  A trace that dropped the launch is taken again."""
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+
+    call = lambda: getattr(SC, name)(bst)
+    before = dict(SC.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    added = {k: v - before[k] for k, v in SC.LAUNCHES.items() if v != before[k]}
+    check(added == {ENTRY_COUNTERS[name]: 1}, f"{name} is not one launch of B or C: {added}")
+    for _ in range(PROFILE_TRIES):
+        kernels = {e.key: e.count for e in _trace(call, 1)}
+        if kernels:
+            break
+    check(len(kernels) == 1 and "fixpoint_kernel" in next(iter(kernels))
+          and list(kernels.values()) == [1],
+          f"a trace of one {name} call holds other kernels: {kernels}")
 
 
 def check_still_lifes(res, known, unknown, what):
@@ -758,34 +821,25 @@ def stable_phase(dev):
           "propagate_fixpoint_priorities != propagate_fused_beam")
     check(bool((~B.is_empty(one_step[1])).all()) and bool(B.is_empty(one_step[2]).all()),
           "one propagation step of the fixpoint boards changed nothing or aborted")
-    # [6] is one launch of kernel B with no readback: a synchronising call
-    # raises under the sync debug mode
-    before = dict(SC.LAUNCHES)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        SC.propagate_fused(fix_bst)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    added = {k: v - before[k] for k, v in SC.LAUNCHES.items() if v != before[k]}
-    check(added == {"propagate_fused": 1},
-          f"propagate_fused is not one launch of kernel B: {added}")
+    # [6], [7] and [9] on a BitStable are one launch of B or C each, with no
+    # readback and no other kernel
+    for name in ENTRY_COUNTERS:
+        check_one_launch(name, fix_bst)
     print(f"[stable] bench beam B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}: found "
           f"{int(beam.found.sum())}/{BEAM_B}, best_pop {beam.best_pop.unique().tolist()}, "
           f"every board a still life; queued {n_queued}: found {int(queued.found.sum())}, "
           f"== per-chunk calls on 3 chunks; fixpoint B={FIX_B}: unknowns "
           f"{unk_before} -> {unk_after.unique().tolist()}, consistent, the four entries "
-          f"equal; propagate_fused one launch of kernel B, no readback")
+          f"equal; propagate_fused, propagate_fused_inkernel and propagate_fused_beam "
+          f"one launch of kernel B or C each, no readback, no other kernel in a trace")
 
     # every kernel against its twin, first at the shapes of the path; the
-    # two BitStable entries against their plain versions
-    for name in ("propagate_fused", "propagate_fused_beam"):
-        got = getattr(SC, name)(fix_bst)
-        want = getattr(SC, f"{name}_plain")(fix_bst)
-        torch.cuda.synchronize()
-        for g, w in zip(*(entry_outputs(x) for x in (got, want))):
-            err[name] = max(err[name], max_err(g, w))
-            check(torch.equal(g, w), f"{name} != its plain version")
+    # three BitStable entries against their plain versions on separate
+    # planes (board stride 64) and on views of the stacked planes (640)
     fix_planes = BP.to_planes(fix_bst).contiguous()
+    for name in ENTRY_COUNTERS:
+        for bst in (fix_bst, BP.from_planes(fix_planes)):
+            entry_vs_plain(name, bst, {}, err)
     for name in ("propagate_step", "propagate_fixpoint", "propagate_fixpoint_priorities"):
         kernel_vs_plain(name, (fix_planes,), {}, err)
     bench_planes = BP.to_planes(beam_bst).contiguous()
@@ -793,16 +847,14 @@ def stable_phase(dev):
     rand = planes_of(*block_instances(1024, 0, 5, 4, 56, 0.3, ring2=True), dev)
     _, _, abort = kernel_vs_plain("propagate_step", (rand,), {}, err)
     _, consistent, _, _ = kernel_vs_plain("propagate_fixpoint_priorities", (rand,), {}, err)
-    kernel_vs_plain("propagate_fixpoint", (rand,), {}, err)
-    # [6] (kernel B) against its plain version (the host loop over A's
-    # twin), inconsistent boards included, at two step caps and the default
-    for cap in ({"max_iters": 1}, {"max_iters": 2}, {}):
-        got = SC.propagate_fused(BP.from_planes(rand), **cap)
-        want = SC.propagate_fused_plain(BP.from_planes(rand), **cap)
-        torch.cuda.synchronize()
-        for g, w in zip(entry_outputs(got), entry_outputs(want)):
-            err["propagate_fused"] = max(err["propagate_fused"], max_err(g, w))
-            check(torch.equal(g, w), f"propagate_fused {cap} != its plain version")
+    # kernels B and C through the planes API and the three BitStable entries
+    # against their plain versions ([6]'s the host loop over A's twin),
+    # inconsistent boards included, at two step caps and the default
+    for cap in ({"max_iters": 1}, {"max_iters": 2}, {"max_iters": SC.MAX_ITERS}):
+        kernel_vs_plain("propagate_fixpoint", (rand,), cap, err)
+        kernel_vs_plain("propagate_fixpoint_priorities", (rand,), cap, err)
+        for name in ENTRY_COUNTERS:
+            entry_vs_plain(name, BP.from_planes(rand), cap, err)
     n_abort = int((~B.is_empty(abort)).sum())
     n_incons = int((~consistent).sum())
     check(n_abort > 0 and n_incons > 0, "the random instances gave no inconsistent board")
@@ -839,8 +891,10 @@ def stable_phase(dev):
     check(n_dropped > 0, "F=2 on the uneven set dropped no child")
     print(f"[stable] kernels == plain twins: step, fixpoint and priorities on the "
           f"{FIX_B} fixpoint boards and on 1024 random instances ({n_abort} abort "
-          f"their first step, {n_incons} inconsistent), propagate_fused on both at caps "
-          f"1, 2 and {SC.MAX_ITERS}; beam on all {BEAM_B} bench "
+          f"their first step, {n_incons} inconsistent); B and C through the planes API "
+          f"and [6], [7], [9] through their BitStable entries (separate planes and views) "
+          f"on both, on the random ones at caps 1, 2 and {SC.MAX_ITERS}; beam on all {BEAM_B} "
+          f"bench "
           f"problems, the queued results on 3 chunks of {BEAM_B}, 1024 random "
           f"instances at F=8 (both minimise values), seeded and bounded (7: nothing "
           f"found, 8: pop 7) at B=64, the lone cell (proved inconsistent), 256 uneven "
@@ -864,15 +918,16 @@ def stable_timings(inputs, ms, plain_ms, dev_ms, card):
         ms[name], plain_ms[name] = paired_ms(
             lambda: getattr(SC, name)(fix_planes),
             lambda: getattr(SC, f"{name}_plain")(fix_planes), reps=reps)
-    for name, reps in (("propagate_fused", 5), ("propagate_fused_beam", 5)):
+    for name in ENTRY_COUNTERS:
         ms[name], plain_ms[name] = paired_ms(
             lambda: getattr(SC, name)(fix_bst),
-            lambda: getattr(SC, f"{name}_plain")(fix_bst), reps=reps)
+            lambda: getattr(SC, f"{name}_plain")(fix_bst), reps=5)
     kw = dict(frontier=BEAM_F, iters=BEAM_ITERS, minimise=True)
     ms["beam_search"], plain_ms["beam_search"] = paired_ms(
         lambda: SC.beam_search(beam_planes, **kw),
         lambda: SC.beam_search_plain(beam_planes, **kw), reps=2)
-    # the two BitStable entries: every kernel of the call (the packing too)
+    # the BitStable entries: every kernel of the call, so that a stack or
+    # copy that comes back is timed too
     dev_ms.update({
         "propagate_step": device_ms_at(lambda: SC.propagate_step(fix_planes), "step_kernel",
                                        "propagate_step"),
@@ -880,6 +935,9 @@ def stable_timings(inputs, ms, plain_ms, dev_ms, card):
                                         "propagate_fused", whole_call=True),
         "propagate_fixpoint": device_ms_at(lambda: SC.propagate_fixpoint(fix_planes),
                                            "fixpoint_kernel", "propagate_fixpoint"),
+        "propagate_fused_inkernel": device_ms_at(
+            lambda: SC.propagate_fused_inkernel(fix_bst), "fixpoint_kernel",
+            "propagate_fixpoint", whole_call=True),
         "propagate_fixpoint_priorities": device_ms_at(
             lambda: SC.propagate_fixpoint_priorities(fix_planes), "fixpoint_kernel",
             "propagate_fixpoint_priorities"),
@@ -895,6 +953,7 @@ def stable_timings(inputs, ms, plain_ms, dev_ms, card):
     for name, shape in (("propagate_step", f"B={FIX_B}"),
                         ("propagate_fused", f"B={FIX_B}, the whole call"),
                         ("propagate_fixpoint", f"B={FIX_B}"),
+                        ("propagate_fused_inkernel", f"B={FIX_B}, the whole call ([7]'s entry)"),
                         ("propagate_fixpoint_priorities", f"B={FIX_B}"),
                         ("propagate_fused_beam", f"B={FIX_B}, the whole call"),
                         ("beam_search", f"B={BEAM_B} F={BEAM_F} iters={BEAM_ITERS}")):
@@ -905,6 +964,26 @@ def stable_timings(inputs, ms, plain_ms, dev_ms, card):
     print(f"[time] propagate_fused against propagate_fused_inkernel, B={FIX_B}, medians "
           f"of 10 calls each in turns: {fused_ms:.4f} ms and {inkernel_ms:.4f} ms "
           f"({fused_ms / inkernel_ms:.3g}x)")
+    # [6]-[9] again with each call's input one of L2_ROTATION copies in
+    # turn, which the L2 cannot hold from one call to the next
+    for name, fn, x in (("propagate_fused", SC.propagate_fused, fix_bst),
+                        ("propagate_fixpoint", SC.propagate_fixpoint, fix_planes),
+                        ("propagate_fixpoint_priorities", SC.propagate_fixpoint_priorities,
+                         fix_planes),
+                        ("propagate_fused_beam", SC.propagate_fused_beam, fix_bst)):
+        copies = itertools.cycle([
+            x.clone() if isinstance(x, torch.Tensor) else
+            BP.BitStable(x.state.clone(), x.unknown.clone(), tuple(r.clone() for r in x.ruled))
+            for _ in range(L2_ROTATION)])
+        rotated = profiled_device_ms(lambda: fn(next(copies)), "fixpoint_kernel", name,
+                                     whole_call=name in ENTRY_COUNTERS)
+        first = dev_ms[name][0]
+        by_bytes = fixpoint_bytes(name) / HBM_BYTES_PER_S * 1e3
+        print(f"[time] {name} B={FIX_B}: {first:.4f} ms on the device on one input "
+              f"({first / by_bytes:.3g}x its bytes bound, {by_bytes:.4f} ms"
+              f"{'; under 1.1x' if first < 1.1 * by_bytes else ''}), {rotated:.4f} ms "
+              f"({rotated / by_bytes:.3g}x) with the input rotated over {L2_ROTATION} copies "
+              f"({L2_ROTATION * FIX_B * 10 * 512 / 1e6:.0f} MB of planes)")
 
     beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
                                                dense=False)
@@ -1568,6 +1647,15 @@ def solver_work(stable_inputs):
     return fix_steps, work["board_steps"], work["priority_boards"]
 
 
+def fixpoint_bytes(name):
+    """The bytes kernel B ([6], [7]) or C ([8], [9]) must move on the
+    FIX_B fixpoint boards: 10 planes in and out, two flags, and C's 4
+    levels."""
+    planes, levels = FIX_B * 10 * 512, FIX_B * 4 * 512
+    priorities = name in ("propagate_fixpoint_priorities", "propagate_fused_beam")
+    return 2 * planes + 2 * FIX_B + (levels if priorities else 0)
+
+
 def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     """bound_ms and bound_by of every kernel at the shapes timed above: the
     larger of its bytes (each input read once, each output written once)
@@ -1622,13 +1710,13 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
                              4096 * 64 * sass["catalyst_rollout"], "issue"),
         "propagate_step": (FIX_B * (2 * solver_board + 2 * board), FIX_B * step_ops, "rolls"),
         # [6] is one launch of kernel B, so its work is B's
-        "propagate_fused": (FIX_B * (2 * solver_board + 2),
+        "propagate_fused": (fixpoint_bytes("propagate_fused"),
                             fix_steps * solver["propagate_fixpoint"][0], "issue"),
-        "propagate_fixpoint": (FIX_B * (2 * solver_board + 2),
+        "propagate_fixpoint": (fixpoint_bytes("propagate_fixpoint"),
                                fix_steps * solver["propagate_fixpoint"][0], "issue"),
-        "propagate_fixpoint_priorities": (FIX_B * (2 * solver_board + 2 + 4 * board), fix_c,
-                                          "issue"),
-        "propagate_fused_beam": (FIX_B * (2 * solver_board + 2 + 4 * board), fix_c, "issue"),
+        "propagate_fixpoint_priorities": (fixpoint_bytes("propagate_fixpoint_priorities"),
+                                          fix_c, "issue"),
+        "propagate_fused_beam": (fixpoint_bytes("propagate_fused_beam"), fix_c, "issue"),
         "beam_search": (BEAM_B * (solver_board + board + 4 + 3),
                         beam_steps * solver["beam_search"][0]
                         + beam_prio * solver["beam_search"][1], "issue"),

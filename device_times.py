@@ -12,8 +12,9 @@ another commit.  Each is timed in a process of its own, in the order given
 holds, so a launch the trace missed does not read low.  The shapes are ``chip_smoke.py``'s: [1] and [4] on
 8192 random boards over 512 generations, [2] on 64 boards over 32
 generations (random toggles: the kernel's work does not depend on them),
-[3] on the glider and eater over the 4096 offsets of the full grid, [6] and
-[9] (the whole call) on the 4096 fixpoint boards.  Prints one JSON line a
+[3] on the glider and eater over the 4096 offsets of the full grid, [6]-[9]
+on the 4096 fixpoint boards ([6] and [9] through their BitStable entries,
+the whole call; [7] and [8] through the planes API).  Prints one JSON line a
 tree, then the card's name and power limit.
 """
 
@@ -48,6 +49,7 @@ def measure(tree):
                                    B.from_cells(S.EATER, device=dev), offsets, 64)
     known, unknown = S.eater_problem(dev, hide_cells=(), ring2=True)
     fix_bst = BP.make(state=known.expand(S.FIX_B, 64), unknown=unknown.expand(S.FIX_B, 64))
+    fix_planes = BP.to_planes(fix_bst).contiguous()
     cases = {  # name: (call, kernel pattern, counter, calls a trace, whole call)
         "rollout": (lambda: step_cuda.rollout(boards, S.HEADLINE_T), "rollout_kernel",
                     "rollout", 5, False),
@@ -60,6 +62,11 @@ def measure(tree):
         # [6] is a host loop over kernel A before its redesign, kernel B after
         "propagate_fused": (lambda: SC.propagate_fused(fix_bst), "step_kernel|fixpoint_kernel",
                             "propagate_fused", 20, True),
+        "propagate_fixpoint": (lambda: SC.propagate_fixpoint(fix_planes), "fixpoint_kernel",
+                               "propagate_fixpoint", 20, False),
+        "propagate_fixpoint_priorities": (lambda: SC.propagate_fixpoint_priorities(fix_planes),
+                                          "fixpoint_kernel", "propagate_fixpoint_priorities",
+                                          20, False),
         "propagate_fused_beam": (lambda: SC.propagate_fused_beam(fix_bst), "fixpoint_kernel",
                                  "propagate_fused_beam", 20, True),
     }

@@ -509,40 +509,84 @@ step_kernel(const u64* __restrict__ in, u64* __restrict__ out, u64* __restrict__
   abort[at + 32] = ab[1];
 }
 
+// -- kernels B and C: the whole fixpoint --------------------------------------
+
+// N planes of a batch of boards where they lie in device memory: plane i of
+// board b is the 64 words at p[i] + b * stride[i].  Passed by value, so the
+// pointers and strides are read from the kernel's parameter bank.  A board
+// stride of 640 is the board-major int64[B, 10, 64] of the planes API, 64 a
+// plane of its own (a BitStable's).  The strides are 32-bit, so a plane's
+// address is one wide multiply and one shifted 64-bit add.
+template <int N>
+struct PlaneSet {
+  u64* p[N];
+  int stride[N];
+};
+
+template <int N>
+__device__ __forceinline__ void load_planes(u64 (*w)[2], const PlaneSet<N>& src, int b,
+                                            int lane) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const u64* s = src.p[i] + static_cast<long long>(b) * src.stride[i];
+    w[i][0] = s[lane];
+    w[i][1] = s[lane + 32];
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void store_planes(const u64 (*w)[2], const PlaneSet<N>& dst, int b,
+                                             int lane) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    u64* d = dst.p[i] + static_cast<long long>(b) * dst.stride[i];
+    d[lane] = w[i][0];
+    d[lane + 32] = w[i][1];
+  }
+}
+
 // Kernel B (kPriorities false).  Replaces stable_pallas.py
-// propagate_fused_inkernel (_fixpoint_kernel): the whole fixpoint, the board
-// in registers throughout.  Bound: integer instructions, ~700 ops per lane per
-// step, times the board's step count; device memory sees 5 KB in and out.
-//
-// Kernel C (kPriorities true).  Replaces stable_pallas.py
+// propagate_fused_inkernel (_fixpoint_kernel): the whole fixpoint of every
+// board.  Kernel C (kPriorities true).  Replaces stable_pallas.py
 // propagate_fused_beam_planes (_fixpoint_beam_kernel): kernel B, then the
-// branch priorities of the result (another ~1000 ops per lane, once).
+// branch priorities of the result (another ~1000 instructions a lane, once).
+//
+// One warp a board, 4 a block.  The planes come and go where they lie
+// (PlaneSet), so a BitStable's separate planes need no stacking.
+//
+// Bound: the bytes (5 KB in, 5 KB out, and C's 2 KB of levels a board) and
+// the SASS instructions over the issue peak (about 870 a board-step, about
+// 3 steps a board on the solver's fixpoint set, 1050 for C's priorities)
+// are nearly equal, but 84% of a step's instructions are LOP3s, which a
+// scheduler issues at most every other clock: the kernel is held by the
+// integer pipe, not by memory.  Persistent warps at 16 an SM that stage the
+// next board by cp.async and keep the planes to roll back to in shared
+// memory were measured slower on the card in every variant (PERF.md,
+// section 6): the step run in place compiles to about 20 more LOP3s than
+// the step run on a copy, and staging buys nothing where memory is not the
+// limit.  So the step runs on a copy, at about 168 registers and 12 warps
+// an SM.
 template <bool kPriorities>
 __global__ void __launch_bounds__(kThreadsPerBlock)
-fixpoint_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-                uint8_t* __restrict__ consistent, uint8_t* __restrict__ changed,
-                u64* __restrict__ levels, int B, int max_iters) {
+fixpoint_kernel(const PlaneSet<kPlanes> in, const PlaneSet<kPlanes> out,
+                const PlaneSet<4> levels, uint8_t* __restrict__ flags, int B,
+                int max_iters) {
   const int lane = threadIdx.x & 31;
   const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (board >= B) return;
   Board P;
-  load_board(P, in + static_cast<size_t>(board) * kBoardWords, lane);
+  load_planes<kPlanes>(P.p, in, board, lane);
   bool changed_ever;
   const bool aborted = fixpoint(P, lane, max_iters, changed_ever);
-  store_board(P, out + static_cast<size_t>(board) * kBoardWords, lane);
+  store_planes<kPlanes>(P.p, out, board, lane);
   if (lane == 0) {
-    consistent[board] = aborted ? 0 : 1;
-    changed[board] = changed_ever ? 1 : 0;
+    flags[board] = aborted ? 0 : 1;          // consistent
+    flags[B + board] = changed_ever ? 1 : 0;  // changed
   }
   if (kPriorities) {
     u64 lv[4][2];
     priority(P, lane, lv);
-    u64* dst = levels + static_cast<size_t>(board) * 4 * 64;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dst[j * 64 + lane] = lv[j][0];
-      dst[j * 64 + 32 + lane] = lv[j][1];
-    }
+    store_planes<4>(lv, levels, board, lane);
   }
 }
 
@@ -800,12 +844,45 @@ cudaError_t beam_info(int* info) {
   return cudaSuccess;
 }
 
+// info = {resident blocks an SM, registers a thread, local (spilled) bytes a
+// thread} of fixpoint_kernel<kPriorities>.
+template <bool kPriorities>
+cudaError_t fixpoint_info(int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &info[0], fixpoint_kernel<kPriorities>, kThreadsPerBlock, 0);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, fixpoint_kernel<kPriorities>);
+  if (err != cudaSuccess) return err;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
+template <int N>
+PlaneSet<N> plane_set(const long long* desc) {
+  PlaneSet<N> s;
+  for (int i = 0; i < N; ++i) {
+    s.p[i] = reinterpret_cast<u64*>(desc[i]);
+    s.stride[i] = static_cast<int>(desc[N + i]);
+  }
+  return s;
+}
+
+template <bool kPriorities>
+cudaError_t launch_fixpoint(const long long* in, const long long* out, const long long* levels,
+                            uint8_t* flags, int B, int max_iters, cudaStream_t stream) {
+  fixpoint_kernel<kPriorities><<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
+      plane_set<kPlanes>(in), plane_set<kPlanes>(out),
+      levels ? plane_set<4>(levels) : PlaneSet<4>{}, flags, B, max_iters);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return the launch's cudaError_t (0 on success).  Boards are
-// int64[B, 10, 64]; B must be positive and the iteration counts
-// non-negative.
+// int64[B, 10, 64] (kernels B and C take them as planes, below); B must be
+// positive and the iteration counts non-negative.
 
 extern "C" cudaError_t life_stable_step(const u64* in, u64* out, u64* changed, u64* abort,
                                         int B, cudaStream_t stream) {
@@ -814,23 +891,21 @@ extern "C" cudaError_t life_stable_step(const u64* in, u64* out, u64* changed, u
   return cudaGetLastError();
 }
 
-extern "C" cudaError_t life_stable_fixpoint(const u64* in, u64* out, uint8_t* consistent,
-                                            uint8_t* changed, int B, int max_iters,
-                                            cudaStream_t stream) {
+// Kernel B, or kernel C where `levels` is not null.  `in` and `out` describe
+// the 10 planes of the boards, `levels` the 4 levels of kernel C: N
+// pointers, then the N board strides in words (PlaneSet), each below 2^31.
+// flags is uint8[2, B]: consistent, then changed.
+extern "C" cudaError_t life_stable_fixpoint(const long long* in, const long long* out,
+                                            const long long* levels, uint8_t* flags, int B,
+                                            int max_iters, cudaStream_t stream) {
   if (B <= 0 || max_iters < 0) return cudaErrorInvalidValue;
-  fixpoint_kernel<false><<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
-      in, out, consistent, changed, nullptr, B, max_iters);
-  return cudaGetLastError();
+  return levels ? launch_fixpoint<true>(in, out, levels, flags, B, max_iters, stream)
+                : launch_fixpoint<false>(in, out, nullptr, flags, B, max_iters, stream);
 }
 
-extern "C" cudaError_t life_stable_fixpoint_priorities(const u64* in, u64* out,
-                                                       uint8_t* consistent, uint8_t* changed,
-                                                       u64* levels, int B, int max_iters,
-                                                       cudaStream_t stream) {
-  if (B <= 0 || max_iters < 0) return cudaErrorInvalidValue;
-  fixpoint_kernel<true><<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
-      in, out, consistent, changed, levels, B, max_iters);
-  return cudaGetLastError();
+// info = fixpoint_info of kernel B (priorities 0) or C (priorities 1).
+extern "C" cudaError_t life_stable_fixpoint_info(int priorities, int* info) {
+  return priorities ? fixpoint_info<true>(info) : fixpoint_info<false>(info);
 }
 
 // F, the frontier, is a power of two in [2, 16]; seed (int64[B, 64]) and

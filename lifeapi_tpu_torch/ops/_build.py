@@ -37,7 +37,7 @@ SIGNATURES = {
     "life_catalyst_rollout": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "life_stable_step": (_P, _P, _P, _P, _I, _P),
     "life_stable_fixpoint": (_P, _P, _P, _P, _I, _I, _P),
-    "life_stable_fixpoint_priorities": (_P, _P, _P, _P, _P, _I, _I, _P),
+    "life_stable_fixpoint_info": (_I, _P),
     "life_stable_beam": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     "life_stable_beam_info": (_I, _P),
     "life_conv_sparse": (_P, _P, _P, _I, _P),

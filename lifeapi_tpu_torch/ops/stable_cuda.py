@@ -7,7 +7,10 @@ is ``int64[10, 64]``: state, unknown and the 8 ruled-option planes
 column.  Each kernel entry takes ``int64[B, 10, 64]`` and dispatches on the
 device: a CUDA tensor launches the kernel in ``csrc/life_stable.cu`` on the
 current stream, a CPU tensor takes the plain twin.  A CUDA tensor never
-falls back to the twin: anything the kernel does not take raises.
+falls back to the twin: anything the kernel does not take raises.  The
+``BitStable`` entries (``propagate_fused``, ``propagate_fused_inkernel``,
+``propagate_fused_beam``) hand kernels B and C the 10 planes where they lie
+(:func:`plane_descriptor`), with no stacking, and return contiguous planes.
 
 The twins follow the kernels' structure (the fused step ``_step_planes`` of
 the TPU kernel and its masked fixpoint ``_run_fixpoint``), not the
@@ -22,7 +25,7 @@ main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from functools import partial
+import math
 
 import torch
 
@@ -35,7 +38,8 @@ from .step_cuda import _check, _launch, _stream
 LAUNCHES = {"propagate_step": 0, "propagate_fixpoint": 0,
             "propagate_fixpoint_priorities": 0, "beam_search": 0,
             # the kernels launched through the two BitStable entries that
-            # the JAX package has as TPU kernels of their own ([6] and [9])
+            # the JAX package has as TPU kernels of their own ([6] and [9]);
+            # propagate_fused_inkernel's count as propagate_fixpoint's ([7])
             "propagate_fused": 0, "propagate_fused_beam": 0}
 
 MAX_ITERS = 256  # fixpoint cap, as the TPU kernels'
@@ -191,8 +195,7 @@ def propagate_fused(bst, max_iters=MAX_ITERS):
     CPU tensor it is :func:`propagate_fused_plain`."""
     if not bst.state.is_cuda:
         return propagate_fused_plain(bst, max_iters)
-    return _bitstable_entry(bst, max_iters, partial(
-        _fixpoint_launch, priorities=False, count="propagate_fused"))
+    return _bitstable_launch(bst, max_iters, priorities=False, count="propagate_fused")
 
 
 def propagate_fused_plain(bst, max_iters=MAX_ITERS):
@@ -239,24 +242,86 @@ def propagate_fixpoint_priorities_plain(planes, max_iters=MAX_ITERS):
     return planes, consistent, changed, _priority_planes(planes)
 
 
-def _fixpoint_launch(planes, max_iters, priorities, count):
-    """Launch kernel B, or kernel C when ``priorities``, and count the
-    launch under ``LAUNCHES[count]``, the entry that made it."""
-    b = _planes_batch(planes)
+def _board_stride(plane):
+    """The words from one board to the next of an ``int64[..., 64]`` plane
+    whose last dimension is contiguous and whose batch dimensions flatten to
+    one stride (a batch of one board takes 64), else None."""
+    if plane.stride(-1) != 1:
+        return None
+    board, span = None, 1
+    for size, step in zip(reversed(plane.shape[:-1]), reversed(plane.stride()[:-1])):
+        if size == 1:
+            continue
+        if board is None:
+            board = step
+        elif step != board * span:
+            return None
+        span *= size
+    return 64 if board is None else board
+
+
+# kernels B and C take each board stride as a 32-bit int
+MAX_BOARD_STRIDE = 2**31 - 1
+
+
+def plane_descriptor(planes):
+    """Where kernels B and C find a batch of boards' planes: ``planes`` is a
+    sequence of ``int64[..., 64]`` tensors of one shape.  A plane is read in
+    place where its last dimension is contiguous and its batch dimensions
+    flatten to one board stride below 2**31 words; any other plane is
+    copied.  Returns (pointers, board strides in words, the tensors they
+    name), the last to be kept alive until the launch is queued."""
+    pointers, strides, kept = [], [], []
+    for plane in planes:
+        board = 64 if plane.is_contiguous() else _board_stride(plane)
+        if board is None or board > MAX_BOARD_STRIDE:
+            plane = plane.clone(memory_format=torch.contiguous_format)
+            board = 64
+        pointers.append(plane.data_ptr())
+        strides.append(board)
+        kept.append(plane)
+    return pointers, strides, kept
+
+
+def _words(pointers, strides):
+    """The kernel's view of a set of planes: the pointers, then the board
+    strides in words."""
+    return (ctypes.c_int64 * (2 * len(strides)))(*pointers, *strides)
+
+
+def _stacked(t, dim):
+    """Descriptor words of the planes along ``dim`` of a fresh contiguous
+    ``int64`` tensor: ``[planes, N, 64]`` (dim 0) or ``[N, planes, 64]``
+    (dim 1)."""
+    count, step, base = t.shape[dim], t.stride(dim) * 8, t.data_ptr()
+    return _words(range(base, base + count * step, step), (t.stride(1 - dim),) * count)
+
+
+def _launch_fixpoint(src, dst, levels, n, max_iters, count, dev):
+    """Launch kernel B, or kernel C when ``levels`` is given, with the
+    descriptor words of the input planes, the output planes and the levels,
+    and count the launch under ``LAUNCHES[count]``, the entry that made it.
+    Returns the flags ``bool[2, n]``: consistent, changed."""
     max_iters = _max_iters(max_iters)
-    lib = _build.library()
-    launcher = lib.life_stable_fixpoint_priorities if priorities else lib.life_stable_fixpoint
+    flags = torch.empty((2, n), dtype=torch.bool, device=dev)
+    with torch.cuda.device(dev):
+        _launch(_build.library().life_stable_fixpoint, src, dst, levels, flags.data_ptr(), n,
+                max_iters, _stream(dev))
+    LAUNCHES[count] += 1
+    return flags
+
+
+def _planes_api_launch(planes, max_iters, priorities, count):
+    """Kernel B or C on ``int64[B, 10, 64]`` boards: plane i of board b at
+    ``b * 640 + 64 * i``."""
+    b = _planes_batch(planes)
     out = torch.empty_like(planes)
-    consistent = torch.empty(b, dtype=torch.bool, device=planes.device)
-    changed = torch.empty_like(consistent)
     levels = (torch.empty((b, 4, 64), dtype=torch.int64, device=planes.device)
               if priorities else None)
-    args = [planes.data_ptr(), out.data_ptr(), consistent.data_ptr(),
-            changed.data_ptr()] + ([levels.data_ptr()] if priorities else [])
-    with torch.cuda.device(planes.device):
-        _launch(launcher, *args, b, max_iters, _stream(planes.device))
-    LAUNCHES[count] += 1
-    return (out, consistent, changed) + ((levels,) if priorities else ())
+    flags = _launch_fixpoint(_stacked(planes, 1), _stacked(out, 1),
+                             None if levels is None else _stacked(levels, 1), b, max_iters,
+                             count, planes.device)
+    return (out, flags[0], flags[1]) + ((levels,) if priorities else ())
 
 
 def propagate_fixpoint(planes, max_iters=MAX_ITERS):
@@ -266,7 +331,7 @@ def propagate_fixpoint(planes, max_iters=MAX_ITERS):
     _planes_batch(planes)
     if not planes.is_cuda:
         return propagate_fixpoint_plain(planes, _max_iters(max_iters))
-    return _fixpoint_launch(planes, max_iters, priorities=False, count="propagate_fixpoint")
+    return _planes_api_launch(planes, max_iters, priorities=False, count="propagate_fixpoint")
 
 
 def propagate_fixpoint_priorities(planes, max_iters=MAX_ITERS):
@@ -275,17 +340,35 @@ def propagate_fixpoint_priorities(planes, max_iters=MAX_ITERS):
     _planes_batch(planes)
     if not planes.is_cuda:
         return propagate_fixpoint_priorities_plain(planes, _max_iters(max_iters))
-    return _fixpoint_launch(planes, max_iters, priorities=True,
-                            count="propagate_fixpoint_priorities")
+    return _planes_api_launch(planes, max_iters, priorities=True,
+                              count="propagate_fixpoint_priorities")
+
+
+def fixpoint_kernel_info(priorities, device=None):
+    """(resident blocks an SM, registers a thread, local bytes a thread) of
+    kernel B, or of kernel C when ``priorities``, on a CUDA ``device``, from
+    the CUDA runtime's occupancy calculator and the kernel's attributes."""
+    info = (ctypes.c_int * 3)()
+    with torch.cuda.device(device):
+        _launch(_build.library().life_stable_fixpoint_info, int(bool(priorities)), info)
+    return tuple(info)
 
 
 def propagate_fused_inkernel(bst, max_iters=MAX_ITERS, simple_phase=False):
     """Whole propagate fixpoint in one kernel launch
     (``stable_pallas.propagate_fused_inkernel``).  Contract: per-board
     (consistent, changed); planes of inconsistent boards are unspecified
-    (the reference discards them, LifeStable.hpp:723)."""
+    (the reference discards them, LifeStable.hpp:723).  On a CUDA tensor the
+    launch of kernel B counts under ``LAUNCHES["propagate_fixpoint"]``."""
     _no_simple_phase(simple_phase)
-    return _bitstable_entry(bst, max_iters, propagate_fixpoint)
+    if not bst.state.is_cuda:
+        return propagate_fused_inkernel_plain(bst, max_iters)
+    return _bitstable_launch(bst, max_iters, priorities=False, count="propagate_fixpoint")
+
+
+def propagate_fused_inkernel_plain(bst, max_iters=MAX_ITERS):
+    """:func:`propagate_fused_inkernel` over the plain twin of kernel B."""
+    return _bitstable_entry(bst, max_iters, propagate_fixpoint_plain)
 
 
 def propagate_fused_beam(bst, max_iters=MAX_ITERS, simple_phase=False):
@@ -297,9 +380,8 @@ def propagate_fused_beam(bst, max_iters=MAX_ITERS, simple_phase=False):
     ``LAUNCHES["propagate_fused_beam"]``."""
     _no_simple_phase(simple_phase)
     if not bst.state.is_cuda:
-        return _bitstable_entry(bst, max_iters, propagate_fixpoint_priorities)
-    return _bitstable_entry(bst, max_iters, partial(
-        _fixpoint_launch, priorities=True, count="propagate_fused_beam"))
+        return propagate_fused_beam_plain(bst, max_iters)
+    return _bitstable_launch(bst, max_iters, priorities=True, count="propagate_fused_beam")
 
 
 def propagate_fused_beam_plain(bst, max_iters=MAX_ITERS):
@@ -308,17 +390,70 @@ def propagate_fused_beam_plain(bst, max_iters=MAX_ITERS):
 
 
 def _bitstable_entry(bst, max_iters, fixpoint):
-    """Run ``fixpoint`` on the planes of ``bst`` -> BitPropagateResult, with
-    the 4 levels beside it when ``fixpoint`` returns them."""
+    """Run the twin ``fixpoint`` on the stacked planes of ``bst`` ->
+    BitPropagateResult, with the 4 levels beside it when ``fixpoint``
+    returns them."""
     batch = bst.batch_shape
     planes = BP.to_planes(bst).reshape(-1, BP.N_PLANES, 64)
-    out, consistent, changed, *levels = fixpoint(planes, max_iters)
+    _planes_batch(planes)
+    out, consistent, changed, *levels = fixpoint(planes, _max_iters(max_iters))
     out = out.reshape(*batch, BP.N_PLANES, 64)
     res = BP.BitPropagateResult(BP.from_planes(out), consistent.reshape(batch),
                                 changed.reshape(batch))
     if not levels:
         return res
     return res, tuple(levels[0].reshape(*batch, 4, 64).unbind(-2))
+
+
+def _bitstable_planes(bst):
+    """The 10 planes of a BitStable, checked -> (planes, batch shape,
+    number of boards)."""
+    planes = (bst.state, bst.unknown, *bst.ruled)
+    if len(planes) != BP.N_PLANES:
+        raise ValueError(f"BitStable: expected {BP.N_PLANES} planes, got {len(planes)}")
+    shape = bst.state.shape
+    if not shape or shape[-1] != 64:
+        raise ValueError(f"BitStable: planes must be int64[..., 64], got {tuple(shape)}")
+    for plane in planes:
+        _check_plane(plane, shape, bst.state.device)
+    n = math.prod(shape[:-1])
+    if not 0 < n < 2**31 // 64:
+        raise ValueError(f"BitStable: batch {n} out of range")
+    return planes, shape[:-1], n
+
+
+def _check_plane(plane, shape, device):
+    if not isinstance(plane, torch.Tensor):
+        raise TypeError(f"BitStable: expected tensors, got {type(plane).__name__}")
+    if plane.dtype != torch.int64:
+        raise TypeError(f"BitStable: expected torch.int64 planes, got {plane.dtype}")
+    if plane.shape != shape:
+        raise ValueError(f"BitStable: plane of shape {tuple(plane.shape)} beside "
+                         f"{tuple(shape)}")
+    if plane.device != device:
+        raise ValueError(f"BitStable: a plane on {plane.device}, the state on {device}")
+
+
+def _bitstable_launch(bst, max_iters, priorities, count):
+    """Kernel B or C on the planes of a CUDA ``bst`` where they lie: one
+    launch and no other kernel unless a plane must be copied
+    (:func:`plane_descriptor`).  The result's planes and levels are slices
+    of one ``int64[10, N, 64]`` and one ``int64[4, N, 64]``, each plane
+    contiguous."""
+    planes, batch, n = _bitstable_planes(bst)
+    dev = bst.state.device
+    pointers, strides, copies = plane_descriptor(planes)  # copies live past the launch
+    out = torch.empty((BP.N_PLANES, n, 64), dtype=torch.int64, device=dev)
+    levels = torch.empty((4, n, 64), dtype=torch.int64, device=dev) if priorities else None
+    flags = _launch_fixpoint(_words(pointers, strides), _stacked(out, 0),
+                             None if levels is None else _stacked(levels, 0), n, max_iters,
+                             count, dev)
+    p = out.view(BP.N_PLANES, *batch, 64).unbind(0)
+    consistent, changed = flags.view(2, *batch).unbind(0)
+    res = BP.BitPropagateResult(BP.BitStable(p[0], p[1], p[2:]), consistent, changed)
+    if not priorities:
+        return res
+    return res, levels.view(4, *batch, 64).unbind(0)
 
 
 # ---------------------------------------------------------------------------

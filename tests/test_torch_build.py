@@ -200,6 +200,58 @@ def test_solver_sass_without_its_shapes_is_refused():
         chip_smoke.loop_instructions(code[:2], chip_smoke.STEP_SHUFFLES)
 
 
+def _persistent_fixpoint_body(priorities, step_unroll=1):
+    """Kernel B or C as persistent warps would compile (a shape measured on
+    the card and not kept): a board loop (wait for the staged board, read it
+    from shared memory, stage the next by 10 LDGSTS) around the step loop (48
+    shuffles, two votes, the branch over 20 rollback stores: 120
+    instructions a step); a reload behind a branch; the result's stores; for
+    C the priority block (56 shuffles, 168 instructions) and the level
+    stores, in one basic block with the stores before it and the branch
+    that ends the board loop (197 instructions).  B's board loop holds
+    exactly 48 shuffles, C's 104: neither may be taken for the step loop."""
+    lds, sts, stg = ("LDS.64", "R4, [R2]"), ("STS.64", "[R2], R4"), ("STG.E.64", "desc[UR4][R6.64], R4")
+    code = [("MOV", "R1, c[0x0][0x28]"), ("LDGSTS.E.BYPASS.128", "[R3], desc[UR4][R6.64]")]
+    board = len(code)
+    code += [("LDGDEPBAR", ""), ("DEPBAR.LE", "SB0, 0x0"), ("WARPSYNC", "0xffffffff")]
+    code += [lds] * 20 + [("LDGSTS.E.BYPASS.128", "[R3], desc[UR4][R6.64]")] * 10
+    step = len(code)
+    for _ in range(step_unroll):
+        code += [SHFL, LOP] * 48 + [("VOTE.ANY", "R5, PT, P1"), ("VOTE.ANY", "R6, PT, P2"),
+                                    ("@!P1 BRA", "{nostore%d}" % _)]
+        code += [sts] * 20
+        code = [(op, args.replace("{nostore%d}" % _, f"{16 * len(code):#x}"))
+                for op, args in code]
+    code += [("@P0 BRA", f"{16 * step:#x}"), ("@!P2 BRA", "{stores}")] + [lds] * 20
+    stores = len(code)
+    code += [stg] * 20
+    if priorities:
+        code += [SHFL, LOP, LOP] * 56 + [stg] * 8
+    code += [("@P3 BRA", f"{16 * board:#x}"), ("EXIT", "")]
+    return [(op, args.replace("{stores}", f"{16 * stores:#x}")) for op, args in code]
+
+
+def _persistent_listing(step_unroll=1):
+    bodies = {"fixpoint_kernel<0>": _persistent_fixpoint_body(False, step_unroll),
+              "fixpoint_kernel<1>": _persistent_fixpoint_body(True, step_unroll),
+              "beam_kernel<4>": _solver_body()}
+    return "".join(_sass(STABLE.format(SOLVER_NAMES[name]), body)
+                   for name, body in bodies.items())
+
+
+def test_solver_sass_counts_skip_a_board_loop_around_the_step_loop():
+    funcs = chip_smoke.sass_functions(_persistent_listing())
+    assert sorted(funcs) == sorted(SOLVER_NAMES)
+    b_loops = [(n, size) for n, size, _, _ in chip_smoke.loops(funcs["fixpoint_kernel<0>"])]
+    assert (48, 120) in b_loops and any(n == 48 and size > 120 for n, size in b_loops)
+    assert chip_smoke.solver_sass_counts(funcs) == {
+        "propagate_fixpoint": (120, None), "propagate_fixpoint_priorities": (120, 197),
+        "beam_search": (99, 169)}
+    unrolled = chip_smoke.sass_functions(_persistent_listing(step_unroll=2))
+    assert chip_smoke.loop_instructions(unrolled["fixpoint_kernel<1>"],
+                                        chip_smoke.STEP_SHUFFLES) == 239 / 2
+
+
 class _FakeProfile:
     """torch.profiler.profile's stand-in: each trace gives the next of
     ``traces``, lists of (kernel, events, device microseconds)."""

@@ -245,6 +245,148 @@ def test_stable_fixpoint_some_boards_abort(device):
     assert consistent.any() and not consistent.all()
 
 
+# the three BitStable entries and the counter their launch of B or C adds to
+ENTRY_COUNTS = {"propagate_fused": "propagate_fused",
+                "propagate_fused_inkernel": "propagate_fixpoint",
+                "propagate_fused_beam": "propagate_fused_beam"}
+
+
+def _entry_tensors(result):
+    res, levels = (result, ()) if isinstance(result, BP.BitPropagateResult) else result
+    return (res.stable.state, res.stable.unknown, *res.stable.ruled, res.consistent,
+            res.changed, *levels)
+
+
+def _run_entry(name, bst, **kw):
+    """One call of a BitStable entry against its plain version, bit for bit:
+    one launch, counted once under the entry's counter; every returned
+    plane and level contiguous."""
+    before = dict(stable_cuda.LAUNCHES)
+    got = getattr(stable_cuda, name)(bst, **kw)
+    torch.cuda.synchronize()
+    added = {k: v - before[k] for k, v in stable_cuda.LAUNCHES.items() if v != before[k]}
+    assert added == {ENTRY_COUNTS[name]: 1}
+    want = getattr(stable_cuda, f"{name}_plain")(bst, **kw)
+    got_t, want_t = _entry_tensors(got), _entry_tensors(want)
+    assert len(got_t) == len(want_t)
+    for g, w in zip(got_t, want_t):
+        assert g.device == w.device and g.dtype == w.dtype and g.shape == w.shape
+        assert torch.equal(g, w)
+        assert g.is_contiguous()
+    return got
+
+
+def _off16(plane):
+    """A copy of ``plane`` whose data starts 8 bytes past 16."""
+    store = torch.zeros(plane.numel() + 1, dtype=torch.int64, device=plane.device)
+    shifted = store[1:].view(plane.shape)
+    shifted.copy_(plane)
+    assert shifted.data_ptr() % 16 == 8
+    return shifted
+
+
+def _layout(planes, layout):
+    """A BitStable over ``int64[B, 10, 64]`` planes: views of the stacked
+    tensor (board stride 640), separate planes as ``BP.make`` gives them
+    (stride 64), or those with the unknown plane 8 bytes off 16 (read in
+    place too)."""
+    if layout == "views":
+        return BP.from_planes(planes)
+    bst = BP.BitStable(*(p.contiguous() for p in planes.unbind(1)[:2]),
+                       tuple(p.contiguous() for p in planes.unbind(1)[2:]))
+    return bst._replace(unknown=_off16(bst.unknown)) if layout == "off16" else bst
+
+
+@pytest.mark.parametrize("layout", ["views", "make", "off16"])
+@pytest.mark.parametrize("name", list(ENTRY_COUNTS))
+def test_bitstable_entries_on_every_layout(device, name, layout):
+    """[6], [7] and [9] through their BitStable entries, inconsistent boards
+    included, with the planes read in place: views of one tensor, separate
+    planes, and a plane 8 bytes off 16."""
+    planes = _stable_inputs(device)
+    got = _run_entry(name, _layout(planes, layout))
+    res = got[0] if name == "propagate_fused_beam" else got
+    assert res.consistent.any() and not res.consistent.all()
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 256])
+@pytest.mark.parametrize("name", list(ENTRY_COUNTS))
+def test_bitstable_entries_at_step_caps_on_a_2d_batch(device, name, max_iters):
+    planes = _stable_inputs(device)
+    _run_entry(name, BP.from_planes(planes.view(8, 20, BP.N_PLANES, 64)), max_iters=max_iters)
+
+
+def _resident_warps(priorities):
+    blocks, _, _ = stable_cuda.fixpoint_kernel_info(priorities)
+    return torch.cuda.get_device_properties(0).multi_processor_count * blocks * 4
+
+
+@pytest.mark.parametrize("batch", [1, 5, 4096, "ragged"])
+def test_fixpoint_kernels_at_every_batch(device, batch):
+    """Kernels B and C through the planes API and [9]'s entry on 1 board,
+    5, 4096 and one and a half times the warps the card holds at once plus
+    one (a last block of one warp)."""
+    b = _resident_warps(True) * 3 // 2 + 1 if batch == "ragged" else batch
+    pool = _stable_inputs(device)
+    planes = pool[torch.arange(b, device=device) % pool.shape[0]].contiguous()
+    _run_pair("propagate_fixpoint", (planes,))
+    _run_pair("propagate_fixpoint_priorities", (planes,))
+    _run_entry("propagate_fused_beam", BP.from_planes(planes))
+
+
+@pytest.mark.parametrize("name", list(ENTRY_COUNTS))
+def test_bitstable_entry_is_one_kernel_and_no_readback(device, name):
+    """One call of each BitStable entry on a CUDA BitStable: no readback (a
+    synchronising call raises in the sync debug mode) and, in a profiler
+    trace, one fixpoint_kernel launch and no other kernel (no stack, copy
+    or fill).  Traces on the card may drop launches, so an empty trace is
+    taken again, up to 3 times."""
+    import chip_smoke
+
+    bst = _layout(_stable_inputs(device), "make")
+    getattr(stable_cuda, name)(bst)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        getattr(stable_cuda, name)(bst)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for _ in range(3):
+        kernels = {e.key: e.count for e in chip_smoke._trace(
+            lambda: getattr(stable_cuda, name)(bst), 1)}
+        if kernels:
+            break
+    assert len(kernels) == 1 and "fixpoint_kernel" in next(iter(kernels)), kernels
+    assert list(kernels.values()) == [1], kernels
+
+
+def test_fixpoint_kernels_never_spill(device):
+    """ptxas gives kernels B and C their registers without spills (the board
+    twice, about 168 a thread), and the runtime finds no local memory and
+    at least 3 resident blocks of 4 warps an SM for both."""
+    import chip_smoke
+    from lifeapi_tpu_torch.ops import _build
+
+    report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    fix = {name: (regs, spill) for name, regs, spill in report
+           if name.startswith("fixpoint_kernel")}
+    assert sorted(fix) == ["fixpoint_kernel<0>", "fixpoint_kernel<1>"], fix
+    assert all(spill == 0 for _, spill in fix.values()), fix
+    for priorities in (False, True):
+        blocks, regs, local = stable_cuda.fixpoint_kernel_info(priorities)
+        assert blocks >= 3 and local == 0, (priorities, blocks, regs, local)
+
+
+def test_bitstable_entries_reject_bad_planes(device):
+    bst = _layout(_stable_inputs(device)[:8], "make")
+    with pytest.raises(TypeError):
+        stable_cuda.propagate_fused(bst._replace(state=bst.state.to(torch.int32)))
+    with pytest.raises(ValueError):
+        stable_cuda.propagate_fused_inkernel(bst._replace(unknown=bst.unknown[:4]))
+    with pytest.raises(ValueError):
+        stable_cuda.propagate_fused_beam(bst._replace(unknown=bst.unknown.cpu()))
+
+
 @pytest.mark.parametrize("frontier,iters,minimise", [(2, 10, True), (4, 24, True),
                                                      (8, 12, True), (8, 12, False),
                                                      (16, 6, True)])

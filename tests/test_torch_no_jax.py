@@ -9,6 +9,8 @@ import pytest
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "lifeapi_tpu_torch"
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
+# the port's scripts at the root of the repo
+ROOT_SCRIPTS = ["chip_smoke", "device_times"]
 
 
 def _module(path):
@@ -16,7 +18,7 @@ def _module(path):
 
 
 def test_every_module_imports_with_jax_blocked():
-    mods = [_module(p) for p in SOURCES] + ["chip_smoke"]
+    mods = [_module(p) for p in SOURCES] + ROOT_SCRIPTS
     code = "\n".join([
         "import importlib, sys",
         "sys.modules['jax'] = None",
@@ -31,7 +33,7 @@ def test_every_module_imports_with_jax_blocked():
     assert proc.returncode == 0, proc.stderr
 
 
-@pytest.mark.parametrize("path", SOURCES + ["chip_smoke.py"])
+@pytest.mark.parametrize("path", SOURCES + [f"{m}.py" for m in ROOT_SCRIPTS])
 def test_source_names_no_jax(path):
     text = (ROOT / path).read_text()
     for word in ("import jax", "from jax", "import lifeapi_tpu\n", "from lifeapi_tpu ",

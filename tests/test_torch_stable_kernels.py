@@ -168,3 +168,30 @@ def test_entry_plain_versions_on_cpu(rng):
     assert torch.equal(BP.to_planes(res.stable), BP.to_planes(plain.stable))
     assert all(torch.equal(a, b) for a, b in zip(lv, plv))
     assert stable_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("entry", ["propagate_fused", "propagate_fused_inkernel",
+                                   "propagate_fused_beam"])
+def test_bitstable_entries_on_views_and_a_2d_batch_match_pallas(rng, entry):
+    """The three ``BitStable`` entries on CPU tensors, given the planes as
+    strided views of one ``int64[2, 5, 10, 64]`` (the layout the card reads
+    in place at stride 640) with a 2-D batch, against JAX's interpret-mode
+    entry on the same 10 boards, lone-cell contradictions included; the
+    levels of [9] on every board."""
+    jbst = _with_lone_cells(_instances(rng))
+    expect = getattr(SP, entry)(jbst, batch_tile=10, interpret=True)
+    views = BP.from_planes(_planes(jbst).reshape(2, 5, BP.N_PLANES, 64))
+    assert views.state.stride() == (5 * 640, 640, 1)
+    got = getattr(stable_cuda, entry)(views)
+    (expect, jlevels), (got, levels) = ((expect, got) if entry == "propagate_fused_beam"
+                                        else ((expect, ()), (got, ())))
+    assert got.consistent.shape == got.changed.shape == (2, 5)
+    _same_planes(SP._to_kernel_planes(expect.stable),
+                 BP.to_planes(got.stable).reshape(10, BP.N_PLANES, 64))
+    assert (np.asarray(expect.consistent) == got.consistent.reshape(10).numpy()).all()
+    assert (np.asarray(expect.changed) == got.changed.reshape(10).numpy()).all()
+    assert not got.consistent[1, -2:].any() and got.consistent.any()
+    for want, lvl in zip(jlevels, levels):
+        assert lvl.shape == (2, 5, 64)
+        assert (np.asarray(want) == convert.board_to_packed(lvl.reshape(10, 64))).all()
+    assert len(levels) == (4 if entry == "propagate_fused_beam" else 0)
