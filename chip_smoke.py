@@ -33,11 +33,12 @@ Phases, each printing what it saw:
    counters set to 0 just before: the catalyst search over the offsets
    ``candidate_offsets`` keeps (4025; 195 interacted, 3845 recovered, 15
    hits) and over every orientation of the eater, interaction offsets of
-   1024 7-cell pairs by the peel and by the dense counts, the convolve,
-   counts and match routes at B=4096, the 16-transform orbit sweep and the
-   calibration in both mixes; then the known answers, the routes against
-   one another (dense counts = peel at 13 planes, single-prime = dense
-   mod 193) and each kernel against its twin;
+   1024 7-cell pairs by the union peel and by the dense counts, the
+   convolve, counts and match routes at B=4096, the 16-transform orbit
+   sweep and the calibration in both mixes; then the known answers, the
+   routes against one another (dense counts = peel at 13 planes,
+   single-prime = dense mod 193) and each kernel against its twin (the
+   union peel on the 1024 pairs' masks and on the glider and eater's);
 6. the weld / dense-stable path ([weld]), with every counter set to 0 just
    before: the Bellman pipeline (catalyst search, weld, reaction replay,
    host DFS, the batched beam of all 15 recovering placements, their
@@ -51,15 +52,16 @@ Phases, each printing what it saw:
 7. timings on the card (CUDA events, medians after a warm-up; device
    times from torch.profiler traces, the mean of the launches each holds,
    with the SM clock read under the same load),
-   the calibrated word-op ceilings, every kernel's bound (the rollout and
-   solver kernels' from the SASS of the library just built), and the NTT
-   kernels' tensor-core instructions (HMMA) in that SASS.
+   the calibrated word-op ceilings, every kernel's bound (the rollout,
+   solver and peel kernels' from the SASS of the library just built), and
+   the NTT kernels' tensor-core instructions (HMMA) in that SASS.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
 CUDA, or when any check fails, the script exits non-zero.
 """
 
+import collections
 import itertools
 import json
 import re
@@ -97,6 +99,8 @@ CALIBRATE_SOURCE = "lifeapi_tpu_torch/csrc/life_calibrate.cu"
 CONV_REPLACES = {
     "convolve_sparse_fused": "lifeapi_tpu/ops/conv_sparse_pallas.py:179",
     "counts_sparse_fused": "lifeapi_tpu/ops/conv_sparse_pallas.py:206",
+    # union_interacting(method="sparse"): [11] over the stacked pairs
+    "union_sparse_fused": "lifeapi_tpu/core/convolve.py:625",
     "conv_counts_fused": "lifeapi_tpu/ops/conv_pallas.py:334",
     "conv_small_fused": "lifeapi_tpu/ops/conv_pallas.py:180",
     "conv_small_packed": "lifeapi_tpu/ops/conv_pallas.py:281",
@@ -109,14 +113,14 @@ CALIB_ROWS, CALIB_ITERS = 16384, 2048
 # known answers of the [conv] path (the JAX package on the same inputs)
 CANDIDATES, PRUNED_COUNTS, IO_POP = 4025, (195, 3845, 15), 71
 ORIENTATION_HITS = [(0, 15), (2, 0), (13, 15), (4, 16), (15, 16), (6, 1), (8, 15), (9, 15)]
-# Bounds.  Device memory: 3.35e12 B/s (H100 SXM data sheet).  Word-ops (all
-# but the rollout kernels, below): the 64-bit integer operations a kernel
-# needs per word (one column of one board), counted by hand from its CUDA
-# source: a logic function of up to
-# three inputs counts once (one LOP3 per half-word), as do a shift, rotate,
-# add, shuffle, select or popcount; over the calibrated ceiling of the
-# matching mix, "rolls" for kernels that shuffle and "elemwise" for those
-# that do not (the dense counts take the NTT's FLOP instead, below).
+# Bounds.  Device memory: 3.35e12 B/s (H100 SXM data sheet).  Word-ops (the
+# calibration's bound, and the hand counts printed beside the SASS bounds of
+# the solver kernels): the 64-bit integer operations a kernel needs per word
+# (one column of one board), counted by hand from its CUDA source: a logic
+# function of up to three inputs counts once (one LOP3 per half-word), as do
+# a shift, rotate, add, shuffle, select or popcount; over the calibrated
+# ceiling of the matching mix, "rolls" for kernels that shuffle and
+# "elemwise" for those that do not.
 HBM_BYTES_PER_S = 3.35e12
 # The four rollout kernels (life_rollout.cu) are not held to hand counts: the
 # calibrated ceiling is the rate of the calibration's own instruction mix, and
@@ -135,8 +139,8 @@ ROLLOUT_KERNELS = {"rollout": ("rollout_kernel", 16),
                    "rollout_lohi": ("rollout_lohi_kernel", 16),
                    "controlled_rollout": ("controlled_kernel", 8),
                    "catalyst_rollout": ("catalyst_kernel", 16)}
-# Hand counts of life_stable.cu, kept for kernel A and printed beside the
-# SASS bounds of kernels B-D: stable_step: sync 26, two count9 46 (8
+# Hand counts of life_stable.cu, printed beside the SASS bounds of kernels
+# A-D: stable_step: sync 26, two count9 46 (8
 # shuffles and selects each), nibble sums 21, update 55, signal 53, two
 # hollow ZOIs 18, apply 19, the fixpoint's vote and copy-back 12
 STABLE_STEP_OPS = 250
@@ -154,10 +158,17 @@ STEP_SHUFFLES, PRIORITY_SHUFFLES = 48, 56
 SOLVER_KERNELS = {"propagate_fixpoint": "fixpoint_kernel<0>",
                   "propagate_fixpoint_priorities": "fixpoint_kernel<1>",
                   "beam_search": "beam_kernel<4>"}  # the bench's frontier
-# life_conv.cu peel(): ballot, shuffle of the word, clear, 2 shuffles + 2
-# selects of a, variable rotate 2, index arithmetic 1 (per word)
-PEEL_OPS = 8
-PEEL_OR_OPS, PEEL_COUNT_OPS = 1, 26  # OR into acc; ripple through 13 planes (AND, XOR)
+# The peel kernels ([11], [12] and the union, life_conv.cu) are held to the
+# SASS of their round loop: a round rotates the lane's two columns by the
+# cell's row with four funnel shifts (SHF.L.W), so a loop's rounds are its
+# funnel shifts over 4, and a round's instructions are those of the
+# unrolled loop over its rounds; times the cells peeled, over the issue
+# peak.  Kernel A ([5], life_stable.cu step_kernel) is one straight-line
+# step a board: the basic block of the step's 48 shuffles.
+FUNNEL_SHIFTS_PER_ROUND = 4
+PEEL_KERNELS = {"convolve_sparse_fused": "conv_sparse_kernel",
+                "counts_sparse_fused": "counts_sparse_kernel",
+                "union_sparse_fused": "union_sparse_kernel"}
 # The dense counts ([13]-[15]) are bounded by the work the function needs,
 # not by [15]'s bit-parallel loop: the NTT of the TPU kernels
 # (conv_pallas.py) as bf16 matmuls (residues <= 256 are exact in bf16) at the
@@ -182,12 +193,17 @@ MOD_INSTRUCTIONS = 6
 # controlled rollout as 8 boards a block reading its toggles from device
 # memory; kernels B and C as one warp a board at 167 registers with the
 # BitStable entries stacking the planes first: the whole call for [6] and
-# [9]), on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6; [2] and
-# [6]-[9] by device_times.py on the parent tree), printed beside this run's.
+# [9]; the peel [11] and [12] one cell a round, each round waiting on the
+# last, and the union as [11] over the stacked pairs with the stack,
+# population, where and OR kernels around it, the whole call), on an NVIDIA
+# H100 80GB HBM3 at 700 W (PERF.md section 6; [2], [6]-[9], [11], [12] and
+# the union by device_times.py on the parent tree), printed beside this
+# run's.
 DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484,
                     "controlled_rollout": 0.0107, "propagate_fused": 0.0396,
                     "propagate_fixpoint": 0.0244, "propagate_fixpoint_priorities": 0.0332,
-                    "propagate_fused_beam": 0.0476}
+                    "propagate_fused_beam": 0.0476, "convolve_sparse_fused": 0.0046,
+                    "counts_sparse_fused": 0.0108, "union_sparse_fused": 0.1835}
 # profiler traces of one device time taken before a run of traces that each
 # miss half of a kernel's launches fails the run
 PROFILE_TRIES = 5
@@ -196,9 +212,9 @@ PROFILE_TRIES = 5
 ENTRY_COUNTERS = {"propagate_fused": "propagate_fused",
                   "propagate_fused_inkernel": "propagate_fixpoint",
                   "propagate_fused_beam": "propagate_fused_beam"}
-# input copies the L2-rotated device times of [6]-[9] cycle through: 4 x 21
-# MB of planes, more than the H100's 50 MB of L2
-L2_ROTATION = 4
+# bytes the L2-rotated device times ([5]-[9], [11], [12], the union and
+# torch.bitwise_or beside [11]) cycle through: twice the H100's 50 MB of L2
+L2_ROTATED_BYTES = 100_000_000
 
 # the solver's bench shapes (bench.py): beam, queued beam, fixpoint
 BEAM_B, BEAM_F, BEAM_ITERS = 8192, 4, 24
@@ -373,6 +389,28 @@ def library_sass(lib_path):
     listing = subprocess.run([str(cuobjdump), "-sass", str(lib_path)], check=True,
                              capture_output=True, text=True, timeout=300).stdout
     return sass_functions(listing)
+
+
+def round_instructions(code):
+    """Warp instructions per round of the peel's round loop: of the loops
+    that hold funnel shifts but no other such loop, the one with the most
+    rounds (the unrolled body, not its remainder), its instructions over
+    its rounds."""
+    funnel = [(sum(op.startswith("SHF.L.W") for a, op, _ in code if first <= a <= last),
+               n, first, last) for _, n, first, last in loops(code)]
+    funnel = [lp for lp in funnel if lp[0]]
+    inner = [(shifts // FUNNEL_SHIFTS_PER_ROUND, n) for shifts, n, first, last in funnel
+             if shifts % FUNNEL_SHIFTS_PER_ROUND == 0
+             and not any(first <= o[2] and o[3] <= last and (o[2], o[3]) != (first, last)
+                         for o in funnel)]
+    check(inner, "no peel round loop in the SASS")
+    rounds, n = max(inner)
+    return n / rounds
+
+
+def peel_sass_counts(funcs):
+    """Warp instructions per round of each peel kernel's round loop."""
+    return {name: round_instructions(funcs[fn]) for name, fn in PEEL_KERNELS.items()}
 
 
 def rollout_sass_counts(funcs):
@@ -676,6 +714,20 @@ def _trace(fn, n):
     return [e for e in prof.key_averages() if e.device_time_total > 0]
 
 
+def operator_device_ms(fn, n=20):
+    """Mean device milliseconds of the one kernel fn launches (a PyTorch
+    operator, which has no launch counter), from a torch.profiler trace; a
+    trace that holds another kernel or under half the launches is taken
+    again."""
+    for _ in range(PROFILE_TRIES):
+        events = _trace(fn, n)
+        if len(events) == 1 and 2 * events[0].count >= n:
+            return events[0].device_time_total / events[0].count / 1e3
+        print(f"[time] a trace of {n} calls of one operator held "
+              f"{[(e.key[:60], e.count) for e in events]}; taken again")
+    check(False, f"no usable trace of one operator in {PROFILE_TRIES}")
+
+
 def sm_clock_under(fn, seconds=5.0):
     """The SM clock in MHz (nvidia-smi) read while fn runs on the card, call
     after call."""
@@ -693,6 +745,33 @@ def sm_clock_under(fn, seconds=5.0):
             proc.kill()
             proc.wait()
     return out.split()[0]
+
+
+def rotation_copies(nbytes):
+    """Copies of a call's inputs and outputs, nbytes a call, that together
+    pass L2_ROTATED_BYTES."""
+    return max(2, -(-L2_ROTATED_BYTES // nbytes))
+
+
+def rotating_call(fn, inputs):
+    """A call of fn(*args) whose args are the next of ``inputs`` (argument
+    tuples) in turn, and whose result is kept until len(inputs) calls later:
+    with copies that together pass the L2 (rotation_copies), neither what a
+    call reads nor what it writes is still in the L2 from the call before."""
+    turn = itertools.cycle(inputs)
+    kept = collections.deque(maxlen=len(inputs))
+    return lambda: kept.append(fn(*next(turn)))
+
+
+def peel_bytes(n_pairs):
+    """Bytes a call of each peel kernel moves at the [conv] shapes, each
+    input read once and each output written once: [11] two boards in and one
+    out a pair, [12] two in and 13 planes out, the union n_pairs pairs in and
+    one board out a query."""
+    board = 512
+    return {"convolve_sparse_fused": 3 * CONV_B * board,
+            "counts_sparse_fused": (2 + 13) * CONV_B * board,
+            "union_sparse_fused": (2 * n_pairs + 1) * IO_B * board}
 
 
 def device_ms_at(fn, kernel, counter, n=20, whole_call=False):
@@ -964,31 +1043,32 @@ def stable_timings(inputs, ms, plain_ms, dev_ms, card):
     print(f"[time] propagate_fused against propagate_fused_inkernel, B={FIX_B}, medians "
           f"of 10 calls each in turns: {fused_ms:.4f} ms and {inkernel_ms:.4f} ms "
           f"({fused_ms / inkernel_ms:.3g}x)")
-    # [6]-[9] again with each call's input one of L2_ROTATION copies in
-    # turn, which the L2 cannot hold from one call to the next
-    for name, fn, x in (("propagate_fused", SC.propagate_fused, fix_bst),
-                        ("propagate_fixpoint", SC.propagate_fixpoint, fix_planes),
-                        ("propagate_fixpoint_priorities", SC.propagate_fixpoint_priorities,
-                         fix_planes),
-                        ("propagate_fused_beam", SC.propagate_fused_beam, fix_bst)):
-        copies = itertools.cycle([
-            x.clone() if isinstance(x, torch.Tensor) else
-            BP.BitStable(x.state.clone(), x.unknown.clone(), tuple(r.clone() for r in x.ruled))
-            for _ in range(L2_ROTATION)])
-        rotated = profiled_device_ms(lambda: fn(next(copies)), "fixpoint_kernel", name,
-                                     whole_call=name in ENTRY_COUNTERS)
+    # [5]-[9] again with each call's inputs and outputs one of copies that
+    # together pass the L2 (one call moves 42-50 MB, under its 50 MB)
+    for name, x in (("propagate_step", fix_planes), ("propagate_fused", fix_bst),
+                    ("propagate_fixpoint", fix_planes),
+                    ("propagate_fixpoint_priorities", fix_planes),
+                    ("propagate_fused_beam", fix_bst)):
+        nbytes = step_bytes() if name == "propagate_step" else fixpoint_bytes(name)
+        copies = [(x.clone() if isinstance(x, torch.Tensor) else
+                   BP.BitStable(x.state.clone(), x.unknown.clone(),
+                                tuple(r.clone() for r in x.ruled)),)
+                  for _ in range(rotation_copies(nbytes))]
+        rotated = profiled_device_ms(
+            rotating_call(getattr(SC, name), copies),
+            "step_kernel" if name == "propagate_step" else "fixpoint_kernel", name,
+            whole_call=name in ENTRY_COUNTERS)
         first = dev_ms[name][0]
-        by_bytes = fixpoint_bytes(name) / HBM_BYTES_PER_S * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         print(f"[time] {name} B={FIX_B}: {first:.4f} ms on the device on one input "
-              f"({first / by_bytes:.3g}x its bytes bound, {by_bytes:.4f} ms"
-              f"{'; under 1.1x' if first < 1.1 * by_bytes else ''}), {rotated:.4f} ms "
-              f"({rotated / by_bytes:.3g}x) with the input rotated over {L2_ROTATION} copies "
-              f"({L2_ROTATION * FIX_B * 10 * 512 / 1e6:.0f} MB of planes)")
+              f"({first / by_bytes:.3g}x its bytes bound, {by_bytes:.4f} ms), {rotated:.4f} ms "
+              f"({rotated / by_bytes:.3g}x) with inputs and outputs rotated over "
+              f"{len(copies)} copies ({len(copies) * nbytes / 1e6:.0f} MB)")
 
     beam_call = lambda: C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS,
                                                dense=False)
     beam_s = wall(beam_call, 5)
-    busy = (profiled_device_ms(beam_call, "beam_kernel", "beam_search", n=5, whole_call=True)
+    busy = (profiled_device_ms(beam_call, "beam_kernel", "beam_search", n=20, whole_call=True)
             / (wall(beam_call, 5) * 1e3))
     queued_s = wall(lambda: C.complete_stable_beam_queued(
         queue_bst, chunk=BEAM_B, frontier=BEAM_F, iters=BEAM_ITERS), 3)
@@ -1144,6 +1224,12 @@ def conv_phase(dev):
     check(torch.equal(conv_host, CV.convolve(x.p01, x.pattern7.expand(CONV_B, 64),
                                              method="sparse")),
           "convolve: host shift-OR != peel kernel")
+    x.io_pairs = CV.interaction_pairs(x.io_a, x.io_b)
+    conv_vs_plain(CC, "union_sparse_fused", (x.io_pairs,), {}, err)
+    union_pair = conv_vs_plain(CC, "union_sparse_fused", (CV.interaction_pairs(glider, eater),),
+                               {}, err)
+    check(int(B.population(union_pair)) == IO_POP and torch.equal(union_pair, io_pair),
+          "union peel on the glider and eater's masks: not the 71 offsets")
 
     # the routes against one another: two independent exact algorithms
     exact = CC.conv_counts_fused(x.dense_a, x.dense_b)
@@ -1171,8 +1257,9 @@ def conv_phase(dev):
           "convolve (packed single-prime) != dense route")
     check(torch.equal(orbit_keys[:256].cpu(), orbit_sweep(x.orbit_boards[:256].cpu())),
           "orbit sweep: card != CPU on 256 boards")
-    print(f"[conv] interaction_offsets B={IO_B}: sparse == dense route, glider/eater pop "
-          f"{IO_POP}; [13] == [12] at 13 planes on {CONV_B} p=0.5 pairs (max count "
+    print(f"[conv] interaction_offsets B={IO_B}: sparse (union peel) == dense route, "
+          f"union peel == its plain version on the {IO_B} pairs' 7 mask pairs, glider/eater "
+          f"pop {IO_POP} by both; [13] == [12] at 13 planes on {CONV_B} p=0.5 pairs (max count "
           f"{int(exact.max())}); [14] == [13] % 193, [15] == ([13] % 193) != 0; "
           f"host shift-OR == peel; correlate/match/convolve == dense routes")
 
@@ -1425,9 +1512,9 @@ def weld_timings(r, ms, plain_ms, dev_ms, card):
         lambda: step_cuda.rollout_lohi_plain(lo, hi, HEADLINE_T), reps=5)
     boards = step_cuda.from_kernel_layout(lo, hi)
     dev_ms["rollout_lohi"] = device_ms_at(lambda: step_cuda.rollout_lohi(lo, hi, HEADLINE_T),
-                                          "rollout_lohi_kernel", "rollout_lohi", n=5)
+                                          "rollout_lohi_kernel", "rollout_lohi", n=20)
     dev_ms["rollout"] = device_ms_at(lambda: step_cuda.rollout(boards, HEADLINE_T),
-                                     "rollout_kernel", "rollout", n=5)
+                                     "rollout_kernel", "rollout", n=20)
     (d, mhz), (d_1, mhz_1) = dev_ms["rollout_lohi"], dev_ms["rollout"]
     print(f"[time] card: {card}")
     print(f"[time] rollout_lohi B={HEADLINE_B} T={HEADLINE_T}: kernel "
@@ -1501,11 +1588,41 @@ def fft_packed_mask(a, b):
     return B.from_dense(fft_counts(B.to_dense(a), B.to_dense(b)) % 193 != 0)
 
 
+def fft_mask(a, b):
+    """The library yardstick of [11]: the torch.fft counts of the boards'
+    cells, > 0, packed (timed only; the port never calls it)."""
+    from lifeapi_tpu_torch.core import board as B
+
+    return B.from_dense(fft_counts(B.to_dense(a), B.to_dense(b)) > 0)
+
+
+def fft_planes(a, b, n_planes=13):
+    """The library yardstick of [12]: the torch.fft counts as n_planes
+    packed bit planes (timed only)."""
+    from lifeapi_tpu_torch.core import board as B
+
+    counts = fft_counts(B.to_dense(a), B.to_dense(b)).to(torch.int64)
+    return [B.from_dense((counts >> i) & 1 != 0) for i in range(n_planes)]
+
+
+def fft_union(pairs):
+    """The library yardstick of the union peel: the torch.fft counts of the
+    stacked pairs, > 0 on any pair, packed (timed only)."""
+    from lifeapi_tpu_torch.core import board as B
+
+    lefts = B.to_dense(torch.stack(torch.broadcast_tensors(*[l for l, _ in pairs])))
+    rights = B.to_dense(torch.stack(torch.broadcast_tensors(*[r for _, r in pairs])))
+    return B.from_dense((fft_counts(lefts, rights) > 0).any(dim=0))
+
+
 def conv_timings(x, ms, plain_ms, lib_ms, dev_ms, card):
     """Each conv kernel against its twin at the path's shapes, in turns, its
-    device time, the FFT yardstick, the calibration ceilings, the path's
-    end-to-end rates and the routing probes' host cost.  Returns the
-    ceilings (word-ops/s by mix)."""
+    device time, the FFT yardstick, torch.bitwise_or on [11]'s operands
+    (``x.or_floor_ms``), the peels' and bitwise_or's device times with
+    inputs and outputs rotated past the L2 (``x.rotated_ms``,
+    ``x.or_floor_rotated_ms``), the calibration ceilings, the path's end-to-end
+    rates and the routing probes' host cost.  Returns the ceilings
+    (word-ops/s by mix)."""
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.core import convolve as CV
@@ -1517,6 +1634,7 @@ def conv_timings(x, ms, plain_ms, lib_ms, dev_ms, card):
     cases = {
         "convolve_sparse_fused": ((x.tr_a, x.tr_b), {}, 10),
         "counts_sparse_fused": ((x.a, x.tr_b), dict(n_planes=13), 10),
+        "union_sparse_fused": ((x.io_pairs,), {}, 10),
         "conv_counts_fused": ((x.dense_a, x.dense_b), {}, 5),
         "conv_small_fused": (corr_in, dict(out_or=False), 5),
         "conv_small_packed": ((x.a, x.mid_b), {}, 5),
@@ -1527,11 +1645,38 @@ def conv_timings(x, ms, plain_ms, lib_ms, dev_ms, card):
             lambda: getattr(CC, f"{name}_plain")(*args, **kw), reps=reps)
     kernel_names = {"convolve_sparse_fused": "conv_sparse_kernel",
                     "counts_sparse_fused": "counts_sparse_kernel",
+                    "union_sparse_fused": "union_sparse_kernel",
                     "conv_counts_fused": NTT_KERNEL, "conv_small_fused": NTT_KERNEL,
                     "conv_small_packed": NTT_KERNEL}
     dev_ms.update({name: device_ms_at(lambda: getattr(CC, name)(*args, **kw),
                                       kernel_names[name], name)
                    for name, (args, kw, _) in cases.items()})
+    or_out = torch.empty_like(x.tr_a)
+    x.or_floor_ms = operator_device_ms(lambda: torch.bitwise_or(x.tr_a, x.tr_b, out=or_out))
+    # the same again from device memory: inputs and outputs rotated past the L2
+    nbytes = peel_bytes(len(x.io_pairs))
+    copies = {name: rotation_copies(n) for name, n in nbytes.items()}
+    rotated = {
+        "convolve_sparse_fused": (CC.convolve_sparse_fused,
+                                  [(x.tr_a.clone(), x.tr_b.clone())
+                                   for _ in range(copies["convolve_sparse_fused"])]),
+        "counts_sparse_fused": (lambda a, b: CC.counts_sparse_fused(a, b, n_planes=13),
+                                [(x.a.clone(), x.tr_b.clone())
+                                 for _ in range(copies["counts_sparse_fused"])]),
+        "union_sparse_fused": (CC.union_sparse_fused,
+                               [(CV.interaction_pairs(x.io_a.clone(), x.io_b.clone()),)
+                                for _ in range(copies["union_sparse_fused"])]),
+    }
+    x.rotated_ms = {name: (profiled_device_ms(rotating_call(fn, inputs), kernel_names[name],
+                                              name), len(inputs), len(inputs) * nbytes[name])
+                    for name, (fn, inputs) in rotated.items()}
+    or_inputs = [(x.tr_a.clone(), x.tr_b.clone(), torch.empty_like(x.tr_a))
+                 for _ in range(copies["convolve_sparse_fused"])]
+    x.or_floor_rotated_ms = operator_device_ms(rotating_call(
+        lambda a, b, out: torch.bitwise_or(a, b, out=out), or_inputs))
+    lib_ms["convolve_sparse_fused"] = event_ms(lambda: fft_mask(x.tr_a, x.tr_b), 5)
+    lib_ms["counts_sparse_fused"] = event_ms(lambda: fft_planes(x.a, x.tr_b), 5)
+    lib_ms["union_sparse_fused"] = event_ms(lambda: fft_union(x.io_pairs), 5)
     lib_ms["conv_counts_fused"] = event_ms(lambda: fft_counts(x.dense_a, x.dense_b), 5)
     lib_ms["conv_small_fused"] = event_ms(lambda: fft_counts(*corr_in), 5)
     lib_ms["conv_small_packed"] = event_ms(lambda: fft_packed_mask(x.a, x.mid_b), 5)
@@ -1545,14 +1690,22 @@ def conv_timings(x, ms, plain_ms, lib_ms, dev_ms, card):
                 lambda: CAL.calibrate_plain(*x.calib, CALIB_ITERS, mix), 1)
             dev_ms["calibrate"] = device_ms_at(
                 lambda: CAL.calibrate(*x.calib, CALIB_ITERS, mix), "calibrate_kernel",
-                "calibrate", n=5)
+                "calibrate", n=20)
     print(f"[time] card: {card}")
     for name, (args, _, _) in cases.items():
         lib = f", torch.fft yardstick {lib_ms[name]:.4f} ms" if name in lib_ms else ""
         d, mhz = dev_ms[name]
-        print(f"[time] {name} B={args[0].shape[0]}: kernel {ms[name]:.4f} ms a call "
+        batch = len(args[0]) if name != "union_sparse_fused" else f"{IO_B} x 7 pairs"
+        print(f"[time] {name} B={batch}: kernel {ms[name]:.4f} ms a call "
               f"({d:.4f} ms of it on the device, profiler, SM clock {mhz} MHz), plain "
               f"{plain_ms[name]:.4f} ms{lib}{before_redesign(name, d)}")
+    print(f"[time] torch.bitwise_or on convolve_sparse_fused's {CONV_B} pairs (the same "
+          f"bytes, no work): {x.or_floor_ms:.4f} ms on the device, profiler; "
+          f"{x.or_floor_rotated_ms:.4f} ms with inputs and outputs rotated past the L2")
+    for name, (d, n, total) in x.rotated_ms.items():
+        print(f"[time] {name}: {d:.4f} ms on the device with inputs and outputs rotated "
+              f"over {n} copies ({total / 1e6:.0f} MB), against {dev_ms[name][0]:.4f} ms on "
+              f"one set")
     for mix, rate in ceilings.items():
         print(f"[time] calibrate {mix}, {CALIB_ROWS} rows x {CALIB_ITERS} iterations: "
               f"{rate:.6g} 64-bit word-ops/s")
@@ -1647,6 +1800,12 @@ def solver_work(stable_inputs):
     return fix_steps, work["board_steps"], work["priority_boards"]
 
 
+def step_bytes():
+    """The bytes kernel A ([5]) must move on the FIX_B fixpoint boards: 10
+    planes in and out, and the changed and abort boards out."""
+    return FIX_B * (2 * 10 * 512 + 2 * 512)
+
+
 def fixpoint_bytes(name):
     """The bytes kernel B ([6], [7]) or C ([8], [9]) must move on the
     FIX_B fixpoint boards: 10 planes in and out, two flags, and C's 4
@@ -1660,11 +1819,12 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     """bound_ms and bound_by of every kernel at the shapes timed above: the
     larger of its bytes (each input read once, each output written once)
     over the memory rate and its operations over the card's rate for them:
-    the rollout and solver kernels' SASS over the issue peak, kernel A's,
-    the peel's and the calibration's word-ops over the calibrated ceiling of
-    their mix, the dense counts' NTT FLOP over the bf16 tensor-core peak.
-    Data-dependent work is what this run's inputs need: the fixpoint steps
-    and priorities of solver_work, the cells the peel takes."""
+    the rollout, solver and peel kernels' SASS over the issue peak, the
+    calibration's word-ops over its calibrated ceiling, the dense counts'
+    NTT FLOP over the bf16 tensor-core peak.  Data-dependent work is what
+    this run's inputs need: the fixpoint steps and priorities of
+    solver_work, the cells each peel takes (the union: the smaller side of
+    each pair)."""
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
     from lifeapi_tpu_torch.stable import bitplane as BP
@@ -1679,10 +1839,15 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     funcs = library_sass(lib_path)
     sass = rollout_sass_counts(funcs)
     solver = solver_sass_counts(funcs)
+    peel = peel_sass_counts(funcs)
+    step_a = block_instructions(funcs["step_kernel"], STEP_SHUFFLES)
     issue, sms, mhz = issue_peak()
     print(f"[bound] issue peak {issue:.6g} warp instructions/s ({sms} SMs x "
           f"{SCHEDULERS_PER_SM} schedulers x {mhz:g} MHz); SASS warp instructions per "
           f"board-generation: " + ", ".join(f"{k} {v:g}" for k, v in sass.items()))
+    print(f"[bound] SASS of step_kernel (propagate_step): {step_a} warp instructions a "
+          f"board (the step's block); of the peel's round loop, a cell: "
+          + ", ".join(f"{PEEL_KERNELS[k]} {v:g}" for k, v in peel.items()))
     for name, (step, prio) in solver.items():
         print(f"[bound] SASS of {SOLVER_KERNELS[name]} ({name}): {step:g} warp instructions "
               f"per board-step (fixpoint loop)"
@@ -1690,9 +1855,11 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     for name, (hmma, ldsm, frnd, n) in ntt_sass_counts(funcs).items():
         print(f"[bound] SASS of {name}: {hmma} HMMA (tensor cores), {ldsm} LDSM, "
               f"{frnd} FRND (one per mod reduction), {n} instructions")
-    # each board's peel ends with a round that finds its operand empty
-    peeled = int(B.population(x.tr_b).sum()) + CONV_B
+    peeled = int(B.population(x.tr_b).sum())
+    union_cells = sum(int(torch.minimum(B.population(l), B.population(r)).sum())
+                      for l, r in x.io_pairs)
     board, words, solver_board = 512, 64, BP.N_PLANES * 512  # bytes, words of one board
+    peel_moves = peel_bytes(len(x.io_pairs))
     step_ops = words * STABLE_STEP_OPS
     prio_ops = words * PRIORITY_OPS
     rates = {**ceilings, "bf16 tensor-core FLOP": BF16_FLOP_PER_S, "issue": issue}
@@ -1708,7 +1875,7 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
                                "issue"),
         "catalyst_rollout": (4 * 4096 * board + 64 * board + 4096,
                              4096 * 64 * sass["catalyst_rollout"], "issue"),
-        "propagate_step": (FIX_B * (2 * solver_board + 2 * board), FIX_B * step_ops, "rolls"),
+        "propagate_step": (step_bytes(), FIX_B * step_a, "issue"),
         # [6] is one launch of kernel B, so its work is B's
         "propagate_fused": (fixpoint_bytes("propagate_fused"),
                             fix_steps * solver["propagate_fixpoint"][0], "issue"),
@@ -1720,10 +1887,12 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
         "beam_search": (BEAM_B * (solver_board + board + 4 + 3),
                         beam_steps * solver["beam_search"][0]
                         + beam_prio * solver["beam_search"][1], "issue"),
-        "convolve_sparse_fused": (3 * CONV_B * board,
-                                  peeled * words * (PEEL_OPS + PEEL_OR_OPS), "rolls"),
-        "counts_sparse_fused": ((2 + 13) * CONV_B * board,
-                                peeled * words * (PEEL_OPS + PEEL_COUNT_OPS), "rolls"),
+        "convolve_sparse_fused": (peel_moves["convolve_sparse_fused"],
+                                  peeled * peel["convolve_sparse_fused"], "issue"),
+        "counts_sparse_fused": (peel_moves["counts_sparse_fused"],
+                                peeled * peel["counts_sparse_fused"], "issue"),
+        "union_sparse_fused": (peel_moves["union_sparse_fused"],
+                               union_cells * peel["union_sparse_fused"], "issue"),
         "conv_counts_fused": (CONV_B * 4096 * (1 + 1 + 4), CONV_B * 2 * NTT_FLOP_PER_PRIME,
                               "bf16 tensor-core FLOP"),
         "conv_small_fused": (CONV_B * 4096 * (1 + 1 + 4), CONV_B * NTT_FLOP_PER_PRIME,
@@ -1735,7 +1904,8 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
     }
     print(f"[bound] data-dependent work: fixpoint {fix_steps} board-steps over {FIX_B} "
           f"boards; beam {beam_steps} board-steps and {beam_prio} priority boards (ok "
-          f"slots) over {BEAM_B} problems; peel {peeled} rounds over {CONV_B} boards")
+          f"slots) over {BEAM_B} problems; peel {peeled} cells over {CONV_B} boards; union "
+          f"peel {union_cells} cells over {IO_B} queries")
     bounds = {}
     for name, (nbytes, ops, rate) in work.items():
         ops = int(ops)
@@ -1748,7 +1918,22 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]}; the kernel's call {ms[name]:.4f} ms is "
               f"{ms[name] / bounds[name][0]:.3g}x it{on_device(name, bounds[name][0])}")
-    hand = {"propagate_fixpoint": fix_steps * step_ops,
+    d_or, d_or_rot = x.or_floor_ms, x.or_floor_rotated_ms
+    by_bytes = peel_moves["convolve_sparse_fused"] / HBM_BYTES_PER_S * 1e3
+    print(f"[bound] convolve_sparse_fused beside torch.bitwise_or on its operands (the same "
+          f"bytes, no work): {d_or:.4f} ms on the device ({d_or / by_bytes:.3g}x the bytes "
+          f"bound), {d_or_rot:.4f} ms ({d_or_rot / by_bytes:.3g}x) rotated past the L2"
+          + (f"; the kernel's device time is {dev_ms['convolve_sparse_fused'][0] / d_or:.3g}x "
+             f"and {x.rotated_ms['convolve_sparse_fused'][0] / d_or_rot:.3g}x it"
+             if "convolve_sparse_fused" in dev_ms else ""))
+    for name, (rot, n, total) in x.rotated_ms.items():
+        by_bytes = peel_moves[name] / HBM_BYTES_PER_S * 1e3
+        first = dev_ms[name][0]
+        print(f"[bound] {name}: bytes bound {by_bytes:.4f} ms; on the device {first:.4f} ms "
+              f"({first / by_bytes:.3g}x) on one set of inputs, {rot:.4f} ms "
+              f"({rot / by_bytes:.3g}x) with inputs and outputs rotated over {n} copies "
+              f"({total / 1e6:.0f} MB, past the L2)")
+    hand = {"propagate_step": FIX_B * step_ops, "propagate_fixpoint": fix_steps * step_ops,
             "propagate_fixpoint_priorities": fix_steps * step_ops + FIX_B * prio_ops,
             "propagate_fused_beam": fix_steps * step_ops + FIX_B * prio_ops,
             "beam_search": beam_steps * step_ops + beam_prio * prio_ops}

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Device times of the port's rollout and fixpoint entries on one CUDA card,
-for one tree or several, so that two commits can be compared in one run.
+"""Device times of the port's rollout, fixpoint and peel entries on one CUDA
+card, for one tree or several, so that two commits can be compared in one
+run.
 
     python3 device_times.py [TREE ...]
 
@@ -14,10 +15,23 @@ holds, so a launch the trace missed does not read low.  The shapes are ``chip_sm
 generations (random toggles: the kernel's work does not depend on them),
 [3] on the glider and eater over the 4096 offsets of the full grid, [6]-[9]
 on the 4096 fixpoint boards ([6] and [9] through their BitStable entries,
-the whole call; [7] and [8] through the planes API).  Prints one JSON line a
-tree, then the card's name and power limit.
+the whole call; [7] and [8] through the planes API), [11] on 4096 and on
+65536 pairs of 7-cell boards (beside ``torch.bitwise_or`` on the same
+tensors, which moves the same bytes and does no work: the floor of any
+kernel of those bytes), [12] on the p=0.5 boards against a 7-cell operand
+at 13 planes, and ``union_interacting(method="sparse")`` on the seven mask
+pairs of ``interaction_offsets`` over 1024 7-cell pairs (the whole call);
+and [11] and ``bitwise_or`` at 4096, [12] and the union again (``_l2``) with
+each call's inputs and outputs one of copies that together pass 100 MB, so
+that they come from device memory and not from the 50 MB L2.  Each peel
+time has the SM clock read under it.  Prints one JSON line a
+tree; then, in one more process that loads every tree's package under a
+name of its own, the call times of that union and of
+``interaction_offsets(method="sparse")`` on the same pairs, the trees timed
+in turns; then the card's name and power limit.
 """
 
+import importlib.util
 import json
 import subprocess
 import sys
@@ -26,6 +40,92 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the peel at a batch where its bytes bound (100 MB, 0.030 ms) is above a
+# launch's fixed cost
+LARGE_B = 65536
+TURNS = 10
+
+
+def sparse_boards(n, k, rng, dev):
+    """n boards of k random cells in [20, 28)^2 each (chip_smoke's 7-cell
+    kind), made on the card from numpy-seeded cells."""
+    from lifeapi_tpu_torch.core import board as B
+
+    cells = torch.from_numpy(rng.integers(20, 28, (n, k, 2))).to(dev)
+    dense = torch.zeros((n, 64, 64), dtype=torch.bool, device=dev)
+    rows = torch.arange(n, device=dev)[:, None].expand(n, k)
+    dense[rows, cells[..., 0], cells[..., 1]] = True
+    return B.from_dense(dense)
+
+
+def interaction_pairs(CV, a, b):
+    """The seven mask pairs that ``CV.interaction_offsets`` (``CV``: a
+    ``core.convolve`` module) hands to ``union_interacting``: its
+    ``interaction_pairs``, or, in a tree that has none, the pairs caught by
+    swapping ``union_interacting`` for one call."""
+    if hasattr(CV, "interaction_pairs"):
+        return CV.interaction_pairs(a, b)
+    seen = {}
+    union = CV.union_interacting
+    CV.union_interacting = lambda pairs, method=None: seen.setdefault("pairs", pairs)
+    try:
+        CV.interaction_offsets(a, b, method="sparse")
+    finally:
+        CV.union_interacting = union
+    return seen["pairs"]
+
+
+def peel_cases(S, dev):
+    """{name: (call, kernel pattern, counter, calls a trace, whole call)} of
+    the peel entries, and {name: floor call} beside [11]."""
+    import numpy as np
+
+    from lifeapi_tpu_torch.core import convolve as CV
+    from lifeapi_tpu_torch.ops import conv_cuda as CC
+
+    x = S.ConvInputs(dev)
+    rng = np.random.default_rng(1)
+    big_a, big_b = sparse_boards(LARGE_B, 7, rng, dev), sparse_boards(LARGE_B, 7, rng, dev)
+    pairs = interaction_pairs(CV, x.io_a, x.io_b)
+    union = "union_sparse_fused" if "union_sparse_fused" in CC.LAUNCHES else "convolve_sparse_fused"
+    cases = {
+        "conv_sparse_4096": (lambda: CC.convolve_sparse_fused(x.tr_a, x.tr_b),
+                             "conv_sparse_kernel", "convolve_sparse_fused", 20, False),
+        f"conv_sparse_{LARGE_B}": (lambda: CC.convolve_sparse_fused(big_a, big_b),
+                                   "conv_sparse_kernel", "convolve_sparse_fused", 10, False),
+        "counts_sparse_4096_13": (lambda: CC.counts_sparse_fused(x.a, x.tr_b, n_planes=13),
+                                  "counts_sparse_kernel", "counts_sparse_fused", 20, False),
+        # the whole call: the parent's stack, where and OR kernels around [11]
+        "union_sparse_1024": (lambda: CV.union_interacting(pairs, method="sparse"),
+                              "conv_sparse_kernel|union_sparse_kernel", union, 20, True),
+    }
+    # the B = 4096 cases again from device memory: each call's inputs and
+    # outputs one of copies that together pass the L2
+    copies = {name: S.rotation_copies(n) for name, n in S.peel_bytes(len(pairs)).items()}
+    n11, n12, nu = (copies[k] for k in ("convolve_sparse_fused", "counts_sparse_fused",
+                                        "union_sparse_fused"))
+    cases["conv_sparse_4096_l2"] = (
+        S.rotating_call(CC.convolve_sparse_fused,
+                        [(x.tr_a.clone(), x.tr_b.clone()) for _ in range(n11)]),
+        "conv_sparse_kernel", "convolve_sparse_fused", 20, False)
+    cases["counts_sparse_4096_13_l2"] = (
+        S.rotating_call(lambda a, b: CC.counts_sparse_fused(a, b, n_planes=13),
+                        [(x.a.clone(), x.tr_b.clone()) for _ in range(n12)]),
+        "counts_sparse_kernel", "counts_sparse_fused", 20, False)
+    cases["union_sparse_1024_l2"] = (
+        S.rotating_call(lambda p: CV.union_interacting(p, method="sparse"),
+                        [(interaction_pairs(CV, x.io_a.clone(), x.io_b.clone()),)
+                         for _ in range(nu)]),
+        "conv_sparse_kernel|union_sparse_kernel", union, 20, True)
+    outs = {n: torch.empty_like(a) for n, a in (("4096", x.tr_a), (str(LARGE_B), big_a))}
+    floors = {
+        "bitwise_or_4096": lambda: torch.bitwise_or(x.tr_a, x.tr_b, out=outs["4096"]),
+        f"bitwise_or_{LARGE_B}": lambda: torch.bitwise_or(big_a, big_b, out=outs[str(LARGE_B)]),
+        "bitwise_or_4096_l2": S.rotating_call(
+            lambda a, b, out: torch.bitwise_or(a, b, out=out),
+            [(x.tr_a.clone(), x.tr_b.clone(), torch.empty_like(x.tr_a)) for _ in range(n11)]),
+    }
+    return cases, floors
 
 
 def measure(tree):
@@ -73,7 +173,61 @@ def measure(tree):
     out = {name: S.profiled_device_ms(fn, kernel, counter, n, whole)
            for name, (fn, kernel, counter, n, whole) in cases.items()}
     mhz = S.sm_clock_under(cases["rollout"][0])
-    return {"tree": str(tree), "device_ms": out, "sm_clock_mhz_under_rollout": mhz}
+    peels, floors = peel_cases(S, dev)
+    clocks = {}
+    for name, (fn, kernel, counter, n, whole) in peels.items():
+        out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
+    for name, fn in floors.items():
+        out[name], clocks[name] = S.operator_device_ms(fn), S.sm_clock_under(fn)
+    return {"tree": str(tree), "device_ms": out, "sm_clock_mhz_under_rollout": mhz,
+            "sm_clock_mhz": clocks}
+
+
+def load_tree(tree, k):
+    """The lifeapi_tpu_torch package of ``tree`` imported as ``tree<k>``, so
+    several trees' packages live in one process (the package imports itself
+    by relative imports only)."""
+    name = f"tree{k}"
+    init = Path(tree) / "lifeapi_tpu_torch" / "__init__.py"
+    spec = importlib.util.spec_from_file_location(name, init,
+                                                  submodule_search_locations=[str(init.parent)])
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[name] = module
+    spec.loader.exec_module(module)
+    return importlib.import_module(f"{name}.core.convolve")
+
+
+def call_turns(trees):
+    """Median CUDA-event milliseconds a call of union_interacting and of
+    interaction_offsets, method "sparse", on the 1024 io pairs, for each
+    tree, the trees timed in turns after one warm-up call each."""
+    import statistics
+
+    import chip_smoke as S
+
+    dev = torch.device("cuda")
+    x = S.ConvInputs(dev)
+    convs = [load_tree(tree, k) for k, tree in enumerate(trees)]
+    calls = {}
+    for k, CV in enumerate(convs):
+        pairs = interaction_pairs(CV, x.io_a, x.io_b)
+        calls[f"union_interacting {k}"] = lambda CV=CV, p=pairs: CV.union_interacting(
+            p, method="sparse")
+        calls[f"interaction_offsets {k}"] = lambda CV=CV: CV.interaction_offsets(
+            x.io_a, x.io_b, method="sparse")
+    samples = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(TURNS):
+        for name, fn in calls.items():
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            samples[name].append(start.elapsed_time(end))
+    return {"trees": [str(t) for t in trees],
+            "call_ms": {name: statistics.median(v) for name, v in samples.items()}}
 
 
 def main():
@@ -83,8 +237,14 @@ def main():
     if sys.argv[1:2] == ["--one"]:
         print(json.dumps(measure(Path(sys.argv[2]).resolve())))
         return 0
-    for tree in sys.argv[1:] or [ROOT]:
+    if sys.argv[1:2] == ["--turns"]:
+        print(json.dumps(call_turns([Path(t).resolve() for t in sys.argv[2:]])))
+        return 0
+    trees = sys.argv[1:] or [ROOT]
+    for tree in trees:
         subprocess.run([sys.executable, __file__, "--one", str(tree)], check=True)
+    distinct = list(dict.fromkeys(str(Path(t).resolve()) for t in trees))
+    subprocess.run([sys.executable, __file__, "--turns", *distinct], check=True)
     import chip_smoke
 
     print(chip_smoke.card_line())

@@ -272,9 +272,16 @@ def align_with(state, other):
 def interaction_offsets(a, b, method=None):
     """All translations of ``b`` that would interact with ``a`` (change the
     next generation of either), reference ``InteractionOffsets``
-    (LifeAPI.hpp:1066-1095): the union of the OR-convolutions of seven
-    pairs of neighbour-count classified masks (overlaps, birth pairs,
-    overcrowding).  ``method`` as :func:`union_interacting`."""
+    (LifeAPI.hpp:1066-1095): the union of the OR-convolutions of the seven
+    pairs of :func:`interaction_pairs`.  ``method`` as
+    :func:`union_interacting`."""
+    return union_interacting(interaction_pairs(a, b), method=method)
+
+
+def interaction_pairs(a, b):
+    """The seven (left, right) pairs of neighbour-count classified masks
+    (overlaps, birth pairs, overcrowding) whose OR-convolutions
+    :func:`interaction_offsets` unites."""
     from .step import neighbour_counts
 
     def masks(state):
@@ -290,7 +297,7 @@ def interaction_offsets(a, b, method=None):
     a1, a2, a3, a_ge1, a_ge2, a_ge4 = masks(a)
     b = mirrored(b)
     b1, b2, b3, b_ge1, b_ge2, b_ge4 = masks(b)
-    pairs = [
+    return [
         (a, b),
         (a1 & ~a, b2 & ~b),
         (b1 & ~b, a2 & ~a),
@@ -299,29 +306,22 @@ def interaction_offsets(a, b, method=None):
         (b3 & b, a_ge2 & ~a),
         (b_ge4 & b, a_ge1 & ~a),
     ]
-    return union_interacting(pairs, method=method)
 
 
 def union_interacting(pairs, method=None):
     """OR over (left, right) pairs of their OR-convolutions, the routing
-    engine of the interaction-offsets family.  ``method="sparse"``: one
-    peel-kernel call over the stacked pairs, each board peeling its smaller
-    side.  Default: unbatched masks of <= 48 cells take per-pair host
-    shift-ORs.  Otherwise one batched counts call over the stacked pairs,
-    routed by :func:`convolve_counts` with ``method`` (``"ntt_fused"``:
-    the dense counts kernel)."""
+    engine of the interaction-offsets family.  ``method="sparse"``: the
+    union peel (:func:`..ops.conv_cuda.union_sparse_fused`), one launch a
+    group of up to 8 pairs, each board peeling its smaller side.  Default:
+    unbatched masks of <= 48 cells take per-pair host shift-ORs.  Otherwise
+    one batched counts call over the stacked pairs, routed by
+    :func:`convolve_counts` with ``method`` (``"ntt_fused"``: the dense
+    counts kernel)."""
     if method == "sparse":
-        lefts = torch.stack(torch.broadcast_tensors(*[l for l, _ in pairs]))
-        rights = torch.stack(torch.broadcast_tensors(*[r for _, r in pairs]))
-        shape = torch.broadcast_shapes(lefts.shape, rights.shape)
-        lefts, rights = lefts.expand(shape), rights.expand(shape)
-        swap = (board_mod.population(lefts) < board_mod.population(rights))[..., None]
-        peel = torch.where(swap, lefts, rights)
-        other = torch.where(swap, rights, lefts)
-        conv = convolve_sparse_device(other, peel)
-        out = conv[0]
-        for c in conv[1:]:
-            out = out | c
+        out = None
+        for i in range(0, len(pairs), conv_cuda.MAX_PAIRS):
+            u = conv_cuda.union_sparse_fused(pairs[i:i + conv_cuda.MAX_PAIRS])
+            out = u if out is None else out | u
         return out
 
     def pair_sparse(left, right):

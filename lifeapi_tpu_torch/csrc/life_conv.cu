@@ -9,21 +9,10 @@
 //
 // Two kernel bodies:
 //  * The peel (replaces lifeapi_tpu/ops/conv_sparse_pallas.py
-//    conv_sparse_lohi and counts_sparse_lohi).  One warp per board, lane l
-//    holding columns l and l + 32 (warp_board.cuh).  Each round peels the
-//    first ON cell (x, y) of the runtime-sparse operand b: a ballot of the
-//    non-empty columns and __ffs give x, a shuffle of that word and
-//    __ffsll give y, the owning lane clears the bit.  Then a is translated
-//    by (x, y): output column X takes a's column (X - x) mod 64, two
-//    shuffles and a select on which register holds it, and each word
-//    rotates left by y.  The shifted copy is OR-ed into an accumulator or
-//    ripple-added into 13 counter planes.  Each warp loops until its own
-//    operand is empty; OR and addition commute, so the peel order cannot
-//    change the result.  Bound: shuffle and integer issue, about 6 shuffles
-//    and 20 (OR) or 72 (13 counter planes) 64-bit ops per lane per peeled
-//    cell; device memory sees each board once.  The TPU kernel loops per
-//    128-lane tile until its densest operand is empty; here a sparse board
-//    never waits on a dense one.
+//    conv_sparse_lohi and counts_sparse_lohi), and the union of the peels of
+//    up to 8 pairs (what lifeapi_tpu/core/convolve.py union_interacting
+//    computes with method="sparse", around conv_sparse_lohi): described
+//    where they are defined below.
 //  * The dense counts as a tensor-core NTT (replaces
 //    lifeapi_tpu/ops/conv_pallas.py conv_counts_fused, conv_small_fused and
 //    conv_small_packed): ntt_conv_kernel, described where it is defined
@@ -41,39 +30,192 @@ using warp_board::kFullMask;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
-constexpr int kMaxPlanes = 13;  // counts up to 8191; every count is <= 4096
 
-__device__ __forceinline__ u64 rotl(u64 x, int k) {  // k in [0, 64)
-  return (x << k) | (x >> ((64 - k) & 63));
+// ---------------------------------------------------------------------------
+// The peel (replaces conv_sparse_pallas.conv_sparse_lohi and
+// counts_sparse_lohi; and core/convolve.py union_interacting's stacked call)
+// ---------------------------------------------------------------------------
+//
+// out = the OR (or the count) of a translated by every ON cell (x, y) of the
+// runtime-sparse operand b: output column X takes a's column (X - x) mod 64
+// rotated left by y.  One warp a board, lane l holding columns l and l + 32
+// (warp_board.cuh) of each operand.
+//
+// The TPU kernel peels one cell a round: find the first ON cell, clear it,
+// translate, and loop until the densest operand of its tile is empty, each
+// round waiting on the last.  Here a warp first lists b's cells and then
+// runs the rounds, which no longer depend on one another:
+//  * listing: each lane counts its cells (__popcll), the warp takes an
+//    exclusive scan of the counts, and each lane writes its cells to the
+//    warp's list in shared memory at its offset, kChunk cells at a time, so
+//    that a dense b (up to 4096 cells) stays exact in a fixed budget;
+//  * staging: a's columns go to shared memory twice over (columns c and
+//    c + 64, so (X - x) mod 64 needs no wrap), and again with each word's
+//    halves swapped (a rotated by 32);
+//  * a round is a broadcast read of the cell's entry (the table offset of
+//    column -x, in the swapped table when y >= 32, and y), two conflict-free
+//    64-bit reads of the lane's two columns, four funnel shifts (the rotate
+//    by y mod 32) and the accumulation; kUnroll rounds run side by side.
+// Bound: device memory sees each board once (1 KB in, 512 B out a pair of
+// boards, or 13 counter planes out); a round costs about 11 warp
+// instructions a cell (OR; 36 with the 13 planes), five shared-memory
+// wavefronts among them, so at the bench's 7 cells a board the bytes bound
+// it.  The counts add the four copies of a step into the 13 planes at once,
+// first summed into 3 bits by carry-save adders.  Reading a's columns by
+// shuffles instead of the table measured 12-17% slower on an H100.
+
+constexpr int kMaxPlanes = 13;  // counts up to 8191; every count is <= 4096
+constexpr int kChunk = 64;      // cells a warp lists at a time
+constexpr int kUnroll = 4;      // rounds side by side: the accumulations take four
+constexpr int kMaxPairs = 8;    // pairs of the union
+
+struct PeelSmem {
+  u64 table[2][128];    // a's columns c mod 64; then the same, halves swapped
+  uint2 cells[kChunk];  // (byte offset of column -x in table, y)
+};
+
+__device__ __forceinline__ u64 rotl_mod32(u64 v, unsigned s) {  // by s mod 32
+  const unsigned lo = static_cast<unsigned>(v), hi = static_cast<unsigned>(v >> 32);
+  return (static_cast<u64>(__funnelshift_l(lo, hi, s)) << 32) | __funnelshift_l(hi, lo, s);
 }
 
-// Peel the first ON cell (lowest column x, then lowest row y) of the warp's
-// operand (r_lo, r_hi) and return a translated by (x, y) in (s_lo, s_hi).
-// Returns false, warp-uniformly, once the operand is empty.
-__device__ __forceinline__ bool peel(u64& r_lo, u64& r_hi, u64 a_lo, u64 a_hi,
-                                     int lane, u64& s_lo, u64& s_hi) {
-  const unsigned lo_nz = __ballot_sync(kFullMask, r_lo != 0);
-  const unsigned hi_nz = __ballot_sync(kFullMask, r_hi != 0);
-  if ((lo_nz | hi_nz) == 0) return false;
-  const bool in_lo = lo_nz != 0;
-  const int src = __ffs(in_lo ? lo_nz : hi_nz) - 1;
-  const int x = in_lo ? src : src + 32;
-  const u64 w = __shfl_sync(kFullMask, in_lo ? r_lo : r_hi, src);
-  const int y = __ffsll(static_cast<long long>(w)) - 1;
-  if (lane == src) {
-    if (in_lo) r_lo &= r_lo - 1;
-    else r_hi &= r_hi - 1;
+__device__ __forceinline__ u64 swap_halves(u64 v) { return (v << 32) | (v >> 32); }
+
+// a into the warp's table (every lane must have finished reading the last).
+__device__ __forceinline__ void stage(PeelSmem& s, u64 a_lo, u64 a_hi, int lane) {
+  s.table[0][lane] = s.table[0][lane + 64] = a_lo;
+  s.table[0][lane + 32] = s.table[0][lane + 96] = a_hi;
+  s.table[1][lane] = s.table[1][lane + 64] = swap_halves(a_lo);
+  s.table[1][lane + 32] = s.table[1][lane + 96] = swap_halves(a_hi);
+}
+
+// The lane's cells of index [start, start + kChunk) into the list: i is the
+// lane's next index, (r_lo, r_hi) its cells not yet listed.  Column x holds
+// the table's offset of column -x: lane - x + 64 is in [1, 95] for column
+// lane and lane - x + 96 in [33, 127] for column lane + 32.
+__device__ __forceinline__ void list_cells(u64& r_lo, u64& r_hi, int& i, int start, int lane,
+                                           uint2* cells) {
+  const int end = start + kChunk;
+  for (; i < end && r_lo != 0; ++i, r_lo &= r_lo - 1) {
+    const int y = __ffsll(static_cast<long long>(r_lo)) - 1;
+    cells[i - start] = make_uint2(8 * (64 - lane) + ((y & 32) << 5), y);
   }
-  // output column lane takes a's column c = (lane - x) mod 64, and column
-  // lane + 32 takes c ^ 32: both live in lane c % 32, in swapped registers
-  // when c >= 32
-  const int c = (lane - x) & 63;
-  const u64 v_lo = __shfl_sync(kFullMask, a_lo, c & 31);
-  const u64 v_hi = __shfl_sync(kFullMask, a_hi, c & 31);
-  const bool swap = c >= 32;
-  s_lo = rotl(swap ? v_hi : v_lo, y);
-  s_hi = rotl(swap ? v_lo : v_hi, y);
-  return true;
+  for (; i < end && r_hi != 0; ++i, r_hi &= r_hi - 1) {
+    const int y = __ffsll(static_cast<long long>(r_hi)) - 1;
+    cells[i - start] = make_uint2(8 * (32 - lane) + ((y & 32) << 5), y);
+  }
+}
+
+// Calls rounds(n) for each chunk of n <= kChunk listed cells of the warp's
+// operand (r_lo, r_hi).
+template <class Rounds>
+__device__ __forceinline__ void for_each_chunk(u64 r_lo, u64 r_hi, int lane, uint2* cells,
+                                               Rounds&& rounds) {
+  const int own = __popcll(r_lo) + __popcll(r_hi);
+  int incl = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int t = __shfl_up_sync(kFullMask, incl, d);
+    if (lane >= d) incl += t;
+  }
+  const int total = __shfl_sync(kFullMask, incl, 31);
+  int i = incl - own;
+  for (int start = 0; start < total; start += kChunk) {
+    __syncwarp();  // the last chunk's rounds have read the list
+    list_cells(r_lo, r_hi, i, start, lane, cells);
+    __syncwarp();
+    rounds(min(total - start, kChunk));
+  }
+}
+
+// a translated by one listed cell: the lane's output columns lane, lane + 32.
+__device__ __forceinline__ void translate(const unsigned char* lane_table, uint2 cell,
+                                          u64& s_lo, u64& s_hi) {
+  const unsigned char* p = lane_table + cell.x;
+  s_lo = rotl_mod32(*reinterpret_cast<const u64*>(p), cell.y);
+  s_hi = rotl_mod32(*reinterpret_cast<const u64*>(p + 256), cell.y);
+}
+
+__device__ __forceinline__ const unsigned char* lane_table(const PeelSmem& s, int lane) {
+  return reinterpret_cast<const unsigned char*>(s.table) + 8 * lane;
+}
+
+// a translated by every cell of b, the copies handed to the accumulators:
+// acc4(lo, hi) takes kUnroll copies of the lane's two columns at a time,
+// acc1(lo, hi) one copy of the chunk's remainder.
+template <class Acc4, class Acc1>
+__device__ __forceinline__ void peel_rounds(PeelSmem& s, u64 a_lo, u64 a_hi, u64 b_lo,
+                                            u64 b_hi, int lane, Acc4&& acc4, Acc1&& acc1) {
+  __syncwarp();  // every lane has read the last table
+  stage(s, a_lo, a_hi, lane);
+  const unsigned char* lt = lane_table(s, lane);
+  for_each_chunk(b_lo, b_hi, lane, s.cells, [&](int n) {
+    int k = 0;
+    for (; k + kUnroll <= n; k += kUnroll) {
+      u64 lo[kUnroll], hi[kUnroll];
+#pragma unroll
+      for (int j = 0; j < kUnroll; ++j) translate(lt, s.cells[k + j], lo[j], hi[j]);
+      acc4(lo, hi);
+    }
+    for (; k < n; ++k) {
+      u64 lo, hi;
+      translate(lt, s.cells[k], lo, hi);
+      acc1(lo, hi);
+    }
+  });
+}
+
+// The OR of a translated by every cell of b into (acc_lo, acc_hi).
+__device__ __forceinline__ void peel_or(PeelSmem& s, u64 a_lo, u64 a_hi, u64 b_lo, u64 b_hi,
+                                        int lane, u64& acc_lo, u64& acc_hi) {
+  peel_rounds(
+      s, a_lo, a_hi, b_lo, b_hi, lane,
+      [&](const u64 (&lo)[kUnroll], const u64 (&hi)[kUnroll]) {
+        acc_lo |= (lo[0] | lo[1]) | (lo[2] | lo[3]);
+        acc_hi |= (hi[0] | hi[1]) | (hi[2] | hi[3]);
+      },
+      [&](u64 lo, u64 hi) {
+        acc_lo |= lo;
+        acc_hi |= hi;
+      });
+}
+
+// One shifted copy c added into the bit-sliced counter planes p.
+__device__ __forceinline__ void add_copy(u64 (&p)[kMaxPlanes], u64 c) {
+#pragma unroll
+  for (int i = 0; i < kMaxPlanes; ++i) {
+    const u64 carry = p[i] & c;
+    p[i] ^= c;
+    c = carry;
+  }
+}
+
+// Four shifted copies added into the planes: a carry-save adder sums them
+// into 3 bits (b0 + 2 b1 + 4 b2 <= 4), which then ripple in.
+__device__ __forceinline__ void add_copies4(u64 (&p)[kMaxPlanes], u64 c0, u64 c1, u64 c2,
+                                            u64 c3) {
+  const u64 s = c0 ^ c1 ^ c2, major = (c0 & c1) | (c2 & (c0 ^ c1));
+  const u64 b0 = s ^ c3, k = s & c3;
+  const u64 b1 = major ^ k, b2 = major & k;
+  u64 carry = p[0] & b0;
+  p[0] ^= b0;
+  u64 t = p[1] ^ b1, next = (p[1] & b1) | (t & carry);
+  p[1] = t ^ carry;
+  carry = next;
+  t = p[2] ^ b2;
+  next = (p[2] & b2) | (t & carry);
+  p[2] = t ^ carry;
+  carry = next;
+#pragma unroll
+  for (int i = 3; i < kMaxPlanes; ++i) {
+    next = p[i] & carry;
+    p[i] ^= carry;
+    carry = next;
+  }
+}
+
+__device__ __forceinline__ size_t lane_word(int board, int lane) {
+  return static_cast<size_t>(board) * 64 + lane;
 }
 
 // Replaces conv_sparse_pallas.conv_sparse_lohi (_conv_sparse_kernel): the
@@ -81,48 +223,42 @@ __device__ __forceinline__ bool peel(u64& r_lo, u64& r_hi, u64 a_lo, u64 a_hi,
 __global__ void __launch_bounds__(kThreadsPerBlock)
 conv_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                    u64* __restrict__ out, int B) {
-  const int lane = threadIdx.x & 31;
-  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  __shared__ PeelSmem smem[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int board = blockIdx.x * kWarpsPerBlock + warp;
   if (board >= B) return;
-  const size_t at = static_cast<size_t>(board) * 64 + lane;
-  const u64 a_lo = a[at], a_hi = a[at + 32];
-  u64 r_lo = b[at], r_hi = b[at + 32];
-  u64 acc_lo = 0, acc_hi = 0, s_lo, s_hi;
-  while (peel(r_lo, r_hi, a_lo, a_hi, lane, s_lo, s_hi)) {
-    acc_lo |= s_lo;
-    acc_hi |= s_hi;
-  }
+  const size_t at = lane_word(board, lane);
+  u64 acc_lo = 0, acc_hi = 0;
+  peel_or(smem[warp], a[at], a[at + 32], b[at], b[at + 32], lane, acc_lo, acc_hi);
   out[at] = acc_lo;
   out[at + 32] = acc_hi;
 }
 
 // Replaces conv_sparse_pallas.counts_sparse_lohi (_counts_sparse_kernel):
-// the same peel, each shifted copy ripple-added into 13 bit-sliced counter
+// the same rounds, each shifted copy added into 13 bit-sliced counter
 // planes; the low n_planes are written to out [n_planes, B, 64], which are
 // the counts mod 2^n_planes as the TPU kernel's n_planes-wide counter.
 __global__ void __launch_bounds__(kThreadsPerBlock)
 counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
                      u64* __restrict__ out, int B, int n_planes) {
-  const int lane = threadIdx.x & 31;
-  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  __shared__ PeelSmem smem[kWarpsPerBlock];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int board = blockIdx.x * kWarpsPerBlock + warp;
   if (board >= B) return;
-  const size_t at = static_cast<size_t>(board) * 64 + lane;
-  const u64 a_lo = a[at], a_hi = a[at + 32];
-  u64 r_lo = b[at], r_hi = b[at + 32];
+  const size_t at = lane_word(board, lane);
   u64 p_lo[kMaxPlanes], p_hi[kMaxPlanes];
 #pragma unroll
   for (int i = 0; i < kMaxPlanes; ++i) p_lo[i] = p_hi[i] = 0;
-  u64 c_lo, c_hi;
-  while (peel(r_lo, r_hi, a_lo, a_hi, lane, c_lo, c_hi)) {
-#pragma unroll
-    for (int i = 0; i < kMaxPlanes; ++i) {
-      const u64 t_lo = p_lo[i] & c_lo, t_hi = p_hi[i] & c_hi;  // carries
-      p_lo[i] ^= c_lo;
-      p_hi[i] ^= c_hi;
-      c_lo = t_lo;
-      c_hi = t_hi;
-    }
-  }
+  peel_rounds(
+      smem[warp], a[at], a[at + 32], b[at], b[at + 32], lane,
+      [&](const u64 (&lo)[kUnroll], const u64 (&hi)[kUnroll]) {
+        add_copies4(p_lo, lo[0], lo[1], lo[2], lo[3]);
+        add_copies4(p_hi, hi[0], hi[1], hi[2], hi[3]);
+      },
+      [&](u64 lo, u64 hi) {
+        add_copy(p_lo, lo);
+        add_copy(p_hi, hi);
+      });
   const size_t plane = static_cast<size_t>(B) * 64;
 #pragma unroll
   for (int i = 0; i < kMaxPlanes; ++i) {
@@ -130,6 +266,61 @@ counts_sparse_kernel(const u64* __restrict__ a, const u64* __restrict__ b,
       out[i * plane + at] = p_lo[i];
       out[i * plane + at + 32] = p_hi[i];
     }
+  }
+}
+
+// Up to kMaxPairs pairs of boards: operand k (left of pair k / 2 when k is
+// even, its right when odd) of query q is the board at p[k] + q * stride[k]
+// words; a broadcast operand has stride 0.
+struct PairSet {
+  const u64* p[2 * kMaxPairs];
+  int stride[2 * kMaxPairs];
+};
+
+__device__ __forceinline__ void load_pair(const PairSet& pairs, int k, int board, int lane,
+                                          u64 (&w)[4]) {
+  const u64* l = pairs.p[2 * k] + static_cast<long long>(board) * pairs.stride[2 * k];
+  const u64* r = pairs.p[2 * k + 1] + static_cast<long long>(board) * pairs.stride[2 * k + 1];
+  w[0] = l[lane];
+  w[1] = l[lane + 32];
+  w[2] = r[lane];
+  w[3] = r[lane + 32];
+}
+
+// What core/convolve.py union_interacting(pairs, method="sparse") computes,
+// in one launch: the OR over the pairs of the OR-convolution of their left
+// and right boards.  One block a query and one warp a pair: the warp takes
+// the population of both sides (__popcll and a warp reduction) and peels
+// the smaller, as the JAX package's per-lane swap does (convolution
+// commutes, so the answer does not depend on the choice); the block ORs
+// the warps' convolutions through shared memory and writes one board.
+// Nothing is stacked, expanded or read back.  One warp looping over the
+// pairs of its query, the next pair's boards loading during this pair's
+// rounds, measured 15% slower on an H100 (its query's pairs in series).
+__global__ void __launch_bounds__(kThreadsPerBlock)
+union_sparse_kernel(const __grid_constant__ PairSet pairs, int n_pairs, u64* __restrict__ out) {
+  static_assert(kMaxPairs <= kWarpsPerBlock, "one warp a pair");
+  __shared__ PeelSmem smem[kWarpsPerBlock];
+  __shared__ u64 part[kMaxPairs][64];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int board = blockIdx.x;
+  if (warp < n_pairs) {
+    u64 w[4], acc_lo = 0, acc_hi = 0;
+    load_pair(pairs, warp, board, lane, w);
+    const int pop_l = __reduce_add_sync(kFullMask, __popcll(w[0]) + __popcll(w[1]));
+    const int pop_r = __reduce_add_sync(kFullMask, __popcll(w[2]) + __popcll(w[3]));
+    if (pop_l != 0 && pop_r != 0) {
+      if (pop_l < pop_r) peel_or(smem[warp], w[2], w[3], w[0], w[1], lane, acc_lo, acc_hi);
+      else peel_or(smem[warp], w[0], w[1], w[2], w[3], lane, acc_lo, acc_hi);
+    }
+    part[warp][lane] = acc_lo;
+    part[warp][lane + 32] = acc_hi;
+  }
+  __syncthreads();
+  if (threadIdx.x < 64) {
+    u64 v = 0;
+    for (int k = 0; k < n_pairs; ++k) v |= part[k][threadIdx.x];
+    out[static_cast<size_t>(board) * 64 + threadIdx.x] = v;
   }
 }
 
@@ -616,6 +807,21 @@ extern "C" cudaError_t life_conv_sparse(const u64* a, const u64* b, u64* out,
                                         int B, cudaStream_t stream) {
   if (B <= 0) return cudaErrorInvalidValue;
   conv_sparse_kernel<<<warp_grid(B), kThreadsPerBlock, 0, stream>>>(a, b, out, B);
+  return cudaGetLastError();
+}
+
+// desc: the pointers of the 2 n_pairs operands (left, right of each pair
+// in turn), then their board strides in words (0 broadcasts, < 2^31); out:
+// int64 [B, 64].
+extern "C" cudaError_t life_union_sparse(const long long* desc, int n_pairs, u64* out, int B,
+                                         cudaStream_t stream) {
+  if (B <= 0 || n_pairs < 1 || n_pairs > kMaxPairs) return cudaErrorInvalidValue;
+  PairSet pairs = {};
+  for (int k = 0; k < 2 * n_pairs; ++k) {
+    pairs.p[k] = reinterpret_cast<const u64*>(desc[k]);
+    pairs.stride[k] = static_cast<int>(desc[2 * n_pairs + k]);
+  }
+  union_sparse_kernel<<<B, kThreadsPerBlock, 0, stream>>>(pairs, n_pairs, out);
   return cudaGetLastError();
 }
 

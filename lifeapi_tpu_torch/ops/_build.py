@@ -42,6 +42,7 @@ SIGNATURES = {
     "life_stable_beam_info": (_I, _P),
     "life_conv_sparse": (_P, _P, _P, _I, _P),
     "life_counts_sparse": (_P, _P, _P, _I, _I, _P),
+    "life_union_sparse": (_P, _I, _P, _I, _P),
     "life_conv_counts": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "life_conv_small": (_P, _P, _P, _P, _I, _I, _I, _P),
     "life_conv_small_packed": (_P, _P, _P, _P, _I, _I, _P),

@@ -1,7 +1,9 @@
 """Torus convolution kernels: hand-written CUDA and their plain PyTorch twins.
 
 Counterpart of :mod:`lifeapi_tpu.ops.conv_sparse_pallas` (the runtime-sparse
-peel: :func:`convolve_sparse_fused`, :func:`counts_sparse_fused`) and
+peel: :func:`convolve_sparse_fused`, :func:`counts_sparse_fused`; and
+:func:`union_sparse_fused`, the OR over pairs of their peels, which the JAX
+package's ``union_interacting(method="sparse")`` builds around that kernel) and
 :mod:`lifeapi_tpu.ops.conv_pallas` (dense counts: :func:`conv_counts_fused`,
 :func:`conv_small_fused`, :func:`conv_small_packed`).  Boards are
 ``int64[..., 64]``, dense fields ``[B, 64, 64]`` indexed ``[x, y]``.  Each
@@ -33,13 +35,15 @@ from ..core import bitops
 from ..core import board as B
 from ..core import ntt
 from . import _build
+from ._descriptor import descriptor_words, plane_descriptor
 from .stable_cuda import first_cell_mask
 from .step_cuda import _aligned, _launch, _stream
 
-LAUNCHES = {"convolve_sparse_fused": 0, "counts_sparse_fused": 0,
+LAUNCHES = {"convolve_sparse_fused": 0, "counts_sparse_fused": 0, "union_sparse_fused": 0,
             "conv_counts_fused": 0, "conv_small_fused": 0, "conv_small_packed": 0}
 
 MAX_PLANES = 13  # counter planes of the peel kernel: every count <= 4096 fits
+MAX_PAIRS = 8  # pairs of one union_sparse_fused launch
 MODULUS = ntt.PRIMES[0]  # the prime of conv_pallas's single-prime kernels
 
 
@@ -141,6 +145,60 @@ def counts_sparse_fused(a, b, n_planes=6):
                 out.data_ptr(), a.shape[0], n_planes, _stream(a.device))
     LAUNCHES["counts_sparse_fused"] += 1
     return [p.reshape(shape) for p in out]
+
+
+def _union_operands(pairs):
+    """Check 1-8 (left, right) pairs of broadcastable ``int64[..., 64]``
+    boards on one device; return (the broadcast shape, every left and right
+    in turn expanded to it)."""
+    pairs = [tuple(p) for p in pairs]
+    if not 1 <= len(pairs) <= MAX_PAIRS or any(len(p) != 2 for p in pairs):
+        raise ValueError(f"expected 1 to {MAX_PAIRS} (left, right) pairs")
+    operands = [t for p in pairs for t in p]
+    for t in operands:
+        _check_boards("pair operand", t)
+    if len({t.device for t in operands}) != 1:
+        raise ValueError("the pairs' boards lie on more than one device")
+    shape = torch.broadcast_shapes(*(t.shape for t in operands))
+    n = shape[:-1].numel()
+    if not 0 < n < 2**31 // 64:
+        raise ValueError(f"batch {n} out of range")
+    return shape, [t.expand(shape) for t in operands]
+
+
+def union_sparse_fused_plain(pairs):
+    """The OR over (left, right) pairs of their OR-convolutions, each board
+    peeling its smaller side (the JAX package's ``union_interacting`` with
+    ``method="sparse"``, per-lane swap and all)."""
+    shape, operands = _union_operands(pairs)
+    flat = [t.reshape(-1, 64) for t in operands]
+    out = torch.zeros_like(flat[0])
+    for left, right in zip(flat[::2], flat[1::2]):
+        swap = (B.population(left) < B.population(right))[:, None]
+        peel, other = torch.where(swap, left, right), torch.where(swap, right, left)
+        for shifted in _peeled_copies(other, peel):
+            out |= shifted
+    return out.reshape(shape)
+
+
+def union_sparse_fused(pairs):
+    """OR over 1-8 (left, right) pairs of broadcastable ``int64[..., 64]``
+    boards of their OR-convolutions -> ``int64[..., 64]`` of the broadcast
+    shape.  On the card one launch: every operand is read where it lies, as
+    a pointer and a board stride (0 for a broadcast one, such as an
+    unbatched mask against a batch; an operand whose batch does not flatten
+    to one stride is copied), each query peels the smaller side of each
+    pair, and nothing is stacked or read back."""
+    shape, operands = _union_operands(pairs)
+    if not operands[0].is_cuda:
+        return union_sparse_fused_plain(pairs)
+    pointers, strides, copies = plane_descriptor(operands)  # copies live past the launch
+    out = torch.empty((shape[:-1].numel(), 64), dtype=torch.int64, device=operands[0].device)
+    with torch.cuda.device(out.device):
+        _launch(_build.library().life_union_sparse, descriptor_words(pointers, strides),
+                len(operands) // 2, out.data_ptr(), out.shape[0], _stream(out.device))
+    LAUNCHES["union_sparse_fused"] += 1
+    return out.reshape(shape)
 
 
 # ---------------------------------------------------------------------------

@@ -33,6 +33,7 @@ from ..core import board as B
 from ..stable import bitplane as BP
 from ..stable import nibble as nb
 from . import _build
+from ._descriptor import descriptor_words, plane_descriptor
 from .step_cuda import _check, _launch, _stream
 
 LAUNCHES = {"propagate_step": 0, "propagate_fixpoint": 0,
@@ -242,59 +243,12 @@ def propagate_fixpoint_priorities_plain(planes, max_iters=MAX_ITERS):
     return planes, consistent, changed, _priority_planes(planes)
 
 
-def _board_stride(plane):
-    """The words from one board to the next of an ``int64[..., 64]`` plane
-    whose last dimension is contiguous and whose batch dimensions flatten to
-    one stride (a batch of one board takes 64), else None."""
-    if plane.stride(-1) != 1:
-        return None
-    board, span = None, 1
-    for size, step in zip(reversed(plane.shape[:-1]), reversed(plane.stride()[:-1])):
-        if size == 1:
-            continue
-        if board is None:
-            board = step
-        elif step != board * span:
-            return None
-        span *= size
-    return 64 if board is None else board
-
-
-# kernels B and C take each board stride as a 32-bit int
-MAX_BOARD_STRIDE = 2**31 - 1
-
-
-def plane_descriptor(planes):
-    """Where kernels B and C find a batch of boards' planes: ``planes`` is a
-    sequence of ``int64[..., 64]`` tensors of one shape.  A plane is read in
-    place where its last dimension is contiguous and its batch dimensions
-    flatten to one board stride below 2**31 words; any other plane is
-    copied.  Returns (pointers, board strides in words, the tensors they
-    name), the last to be kept alive until the launch is queued."""
-    pointers, strides, kept = [], [], []
-    for plane in planes:
-        board = 64 if plane.is_contiguous() else _board_stride(plane)
-        if board is None or board > MAX_BOARD_STRIDE:
-            plane = plane.clone(memory_format=torch.contiguous_format)
-            board = 64
-        pointers.append(plane.data_ptr())
-        strides.append(board)
-        kept.append(plane)
-    return pointers, strides, kept
-
-
-def _words(pointers, strides):
-    """The kernel's view of a set of planes: the pointers, then the board
-    strides in words."""
-    return (ctypes.c_int64 * (2 * len(strides)))(*pointers, *strides)
-
-
 def _stacked(t, dim):
     """Descriptor words of the planes along ``dim`` of a fresh contiguous
     ``int64`` tensor: ``[planes, N, 64]`` (dim 0) or ``[N, planes, 64]``
     (dim 1)."""
     count, step, base = t.shape[dim], t.stride(dim) * 8, t.data_ptr()
-    return _words(range(base, base + count * step, step), (t.stride(1 - dim),) * count)
+    return descriptor_words(range(base, base + count * step, step), (t.stride(1 - dim),) * count)
 
 
 def _launch_fixpoint(src, dst, levels, n, max_iters, count, dev):
@@ -445,7 +399,7 @@ def _bitstable_launch(bst, max_iters, priorities, count):
     pointers, strides, copies = plane_descriptor(planes)  # copies live past the launch
     out = torch.empty((BP.N_PLANES, n, 64), dtype=torch.int64, device=dev)
     levels = torch.empty((4, n, 64), dtype=torch.int64, device=dev) if priorities else None
-    flags = _launch_fixpoint(_words(pointers, strides), _stacked(out, 0),
+    flags = _launch_fixpoint(descriptor_words(pointers, strides), _stacked(out, 0),
                              None if levels is None else _stacked(levels, 0), n, max_iters,
                              count, dev)
     p = out.view(BP.N_PLANES, *batch, 64).unbind(0)

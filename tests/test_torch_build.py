@@ -187,6 +187,63 @@ def test_solver_sass_counts_step_and_priority():
         "beam_search": (99, 169)}
 
 
+CONV = "_ZN45_GLOBAL__N__afda5bfd_12_life_conv_cu_3420d798{}"
+PEEL_NAMES = {"conv_sparse_kernel": "18conv_sparse_kernelEPKyS1_Pyi",
+              "counts_sparse_kernel": "20counts_sparse_kernelEPKyS1_Pyii",
+              "union_sparse_kernel": "19union_sparse_kernelENS_7PairSetEiPyi"}
+FUNNEL = ("SHF.L.W.U32.HI", "R4, R5, R6, R7")
+LDS = ("LDS.64", "R8, [R9+0x100]")
+
+
+def _peel_body(round_loop=True):
+    """A union-shaped function: a pair loop around a chunk loop, which holds
+    the listing loop (no funnel shift), the round loop unrolled 4 times (16
+    funnel shifts; 37 instructions with its branch) and its one-round
+    remainder (4 funnel shifts, 11 instructions).  The chunk and pair loops
+    hold 20 funnel shifts and must not be taken for the round loop."""
+    code = [("MOV", "R1, c[0x0][0x28]")]
+    pair = len(code)
+    code += [("REDUX.SUM", "UR4, R7"), LOP]
+    chunk = len(code)
+    code += [("WARPSYNC.ALL", "")]
+    listing = len(code)
+    code += [("FLO.U32", "R2, R3"), ("STS.64", "[R4], R6"), ("@P0 BRA", f"{16 * listing:#x}")]
+    if round_loop:
+        body = len(code)
+        code += [LDS, LDS, FUNNEL, FUNNEL, FUNNEL, FUNNEL, LOP, ("IADD3", "R9, R9, 0x8, RZ")] * 4
+        code += [LOP] * 4 + [("@P1 BRA", f"{16 * body:#x}")]
+        rest = len(code)
+        code += [LDS, LDS] + [FUNNEL] * 4 + [LOP, LOP, ("IADD3", "R9, R9, 0x8, RZ"),
+                                              ("ISETP.GE.AND", "P2, PT, R9, R10, PT"),
+                                              ("@P2 BRA", f"{16 * rest:#x}")]
+    code += [("@P3 BRA", f"{16 * chunk:#x}"), ("@P4 BRA", f"{16 * pair:#x}"), ("EXIT", "")]
+    return code
+
+
+def test_peel_sass_counts_a_round_of_the_unrolled_loop():
+    listing = "".join(_sass(CONV.format(m), _peel_body()) for m in PEEL_NAMES.values())
+    funcs = chip_smoke.sass_functions(listing)
+    assert sorted(funcs) == sorted(PEEL_NAMES)
+    assert chip_smoke.round_instructions(funcs["union_sparse_kernel"]) == 37 / 4
+    assert chip_smoke.peel_sass_counts(funcs) == dict.fromkeys(chip_smoke.PEEL_KERNELS, 37 / 4)
+
+
+def test_peel_sass_without_a_round_loop_is_refused():
+    code = chip_smoke.sass_functions(_sass(CONV.format(PEEL_NAMES["conv_sparse_kernel"]),
+                                           _peel_body(round_loop=False)))
+    with pytest.raises(AssertionError, match="no peel round loop"):
+        chip_smoke.round_instructions(code["conv_sparse_kernel"])
+
+
+def test_kernel_a_step_is_the_block_of_its_shuffles():
+    """Kernel A's shape: an exit for warps past the batch, then one
+    straight-line block holding the step's 48 shuffles."""
+    code = [("S2R", "R0, SR_TID.X"), ("@P0 EXIT", "")] + [SHFL, LOP, LOP] * 48 + [("EXIT", "")]
+    name = "_ZN47_GLOBAL__N__f662ddb2_14_life_stable_cu_e29dcd4a11step_kernelEPKyPyS2_S2_i"
+    funcs = chip_smoke.sass_functions(_sass(name, code))
+    assert chip_smoke.block_instructions(funcs["step_kernel"], chip_smoke.STEP_SHUFFLES) == 145
+
+
 def test_solver_sass_unrolled_step_counts_per_pass():
     code = chip_smoke.sass_functions(_solver_listing(step_unroll=2))["beam_kernel<4>"]
     assert chip_smoke.loop_instructions(code, chip_smoke.STEP_SHUFFLES) == 197 / 2

@@ -5,12 +5,15 @@ run in interpret mode as ``tests/test_convolve.py`` and
 The CUDA kernels themselves are tested on the card by
 ``tests/test_torch_cuda_kernels.py``."""
 
+import functools
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
 import torch
 
 from lifeapi_tpu.core import board as jb
+from lifeapi_tpu.core import convolve as jconv
 from lifeapi_tpu.ops import calibrate_pallas as CAL
 from lifeapi_tpu.ops import conv_pallas as CP
 from lifeapi_tpu.ops import conv_sparse_pallas as CSP
@@ -78,6 +81,38 @@ def test_counts_sparse_fused_matches_pallas(rng, n_planes):
     assert torch.equal(counts, exact % (1 << n_planes))  # wraps mod 2**n_planes
     if n_planes == 6:
         assert int(exact.max()) > 63
+
+
+def _union_pair_operands(rng, n_pairs):
+    """n_pairs (left, right) pairs of 4 boards each: empty boards on either
+    side, each side the smaller on some board, and a right side of about 200
+    cells against a sparse left."""
+    pairs = []
+    for k in range(n_pairs):
+        left = _sparse_dense(rng, 4, 10)
+        right = rng.random((4, 64, 64)) < 0.05
+        right[k % 4] = False
+        left[(k + 1) % 4] = rng.random((64, 64)) < 0.3
+        pairs.append((left, right) if k % 2 else (right, left))
+    return pairs
+
+
+@pytest.mark.parametrize("n_pairs", [1, 7])
+def test_union_sparse_fused_matches_pallas_union(rng, monkeypatch, n_pairs):
+    """The union peel against the JAX package's union_interacting(method=
+    "sparse") on its TPU route, the stacked Pallas peel with the per-lane
+    swap, run in interpret mode."""
+    monkeypatch.setattr(jconv, "_prefer_ntt", lambda: True)
+    monkeypatch.setattr(CSP, "convolve_sparse_fused",
+                        functools.partial(CSP.convolve_sparse_fused, interpret=True))
+    pairs = _union_pair_operands(rng, n_pairs)
+    expect = jconv.union_interacting([(_packed(l), _packed(r)) for l, r in pairs],
+                                     method="sparse")
+    tpairs = [(tb.from_dense(torch.from_numpy(l)), tb.from_dense(torch.from_numpy(r)))
+              for l, r in pairs]
+    got = conv_cuda.union_sparse_fused(tpairs)
+    assert got.shape == (4, 64)
+    assert (convert.board_to_packed(got) == np.asarray(expect)).all()
 
 
 def test_conv_counts_fused_matches_pallas(rng):
@@ -231,6 +266,8 @@ def test_cpu_tensors_take_plain_twins_without_launch(rng):
         (conv_cuda.convolve_sparse_fused(a, b), conv_cuda.convolve_sparse_fused_plain(a, b)),
         (conv_cuda.counts_sparse_fused(a, b, 4)[3],
          conv_cuda.counts_sparse_fused_plain(a, b, 4)[3]),
+        (conv_cuda.union_sparse_fused([(a, b), (b, a[2])]),
+         conv_cuda.union_sparse_fused_plain([(a, b), (b, a[2])])),
         (conv_cuda.conv_counts_fused(ta, tdb), conv_cuda.conv_counts_fused_plain(ta, tdb)),
         (conv_cuda.conv_small_fused(ta, tdb), conv_cuda.conv_small_fused_plain(ta, tdb)),
         (conv_cuda.conv_small_packed(a, b), conv_cuda.conv_small_packed_plain(a, b)),
@@ -250,6 +287,13 @@ def test_wrappers_reject_bad_input(rng):
     for n_planes in (0, 14):
         with pytest.raises(ValueError):
             conv_cuda.counts_sparse_fused(a, a, n_planes)
+    for n_pairs in (0, 9):
+        with pytest.raises(ValueError):
+            conv_cuda.union_sparse_fused([(a, a)] * n_pairs)
+    with pytest.raises(TypeError):
+        conv_cuda.union_sparse_fused([(a, a.to(torch.int32))])
+    with pytest.raises(RuntimeError):
+        conv_cuda.union_sparse_fused([(a, a), (a, a[:3])])  # shapes do not broadcast
     with pytest.raises(TypeError):
         conv_cuda.conv_counts_fused(d.to(torch.float32), d)
     with pytest.raises(ValueError):

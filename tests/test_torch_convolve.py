@@ -16,6 +16,7 @@ from lifeapi_tpu_torch import convert
 from lifeapi_tpu_torch.core import board as tb
 from lifeapi_tpu_torch.core import convolve as conv
 from lifeapi_tpu_torch.core import rle, step
+from lifeapi_tpu_torch.ops import conv_cuda
 from torch_threads import one_torch_thread  # noqa: F401
 
 EATER = [(0, 0), (1, 0), (0, 1), (2, 1), (2, 2), (2, 3), (3, 3)]
@@ -179,6 +180,96 @@ def test_union_interacting_matches_jax(rng):
     expect = jconv.union_interacting(jpairs)
     for method in (None, "sparse", "ntt_fused"):
         _same(conv.union_interacting(tpairs, method=method), expect)
+
+
+def _union_pairs(rng, case):
+    """Dense (left, right) pairs for the union of peels: batches of 3."""
+    def sparse(k, batch=(3,)):
+        return _sparse(rng, batch, k, 16, 48)
+
+    if case == "P1":
+        return [(rng.random((3, 64, 64)) < 0.2, sparse(6))]
+    if case == "P7":  # the seven mask pairs of interaction_offsets
+        (jg, _), _ = _glider_eater()
+        a = jnp.broadcast_to(jg, (3, 64, 2))
+        b = _pair(sparse(6))[0]
+        seen = {}
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(jconv, "union_interacting",
+                       lambda pairs, method=None: seen.setdefault("pairs", pairs))
+            jconv.interaction_offsets(a, b, method="sparse")
+        return [(np.asarray(jb.to_dense(l)), np.asarray(jb.to_dense(r))) for l, r in seen["pairs"]]
+    if case == "each side smaller":  # per board, left then right is the smaller
+        left = np.stack([sparse(3, ()), rng.random((64, 64)) < 0.3, sparse(9, ())])
+        right = np.stack([rng.random((64, 64)) < 0.3, sparse(4, ()), sparse(9, ())])
+        return [(left, right), (right, left)]
+    if case == "empty":  # an empty board on either side, and an empty pair side
+        left, right = rng.random((3, 64, 64)) < 0.3, sparse(5)
+        left[1] = False
+        right[0] = False
+        return [(left, right), (right, np.zeros((3, 64, 64), bool))]
+    raise ValueError(case)
+
+
+UNION_CASES = ["P1", "P7", "each side smaller", "empty"]
+
+
+@pytest.mark.parametrize("case", UNION_CASES)
+def test_union_interacting_sparse_matches_jax(rng, case):
+    """The union peel's plain version and the sparse route against the JAX
+    package's union_interacting(method="sparse"), which peels each board's
+    smaller side."""
+    pairs_d = _union_pairs(rng, case)
+    jpairs = [(_pair(l)[0], _pair(r)[0]) for l, r in pairs_d]
+    tpairs = [(_pair(l)[1], _pair(r)[1]) for l, r in pairs_d]
+    expect = jconv.union_interacting(jpairs, method="sparse")
+    _same(conv_cuda.union_sparse_fused_plain(tpairs), expect)
+    _same(conv.union_interacting(tpairs, method="sparse"), expect)
+    assert int(jb.population(expect).sum()) > 0
+
+
+def test_union_interacting_sparse_broadcasts_an_unbatched_side(rng):
+    """Unbatched right boards against a batch of left ones: the port takes
+    them as [64] or [1, 64]; the JAX package stacks them as [1, 64, 2]."""
+    lefts = [rng.random((4, 64, 64)) < 0.15 for _ in range(3)]
+    rights = [_sparse(rng, (), k, 20, 40) for k in (1, 5, 30)]
+    rights[0][:] = False  # an empty right side
+    expect = jconv.union_interacting(
+        [(_pair(l)[0], _pair(r[None])[0]) for l, r in zip(lefts, rights)], method="sparse")
+    for shape in ((64,), (1, 64)):
+        tpairs = [(_pair(l)[1], _pair(r)[1].reshape(shape)) for l, r in zip(lefts, rights)]
+        got = conv.union_interacting(tpairs, method="sparse")
+        assert got.shape == (4, 64)
+        _same(got, expect)
+        _same(conv_cuda.union_sparse_fused_plain(tpairs), expect)
+
+
+def test_union_interacting_sparse_beyond_eight_pairs(rng):
+    """More pairs than one launch takes: groups of 8, OR-ed."""
+    pairs_d = [(_sparse(rng, (2,), 4, 10, 50), _sparse(rng, (2,), 3, 10, 50)) for _ in range(9)]
+    expect = jconv.union_interacting([(_pair(l)[0], _pair(r)[0]) for l, r in pairs_d],
+                                     method="sparse")
+    _same(conv.union_interacting([(_pair(l)[1], _pair(r)[1]) for l, r in pairs_d],
+                                 method="sparse"), expect)
+
+
+def test_weld_interaction_offsets_sparse_matches_jax_sparse():
+    """The frozen-aware weld.interaction_offsets on the reference LifeWeldTest
+    fixture, through the union peel against the JAX package's sparse
+    route."""
+    from lifeapi_tpu import weld as JW
+    from lifeapi_tpu_torch import weld as W
+
+    def centered(s, dx=0, dy=0):
+        return jb.move(jrle.parse(s), 20 + dx, 20 + dy)
+
+    j = JW.from_required(centered("2b2o$bobo$bo$2o!"),
+                         centered("2b2o$b3o$b4o$5o$4o$4o!", -1, -1))
+    block = JW.LifeWeld.from_state(centered("2o$2o!"))
+    for ja, jb_w in ((j, j), (block, j)):
+        ta, tb_w = convert.weld_from_jax(ja), convert.weld_from_jax(jb_w)
+        _same(W.interaction_offsets(ta, tb_w, method="sparse"),
+              JW.interaction_offsets(ja, jb_w, method="sparse"))
 
 
 def test_interaction_offsets_predict_then_simulate():

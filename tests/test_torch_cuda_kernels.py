@@ -502,6 +502,84 @@ def test_peel_kernels_match_plain_twins(device, n_planes):
                    dict(n_planes=n_planes))
 
 
+def _dense_peel_operands(device):
+    """a: p=0.3 boards; b: p=0.3 boards (about 1200 cells each, so the
+    warp's list of 64 cells wraps some 19 times), a full board (4096 cells)
+    and an empty one."""
+    rng = np.random.default_rng(5)
+    da = rng.random((24, 64, 64)) < 0.3
+    db = rng.random((24, 64, 64)) < 0.3
+    db[0], db[1] = True, False
+    a, b = (B.from_dense(torch.from_numpy(d).to(device)) for d in (da, db))
+    assert int(B.population(b[2:]).min()) >= 1000
+    return a, b
+
+
+def test_peel_kernels_on_a_dense_operand(device):
+    """[11], [12] and the union peel where b's cells wrap the list's chunk
+    many times; the union peels each query's smaller side, the dense one
+    where a is the sparser."""
+    a, b = _dense_peel_operands(device)
+    _conv_pair(conv_cuda, "convolve_sparse_fused", (a, b))
+    for n_planes in (1, 13):
+        _conv_pair(conv_cuda, "counts_sparse_fused", (a, b), dict(n_planes=n_planes))
+    sparse = B.from_dense((torch.rand((24, 64, 64), generator=torch.Generator().manual_seed(6))
+                           < 0.002).to(device))
+    _conv_pair(conv_cuda, "union_sparse_fused", ([(a, b), (b, sparse), (sparse, b.flip(0))],))
+
+
+def test_union_kernel_reads_operands_in_place(device):
+    """Operands read where they lie: an unbatched side against a batch
+    (board stride 0), every other board of a store (stride 128), a 2-D
+    batch of those, and an operand whose batch does not flatten to one
+    stride (copied); each call one launch, equal to the plain version."""
+    rng = np.random.default_rng(8)
+    store = B.from_dense(torch.from_numpy(rng.random((64, 64, 64)) < 0.1).to(device))
+    odd, even = store[1::2], store[::2]
+    one = B.from_cells([(3, 4), (63, 63), (0, 31), (40, 2)], device=device)
+    for pairs in ([(even, one)], [(one, odd), (even, odd), (odd, one[None])],
+                  [(even.reshape(4, 8, 64), odd.reshape(4, 8, 64)),
+                   (one, even[:8].reshape(1, 8, 64)), (odd[:4].reshape(4, 1, 64), one)]):
+        _conv_pair(conv_cuda, "union_sparse_fused", (pairs,))
+    _conv_pair(conv_cuda, "convolve_sparse_fused", (even, one))
+    _conv_pair(conv_cuda, "convolve_sparse_fused", (one, odd))
+
+
+def test_union_is_one_kernel_and_no_readback(device):
+    """union_interacting(method="sparse") on the seven mask pairs of
+    interaction_offsets over a batch: no readback (a synchronising call
+    raises in the sync debug mode), one launch a call by the counter, and
+    in a profiler trace of 10 calls union_sparse_kernel launches and no
+    other kernel (no stack, population, where or OR), at most one a call.
+    Traces on the card drop launches, a few a trace, so an empty trace is
+    taken again, up to 3 times."""
+    import chip_smoke
+    from lifeapi_tpu_torch.core import convolve as CV
+
+    rng = np.random.default_rng(9)
+    a, b = (B.from_dense(torch.from_numpy(rng.random((256, 64, 64)) < 0.003).to(device))
+            for _ in range(2))
+    pairs = CV.interaction_pairs(a, b)
+    call = lambda: CV.union_interacting(pairs, method="sparse")
+    want = conv_cuda.union_sparse_fused_plain(pairs)
+    before = conv_cuda.LAUNCHES["union_sparse_fused"]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = call()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert conv_cuda.LAUNCHES["union_sparse_fused"] == before + 1
+    assert torch.equal(got, want)
+    assert torch.equal(got, CV.interaction_offsets(a, b, method="ntt_fused"))
+    for _ in range(3):
+        kernels = {e.key: e.count for e in chip_smoke._trace(call, 10)}
+        if kernels:
+            break
+    assert len(kernels) == 1 and "union_sparse_kernel" in next(iter(kernels)), kernels
+    assert 0 < next(iter(kernels.values())) <= 10, kernels
+
+
 def test_dense_counts_kernels_match_plain_twins(device):
     da, db = _conv_operands(device)
     da[0] = db[0] = True  # every count 4096
@@ -673,6 +751,10 @@ def test_conv_kernels_reject_bad_input(device):
         conv_cuda.convolve_sparse_fused(a, a.cpu())
     with pytest.raises(ValueError):
         conv_cuda.counts_sparse_fused(a, a, 14)
+    with pytest.raises(ValueError):
+        conv_cuda.union_sparse_fused([(a, a.cpu())])
+    with pytest.raises(ValueError):
+        conv_cuda.union_sparse_fused([(a, a)] * 9)
     with pytest.raises(TypeError):
         conv_cuda.conv_counts_fused(da[:8].float(), db[:8])
     with pytest.raises(ValueError):
