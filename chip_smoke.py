@@ -54,7 +54,24 @@ Phases, each printing what it saw:
    with the SM clock read under the same load),
    the calibrated word-op ceilings, every kernel's bound (the rollout,
    solver and peel kernels' from the SASS of the library just built), and
-   the NTT kernels' tensor-core instructions (HMMA) in that SASS.
+   the NTT kernels' tensor-core instructions (HMMA) in that SASS;
+8. after the timings, the MPC paths, each with the counters set to 0 just
+   before it and read just after: ``[sqp]``, ``solve(method="sqp")`` at
+   north-star config 3's width (64 candidates, horizon 32, a protected
+   background block), its seconds by stage, the soft objective no worse
+   than after the warm-up, kernel [2] against its twin on every candidate,
+   the toy problem's known answer; ``[receding]``, the example through
+   ``run`` (Hamming 0) and ``run_fused``, both along the numpy step, then
+   ``run_fused`` at horizon 32 under sync-debug mode "error";
+   ``[symmetric]``, the C2even problem of ``tests/test_symmetric_mpc.py``
+   from that test's draw at Hamming 0 and D4even at horizon 32 with a
+   stable region, symmetric toggles, kernel B's consistency flags against
+   ``bitplane.propagate`` on every final board, one launch of B with no
+   host sync, and the block / lone-cell answers; ``[reach]``, the eater
+   fixture's known answer, then a glider at each of 4096 offsets over two
+   propagated eater backgrounds for 32 steps, the card against the CPU on
+   256 and the bounds around kernel [1]'s exact Hamming of the completed
+   boards, with the candidates bounded and pruned a second.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -62,6 +79,7 @@ CUDA, or when any check fails, the script exits non-zero.
 """
 
 import collections
+import contextlib
 import itertools
 import json
 import re
@@ -251,6 +269,16 @@ WELD_TIER1_MARKS = (
 # instance (tests/test_torch_portfolio_example.py)
 PORTFOLIO_MIN_POP = 6
 GLIDER = [(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)]
+# the MPC paths: SQP at north-star config 3's width (candidates, horizon,
+# the iterations whose third warms up), run_fused and the D4even solve at
+# horizon 32, the reachability prefilter over a glider at every offset
+# (candidates, steps, those held to the CPU)
+SQP_C, SQP_HORIZON, SQP_ITERS = 64, 32, 100
+RECEDING_H32 = SYM_HORIZON = 32
+REACH_C, REACH_T, REACH_CPU = 4096, 32, 256
+# the C2even problem's draw of tests/test_symmetric_mpc.py on its control
+# mask's 72 cells (tests/test_torch_symmetric_mpc.py checks it against JAX)
+C2_DRAW = Path(__file__).parent / "tests" / "data" / "c2_symmetric_draw.npy"
 EATER = [(24, 21), (24, 22), (25, 21), (25, 23), (26, 23), (27, 23), (27, 24)]
 
 
@@ -815,6 +843,448 @@ def paired_ms(kernel_fn, plain_fn, reps):
             end.synchronize()
             times[fn].append(start.elapsed_time(end))
     return statistics.median(times[kernel_fn]), statistics.median(times[plain_fn])
+
+
+# ---------------------------------------------------------------------------
+# The MPC paths: SQP, receding horizon, symmetric, reachability
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def spying(module, name):
+    """Replace ``module.name`` for the block by a wrapper that calls it and
+    keeps each call's arguments, result and host seconds, fenced by
+    synchronize.  Yields the list of calls."""
+    calls = []
+    original = getattr(module, name)
+
+    def wrapper(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = original(*args, **kwargs)
+        torch.cuda.synchronize()
+        calls.append(SimpleNamespace(args=args, out=out, seconds=time.perf_counter() - t0))
+        return out
+
+    with replaced(module, name, wrapper):
+        yield calls
+
+
+@contextlib.contextmanager
+def replaced(module, name, value):
+    """``module.name`` set to ``value`` for the block."""
+    original = getattr(module, name)
+    setattr(module, name, value)
+    try:
+        yield
+    finally:
+        setattr(module, name, original)
+
+
+def reset_counters():
+    from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+
+    torch.cuda.synchronize()
+    step_cuda.reset_launches()
+    stable_cuda.reset_launches()
+
+
+def read_counters(path, kernels):
+    """The launch counters after a path's run; fails unless every kernel
+    named was launched."""
+    from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+
+    torch.cuda.synchronize()
+    counts = {**step_cuda.LAUNCHES, **stable_cuda.LAUNCHES}
+    counts = {name: n for name, n in counts.items() if n}
+    print(f"[{path}] launches {counts}")
+    check(all(counts.get(name, 0) > 0 for name in kernels),
+          f"[{path}] a kernel of the path was never launched: {counts}")
+    return counts
+
+
+def device_share(fn, n=3):
+    """(host ms, device ms, kernels) of one call of fn: the median host
+    time fenced by synchronize, and the device time and kernel launches of
+    a torch.profiler trace of n calls, each over n.  A trace may drop a
+    few launches, so the device time and its share of the host time are
+    lower bounds."""
+    host_ms = wall(fn, n) * 1e3
+    events = _trace(fn, n)
+    return (host_ms, sum(e.device_time_total for e in events) / n / 1e3,
+            sum(e.count for e in events) / n)
+
+
+def print_share(path, what, share):
+    host_ms, dev_ms, kernels = share
+    print(f"[{path}] {what}: {host_ms:.2f} ms on the host clock, at least {dev_ms:.2f} ms "
+          f"of it in {kernels:.0f} kernels on the device ({dev_ms / host_ms:.1%} busy)")
+
+
+def sqp_problem(dev, horizon):
+    """North-star config 3's shape: steer to a block at (40, 40) while a
+    protected block at (10, 10) (its ZOI) stays (tests/test_mpc.py
+    ``test_stable_background_constraint``)."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+    from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem
+    from lifeapi_tpu_torch.target import LifeTarget
+
+    block = B.move(rle.parse("2o$2o!", device=dev), 10, 10)
+    mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    mask[36:46, 36:46] = True
+    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!", device=dev), 40, 40))
+    return MPCProblem(initial=block, target=target, horizon=horizon, control_mask=mask,
+                      protected=B.to_dense(B.zoi(block)), background=block,
+                      weights=CostWeights(target=1.0, control=0.01, stable=5.0))
+
+
+def sqp_phase(dev, card):
+    """``solve(method="sqp")`` at config 3's full width (64 candidates,
+    horizon 32), its seconds split by stage, then its checks, kernel [2]
+    against its plain version on every candidate, and the toy problem's
+    known answer."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.examples import mpc_demo
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.target import hamming_cost
+
+    problem = sqp_problem(dev, SQP_HORIZON)
+    hvps = []  # host seconds of each Hessian-vector product, fenced
+    cg = solver.conjugate_gradients
+
+    def timed_cg(matvec, b, maxiter):
+        def timed(v):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = matvec(v)
+            torch.cuda.synchronize()
+            hvps.append(time.perf_counter() - t0)
+            return out
+
+        return cg(timed, b, maxiter)
+
+    with spying(solver, "solve_gradient") as warm, spying(solver, "solve_sqp") as sqp, \
+            spying(solver, "rescore_and_select") as rescore, \
+            replaced(solver, "conjugate_gradients", timed_cg):
+        reset_counters()
+        t0 = time.perf_counter()
+        sol = solver.solve(problem, torch.Generator().manual_seed(0), n_candidates=SQP_C,
+                           method="sqp", iters=SQP_ITERS)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    read_counters("sqp", ("controlled_rollout",))
+    print(f"[sqp] card: {card}")
+    print(f"[sqp] config 3 ({SQP_C} candidates, horizon {SQP_HORIZON}, warm-up "
+          f"{max(SQP_ITERS // 3, 10)} adam iterations, 8 Newton steps of 12 CG iterations): "
+          f"{total:.3f} s: warm-up {warm[0].seconds:.3f} s, Newton steps "
+          f"{sqp[0].seconds:.3f} s (of it {len(hvps)} HVPs {sum(hvps):.3f} s, "
+          f"{statistics.median(hvps) * 1e3:.1f} ms each, median), rescoring "
+          f"{rescore[0].seconds:.4f} s")
+
+    with torch.no_grad():
+        before = solver.soft_objective(warm[0].out[0], problem)
+        after = solver.soft_objective(sqp[0].out, problem)
+    print(f"[sqp] best soft objective: warm-up {float(before.min()):.4f}, after SQP "
+          f"{float(after.min()):.4f}; {int((after < before).sum())}/{SQP_C} candidates improved")
+    check(float(after.min()) <= float(before.min()), "SQP raised the best soft objective")
+    check(bool((after <= before).all()), "SQP raised a candidate's soft objective")
+
+    probs = torch.sigmoid(rescore[0].args[0]) * problem.control_mask
+    toggles = solver.candidate_toggles(probs, problem)
+    starts = problem.initial.expand(SQP_C, 64).contiguous()
+    finals_k = step_cuda.controlled_rollout(starts, toggles)
+    finals_p = step_cuda.controlled_rollout_plain(starts, toggles)
+    costs_k = solver.hard_cost(finals_k, toggles, problem)
+    check(torch.equal(finals_k, finals_p), "[sqp] controlled kernel != plain twin")
+    check(torch.equal(costs_k, solver.hard_cost(finals_p, toggles, problem)),
+          "[sqp] hard costs: kernel != plain twin")
+    check(torch.equal(costs_k, sol.all_costs), "[sqp] rescoring is not reproducible")
+    protected = B.from_dense(problem.protected)
+    moved = B.population((finals_k ^ problem.background) & protected)
+    kept = B.contains(finals_k, problem.background)
+    check(bool((kept | (costs_k >= problem.weights.stable * moved)).all()),
+          "[sqp] a final board lost the background and its cost does not count it")
+    print(f"[sqp] {SQP_C} hard costs kernel == plain; best {float(sol.cost)}, Hamming "
+          f"{int(hamming_cost(sol.final_board, problem.target))}; "
+          f"{int(kept.sum())}/{SQP_C} final boards keep the background block")
+
+    # where a Newton step's time goes: one HVP, and one gradient of the
+    # objective, at the solve's final logits
+    final = sqp[0].out
+    _, _, hvp = solver.grad_and_hvp(lambda x: solver.soft_objective(x, problem), final)
+    direction = torch.randn(final.shape, generator=torch.Generator(device=dev).manual_seed(1),
+                            device=dev)
+    print_share("sqp", f"one HVP of the {SQP_C} candidates", device_share(lambda: hvp(direction)))
+    print_share("sqp", "one gradient of the objective (an adam iteration's autograd)",
+                device_share(lambda: solver.value_and_grad(
+                    lambda x: solver.soft_objective(x, problem), final)))
+    del hvp
+
+    # known answer: tests/test_mpc.py test_sqp_solver_improves
+    toy = mpc_demo.problem(dev, horizon=6)
+    logits0 = solver.init_logits(torch.Generator().manual_seed(2), toy, 4)
+    start = solver.soft_objective(logits0, toy)
+    logits, _ = solver.solve_gradient(logits0, toy, iters=30)
+    logits = solver.solve_sqp(logits, toy, iters=3, cg_iters=8)
+    end = solver.soft_objective(logits, toy)
+    check(float(end.min()) < float(start.min()), "SQP toy problem: no improvement")
+    print(f"[sqp] toy problem: best soft objective {float(start.min()):.4f} -> "
+          f"{float(end.min()):.4f}")
+    return total
+
+
+def receding_phase(dev, card):
+    """The receding example through ``run`` and ``run_fused``, then
+    ``run_fused`` at horizon 32 under sync-debug mode "error"."""
+    from lifeapi_tpu_torch.examples import life_step_dense, receding_mpc
+    from lifeapi_tpu_torch.mpc import receding
+    from lifeapi_tpu_torch.core import board as B
+
+    reset_counters()
+    t0 = time.perf_counter()
+    host = receding_mpc.run(dev)
+    t_host = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fused = receding_mpc.run(dev, fused=True)
+    t_fused = time.perf_counter() - t0
+    p32 = receding_mpc.problem(dev, horizon=RECEDING_H32)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        long = receding.run_fused(p32, gen, steps=8, apply_horizon=2, n_candidates=16,
+                                  solve_iters=80)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    t_queued = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t_long = time.perf_counter() - t0
+    read_counters("receding", ("controlled_rollout",))
+
+    check(host["hamming"] == 0, f"receding run: final Hamming {host['hamming']}")
+    check(host["exact_dynamics"] and fused["exact_dynamics"],
+          "receding example: a trajectory leaves the exact dynamics")
+    boards = B.to_dense(long.boards).cpu().numpy()
+    applied = B.to_dense(long.applied).cpu().numpy()
+    check(long.boards.shape == (9, 64) and long.costs.shape == (4,),
+          "run_fused at horizon 32: wrong shapes")
+    check(all((life_step_dense(boards[i] ^ applied[i]) == boards[i + 1]).all()
+              for i in range(8)), "run_fused at horizon 32 leaves the exact dynamics")
+    print(f"[receding] card: {card}")
+    print(f"[receding] example (horizon 4, 8 steps, replan every 2, 8 candidates, 80 "
+          f"iterations): run {t_host:.3f} s, final Hamming {host['hamming']}, costs "
+          f"{host['run'].costs.tolist()}; run_fused {t_fused:.3f} s, final Hamming "
+          f"{fused['hamming']}; both follow the numpy step")
+    print(f"[receding] run_fused at horizon {RECEDING_H32} (8 steps, replan every 2, 16 "
+          f"candidates, 80 iterations), no host sync in its loop: {t_long:.3f} s, "
+          f"{t_long / 4:.3f} s a replan round ({t_queued:.3f} s to queue it), final "
+          f"Hamming {int(receding.final_error(long, p32.target))}, costs "
+          f"{long.costs.tolist()}")
+    return t_long / 4
+
+
+def symmetric_phase(dev, card):
+    """JAX's C2 problem, then D4even at horizon 32 with a stable region;
+    kernel B's consistency flags against ``bitplane.propagate`` on every
+    final board, and ``stable_consistency`` as one launch of B."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+    from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem, solver, symmetric
+    from lifeapi_tpu_torch.ops import stable_cuda
+    from lifeapi_tpu_torch.symmetry import groups, transforms
+    from lifeapi_tpu_torch.target import LifeTarget, hamming_cost
+
+    def orbit(board, sym):
+        out = board
+        for t in groups.GROUPS[sym]:
+            out = out | transforms.transform(board, t)
+        return out
+
+    def orbit_problem(sym, horizon, lo, hi, initial):
+        """Blocks on the orbit of one at (20, 20) from the orbit of
+        ``initial``, toggles allowed on the orbit of [lo, hi)^2."""
+        blk = B.move(rle.parse("2o$2o!", device=dev), 20, 20)
+        box = torch.zeros((64, 64), device=dev)
+        box[lo:hi, lo:hi] = 1.0
+        return MPCProblem(initial=orbit(initial, sym),
+                          target=LifeTarget.from_state(orbit(blk, sym)), horizon=horizon,
+                          control_mask=symmetric.orbit_symmetrize(box, sym) > 0,
+                          weights=CostWeights(target=1.0, control=0.01))
+
+    def symmetric_toggles(sol, sym):
+        on = sol.control_probs > 0.5
+        return all(torch.equal(transforms.transform_dense(on, t), on)
+                   for t in groups.GROUPS[sym])
+
+    c2, d4 = groups.StaticSymmetry.C2even, groups.StaticSymmetry.D4even
+    p_c2 = orbit_problem(c2, 3, 18, 24, B.empty(device=dev))
+    # four blinkers: the solves end on boards of every kind, most of them
+    # no still life in the region
+    p_d4 = orbit_problem(d4, SYM_HORIZON, 17, 25,
+                         B.move(rle.parse("3o!", device=dev), 19, 20))
+    region = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    region[16:48, 16:48] = True
+    # the JAX test's own draw (jax.random.key(0)) on the mask's cells, the
+    # only ones that reach the objective or the toggles; from a draw at
+    # seed 0 of the port's generator no candidate reaches the target, in
+    # either package (tests/test_torch_symmetric_mpc.py)
+    c2_draw = torch.full((8, 3, 64, 64), -3.0, device=dev)
+    c2_draw[:, :, p_c2.control_mask] = torch.from_numpy(np.load(C2_DRAW)).to(dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    with replaced(solver, "init_logits", lambda *args, **kwargs: c2_draw):
+        sol_c2 = symmetric.solve_symmetric(p_c2, torch.Generator(), c2, n_candidates=8,
+                                           iters=120)
+    torch.cuda.synchronize()
+    t_c2 = time.perf_counter() - t0
+    with spying(symmetric, "stable_consistency") as consistency:
+        t0 = time.perf_counter()
+        sol_d4 = symmetric.solve_symmetric(p_d4, torch.Generator().manual_seed(0), d4,
+                                           n_candidates=16, iters=120, stable_region=region)
+        torch.cuda.synchronize()
+        t_d4 = time.perf_counter() - t0
+    read_counters("symmetric", ("controlled_rollout", "propagate_fused"))
+
+    ham_c2 = int(hamming_cost(sol_c2.final_board, p_c2.target))
+    check(ham_c2 == 0, f"C2 symmetric solve: Hamming {ham_c2}")
+    check(symmetric_toggles(sol_c2, c2), "C2 symmetric solve: toggles not C2even-symmetric")
+    check(symmetric_toggles(sol_d4, d4), "D4 symmetric solve: toggles not D4even-symmetric")
+    finals = consistency[0].args[0]
+    flags = consistency[0].out
+    plain = symmetric.stable_consistency_plain(finals, region)
+    check(torch.equal(flags, plain), "stable_consistency: kernel B != bitplane.propagate")
+    check(bool((sol_d4.all_costs[~flags] >= 1e4).all()),
+          "D4 symmetric solve: an inconsistent candidate was not penalized")
+
+    # one launch of kernel B, with no host sync; the known answers
+    stable_cuda.reset_launches()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = symmetric.stable_consistency(finals, region)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    launched = {k: v for k, v in stable_cuda.LAUNCHES.items() if v}
+    check(launched == {"propagate_fused": 1},
+          f"stable_consistency is not one launch of kernel B: {launched}")
+    check(torch.equal(again, flags), "stable_consistency is not reproducible")
+    known = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    known[28:34, 28:34] = True
+    blk = B.move(rle.parse("2o$2o!", device=dev), 30, 30)
+    lone = B.from_cells([(30, 30)], device=dev)
+    answers = symmetric.stable_consistency(torch.stack([blk, lone]), known).tolist()
+    check(answers == [True, False], f"stable_consistency known answers: {answers}")
+
+    print(f"[symmetric] card: {card}")
+    print(f"[symmetric] C2even (horizon 3, 8 candidates, 120 iterations, from the JAX "
+          f"test's draw): Hamming {ham_c2}, "
+          f"{int((sol_c2.all_costs < 1).sum())}/8 candidates at Hamming 0, toggles "
+          f"symmetric; {t_c2:.3f} s")
+    print(f"[symmetric] D4even (four blinkers to four blocks, horizon {SYM_HORIZON}, 16 "
+          f"candidates, 120 iterations, stable region [16, 48)^2): best cost "
+          f"{float(sol_d4.cost)}, Hamming {int(hamming_cost(sol_d4.final_board, p_d4.target))}, "
+          f"{len(set(map(tuple, finals.tolist())))} distinct final boards, "
+          f"{int(flags.sum())}/16 consistent (kernel B == bitplane.propagate), toggles "
+          f"symmetric; "
+          f"{t_d4:.3f} s; stable_consistency is one launch of B; block consistent, lone "
+          f"cell not")
+    return t_d4
+
+
+def reach_phase(dev, card):
+    """The reachability prefilter: the eater fixture's known answer, then a
+    glider at each of the 4096 offsets over two propagated eater
+    backgrounds, 32 steps: the fixture's (one hidden cell, which
+    propagation determines) and the eater with its 2-ring unknown (40 cells
+    stay unknown).  The card against the CPU on 256 candidates and the
+    bounds against kernel [1]'s exact rollout of the completed boards."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+    from lifeapi_tpu_torch.mpc import reachability as RC
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.target import LifeTarget, hamming_cost
+
+    eater = B.move(rle.parse(EATER_RLE, device=dev), 20, 20)
+    target = LifeTarget.from_state(eater)
+
+    def background(known, unknown):
+        res = BP.propagate(BP.make(state=known[None], unknown=unknown[None]))
+        check(bool(res.consistent[0]), "reach: an eater background is inconsistent")
+        return BP.BitStable(res.stable.state[0], res.stable.unknown[0],
+                            tuple(r[0] for r in res.stable.ruled))
+
+    hidden = B.from_cells([(22, 20)], device=dev)
+    backgrounds = {"one hidden cell": background(eater & ~hidden, hidden),
+                   "2-ring unknown": background(*eater_problem(dev, hide_cells=(), ring2=True))}
+    glider = rle.parse("bob$2bo$3o!", device=dev)
+    shift = torch.arange(REACH_C, device=dev)
+    gliders = B.move_dyn(glider, shift % 64, shift // 64)
+
+    reset_counters()
+    t0 = time.perf_counter()
+    fixture = backgrounds["one hidden cell"]
+    smash = fixture.state | B.from_cells([(20, 21), (20, 22), (21, 21), (21, 22)], device=dev)
+    keep_f, _, upper_f = RC.prune_candidates(torch.stack([fixture.state, smash]), fixture,
+                                             target, steps=4, max_cost=0)
+    runs = {}
+    for name, stable in backgrounds.items():
+        initials = stable.state | gliders
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        bounds = RC.prune_candidates(initials, stable, target, steps=REACH_T, max_cost=0)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t1
+        # the completed boards (the eater plus the glider), exactly, by kernel [1]
+        glider_cells = initials & ~stable.state
+        exact = hamming_cost(step_cuda.rollout(eater | glider_cells, REACH_T), target)
+        runs[name] = (stable, initials, bounds, seconds, exact,
+                      B.is_empty(glider_cells & stable.unknown))
+    torch.cuda.synchronize()
+    t_all = time.perf_counter() - t0
+    read_counters("reach", ("rollout",))
+
+    check(keep_f.tolist() == [True, False] and int(upper_f[0]) == 0,
+          f"reach fixture: keep {keep_f.tolist()}, upper {upper_f.tolist()}")
+    print(f"[reach] card: {card}")
+    print("[reach] eater fixture: quiet candidate kept with upper 0, smashed one pruned")
+    sub = slice(0, REACH_C, REACH_C // REACH_CPU)  # spread over the offsets
+    cpu_target = LifeTarget(target.wanted.cpu(), target.unwanted.cpu())
+    for name, (stable, initials, (keep, lower, upper), seconds, exact, clear) in runs.items():
+        n_unknown = int(B.population(stable.unknown))
+        check(bool((lower <= upper).all()), f"reach, {name}: a lower bound above its upper")
+        check(bool(((lower <= exact) & (exact <= upper))[clear].all()),
+              f"reach, {name}: an exact Hamming outside its bounds")
+        cpu_stable = BP.BitStable(stable.state.cpu(), stable.unknown.cpu(),
+                                  tuple(r.cpu() for r in stable.ruled))
+        want = RC.prune_candidates(initials[sub].cpu(), cpu_stable, cpu_target,
+                                   steps=REACH_T, max_cost=0)
+        for g, w in zip((keep, lower, upper), want):
+            check(torch.equal(g[sub].cpu(), w), f"reach, {name}: card != CPU")
+        planes = RC.refined_rollout(initials[sub], stable.unknown.expand(REACH_CPU, 64),
+                                    stable, REACH_T)
+        cpu_planes = RC.refined_rollout(initials[sub].cpu(),
+                                        cpu_stable.unknown.expand(REACH_CPU, 64),
+                                        cpu_stable, REACH_T)
+        for g, w in zip(planes, cpu_planes):
+            check(torch.equal(g.cpu(), w), f"reach, {name}: refined_rollout card != CPU")
+        print(f"[reach] {REACH_C} gliders over the eater with its {name} ({n_unknown} "
+              f"cells unknown after propagation), {REACH_T} steps, max cost 0: "
+              f"{int((~keep).sum())} pruned, {int(keep.sum())} kept; lower "
+              f"{int(lower.min())}-{int(lower.max())}, upper {int(upper.min())}-"
+              f"{int(upper.max())}; card == CPU on {REACH_CPU} (bounds and planes); lower "
+              f"<= exact <= upper on the {int(clear.sum())} candidates whose glider misses "
+              f"the unknown cells ({REACH_C - int(clear.sum())} skipped), exact by kernel "
+              f"[1]; prune_candidates {seconds:.4f} s, {REACH_C / seconds:.4g} candidates/s, "
+              f"{int((~keep).sum()) / seconds:.4g} pruned/s")
+    ring = backgrounds["2-ring unknown"]
+    print_share("reach", f"one prune of {REACH_C} candidates, {REACH_T} steps",
+                device_share(lambda: RC.prune_candidates(ring.state | gliders, ring, target,
+                                                          steps=REACH_T, max_cost=0), n=2))
+    print(f"[reach] phase {t_all:.3f} s")
+    return REACH_C / runs["2-ring unknown"][3]
 
 
 # ---------------------------------------------------------------------------
@@ -2161,6 +2631,16 @@ def main():
     ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, dev_ms, card)
     weld_timings(weld_run, ms, plain_ms, dev_ms, card)
     bounds = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms, dev_ms, lib_path)
+
+    # -- 8. the MPC paths: SQP, receding horizon, symmetric, reachability -----------
+    # after the kernel timings: their profiler traces keep fewer of a
+    # kernel's launches in a process that has already traced these paths'
+    # hundred-thousand-kernel calls
+    mpc_times = {"sqp": sqp_phase(dev, card), "receding": receding_phase(dev, card),
+                 "symmetric": symmetric_phase(dev, card), "reach": reach_phase(dev, card)}
+    print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, run_fused {mpc_times['receding']:.3f} s "
+          f"a replan round, D4 symmetric solve {mpc_times['symmetric']:.3f} s, reachability "
+          f"{mpc_times['reach']:.4g} candidates/s ({card})")
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [

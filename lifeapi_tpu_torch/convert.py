@@ -1,7 +1,7 @@
 """Carry state between :mod:`lifeapi_tpu` and this port, through numpy.
 
 The system has no learned weights: what crosses over is boards, targets,
-control masks, MPC problems, partial still lifes, LifeHistory overlays,
+control masks, MPC problems and runs, partial still lifes, LifeHistory overlays,
 welds, symmetry enums and the rollout kernels' half-word layout, and what comes back for comparison is boards, counter
 planes and results.  Every function here takes numpy arrays, or objects
 whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
@@ -122,6 +122,17 @@ def solution_to_numpy(solution):
         "final_board": board_to_packed(solution.final_board),
         "cost": solution.cost.detach().cpu().numpy(),
         "all_costs": solution.all_costs.detach().cpu().numpy(),
+    }
+
+
+def mpc_run_to_numpy(run):
+    """Port ``MPCRun`` -> dict of numpy arrays in the JAX layouts: packed
+    ``boards`` ``uint32[steps + 1, 64, 2]`` and ``applied``
+    ``uint32[steps, 64, 2]``, float32 ``costs``."""
+    return {
+        "boards": board_to_packed(run.boards),
+        "applied": board_to_packed(run.applied),
+        "costs": run.costs.detach().cpu().numpy(),
     }
 
 

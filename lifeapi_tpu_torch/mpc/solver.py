@@ -8,10 +8,13 @@ penalty.
 
 * :func:`solve_gradient` — batched adam on control logits with
   temperature annealing, over the soft-Life relaxation (mpc/soft.py).
+* :func:`solve_sqp` — sequential quadratic steps: damped Newton where each
+  QP block (H + lam I) d = -g is solved by conjugate gradients, with
+  Hessian-vector products by double backward.
 * :func:`solve_cem` — derivative-free cross-entropy method scoring
   candidates on the exact path only.
 
-Both finish on the exact path: :func:`hard_score_batch` re-simulates every
+All finish on the exact path: :func:`hard_score_batch` re-simulates every
 candidate with the controlled-rollout kernel (ops/step_cuda.py) on a CUDA
 problem, so reported costs are true integer Hamming costs, never relaxed
 ones.  Candidates are a leading batch dimension throughout.
@@ -32,6 +35,7 @@ from . import soft as soft_mod
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+CG_TOL = 1e-5  # jax.scipy.sparse.linalg.cg's default relative tolerance
 
 
 class MPCProblem(NamedTuple):
@@ -114,32 +118,135 @@ def init_logits(generator, problem: MPCProblem, n_candidates, scale=0.5,
     return (bias + scale * noise).to(problem.initial.device)
 
 
+def adam_init(logits):
+    """Adam state for ``logits``: the step count and the two moments."""
+    return 0, torch.zeros_like(logits), torch.zeros_like(logits)
+
+
+def adam_update(logits, grads, state, lr):
+    """One adam step with optax's numerics (``optax.adam``: bias-corrected
+    moments, eps outside the square root).  Returns (logits, state)."""
+    count, mu, nu = state
+    count += 1
+    mu = (1 - ADAM_B1) * grads + ADAM_B1 * mu
+    nu = (1 - ADAM_B2) * grads * grads + ADAM_B2 * nu
+    mu_hat = mu / (1 - ADAM_B1 ** count)
+    nu_hat = nu / (1 - ADAM_B2 ** count)
+    logits = logits - lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+    return logits, (count, mu, nu)
+
+
+def value_and_grad(objective, logits):
+    """``objective(logits)`` (one value per leading index) and the
+    gradient of its sum, both detached."""
+    x = logits.detach().requires_grad_(True)
+    vals = objective(x)
+    (grads,) = torch.autograd.grad(vals.sum(), x)
+    return vals.detach(), grads
+
+
+def grad_and_hvp(objective, logits):
+    """``objective(logits)`` (one value per leading index), the gradient
+    of its sum, both detached, and ``hvp(v)``, the Hessian of the sum times
+    ``v`` by double backward.  The graph lives as long as ``hvp``."""
+    x = logits.detach().requires_grad_(True)
+    vals = objective(x)
+    (g,) = torch.autograd.grad(vals.sum(), x, create_graph=True)
+
+    def hvp(v):
+        (hv,) = torch.autograd.grad(g, x, v, retain_graph=True)
+        return hv
+
+    return vals.detach(), g.detach(), hvp
+
+
 def solve_gradient(logits0, problem: MPCProblem, iters=150, lr=0.15,
                    tau_start=0.6, tau_end=0.15):
     """First-order batched solve.  logits0: [C, T, 64, 64]; iters >= 1.
-    Returns (logits, history [iters, C] of soft costs).
-
-    Adam with optax's numerics: bias-corrected moments, eps outside the
-    square root."""
-    logits = logits0.detach().clone()
-    mu = torch.zeros_like(logits)
-    nu = torch.zeros_like(logits)
+    Returns (logits, history [iters, C] of soft costs)."""
+    logits = logits0.detach()
+    state = adam_init(logits)
     history = []
     for i in range(iters):
         frac = i / max(iters - 1, 1)
         tau = tau_start * (tau_end / tau_start) ** frac
-        logits.requires_grad_(True)
-        vals = soft_objective(logits, problem, tau)
-        (grads,) = torch.autograd.grad(vals.sum(), logits)
-        logits = logits.detach()
-        history.append(vals.detach())
-        count = i + 1
-        mu = (1 - ADAM_B1) * grads + ADAM_B1 * mu
-        nu = (1 - ADAM_B2) * grads * grads + ADAM_B2 * nu
-        mu_hat = mu / (1 - ADAM_B1 ** count)
-        nu_hat = nu / (1 - ADAM_B2 ** count)
-        logits = logits - lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+        vals, grads = value_and_grad(lambda x: soft_objective(x, problem, tau), logits)
+        history.append(vals)
+        logits, state = adam_update(logits, grads, state, lr)
     return logits, torch.stack(history)
+
+
+def _dot(a, b):
+    """Per-candidate dot product over every dimension but the first."""
+    return (a * b).flatten(1).sum(dim=1)
+
+
+def conjugate_gradients(matvec, b, maxiter):
+    """Solve ``matvec(x) = b`` for a batch of independent symmetric
+    positive-definite systems, one per leading index, as
+    ``jax.vmap(jax.scipy.sparse.linalg.cg)`` does at its defaults: x0 = 0,
+    each system stops once ``<r, r> <= CG_TOL**2 <b, b>`` or after
+    ``maxiter`` iterations.  ``matvec`` maps the batch to the batch, each
+    system's product depending on its own slice only.
+
+    Under ``vmap`` JAX loops while any system is active and freezes the
+    converged ones.  Here every one of the ``maxiter`` iterations runs and
+    ``torch.where`` keeps a converged system's state: a mask multiplied in
+    would carry a converged system's 0/0 into its result, and the loop
+    reads nothing back to the host."""
+    stop = CG_TOL ** 2 * _dot(b, b)
+    x = torch.zeros_like(b)
+    r = b  # b - matvec(x0), and matvec(0) = 0
+    p = r
+    gamma = _dot(r, r)
+    view = (-1,) + (1,) * (b.dim() - 1)
+    for _ in range(maxiter):
+        active = gamma > stop
+        ap = matvec(p)
+        alpha = (gamma / _dot(p, ap)).view(view)
+        x_new = x + alpha * p
+        r_new = r - alpha * ap
+        gamma_new = _dot(r_new, r_new)
+        p_new = r_new + (gamma_new / gamma).view(view) * p
+        a = active.view(view)
+        x = torch.where(a, x_new, x)
+        r = torch.where(a, r_new, r)
+        p = torch.where(a, p_new, p)
+        gamma = torch.where(active, gamma_new, gamma)
+    return x
+
+
+STEP_SIZES = (1.0, 0.5, 0.25)
+
+
+def solve_sqp(logits0, problem: MPCProblem, iters=8, cg_iters=12, damping=1.0):
+    """Damped Newton / SQP on the relaxed objective at ``problem.tau``:
+    each step solves the QP block (H + lam I) d = -g by conjugate
+    gradients, lam = damping * 0.5**i, with Hessian-vector products by
+    double backward, then takes the best of the step sizes 1, 1/2, 1/4
+    where it beats the current cost.
+
+    logits0: [C, T, 64, 64]; each candidate is solved independently: the
+    objective of the sum over candidates has a block-diagonal Hessian, so
+    one product of the batch is every candidate's."""
+    def f(lg):
+        return soft_objective(lg, problem)
+
+    lg = logits0.detach()
+    c = lg.shape[0]
+    for i in range(iters):
+        lam = damping * 0.5 ** i
+        f0, g, hvp = grad_and_hvp(f, lg)
+        d = conjugate_gradients(lambda v: hvp(v) + lam * v, -g, cg_iters)
+        del hvp  # frees the double-backward graph
+        with torch.no_grad():
+            cands = torch.stack([lg + a * d for a in STEP_SIZES])
+            costs = f(cands.flatten(0, 1)).view(len(STEP_SIZES), c)
+            best = torch.argmin(costs, dim=0)
+            pick = torch.arange(c, device=best.device)
+            improved = costs[best, pick] < f0
+            lg = torch.where(improved.view(-1, 1, 1, 1), cands[best, pick], lg)
+    return lg
 
 
 def rescore_and_select(logits, problem: MPCProblem):
@@ -158,11 +265,18 @@ def rescore_and_select(logits, problem: MPCProblem):
 
 def solve(problem: MPCProblem, generator, n_candidates=32, method="gradient",
           iters=150, **kwargs):
-    """End-to-end single-device solve: init -> optimize -> hard rescore."""
-    if method != "gradient":
+    """End-to-end single-device solve: init -> optimize -> hard rescore.
+    ``method="sqp"`` warms up with ``max(iters // 3, 10)`` gradient
+    iterations at their defaults, then runs :func:`solve_sqp` with
+    ``kwargs``."""
+    if method not in ("gradient", "sqp"):
         raise ValueError(f"unknown method {method!r}")
     logits0 = init_logits(generator, problem, n_candidates)
-    logits, _ = solve_gradient(logits0, problem, iters=iters, **kwargs)
+    if method == "gradient":
+        logits, _ = solve_gradient(logits0, problem, iters=iters, **kwargs)
+    else:
+        logits, _ = solve_gradient(logits0, problem, iters=max(iters // 3, 10))
+        logits = solve_sqp(logits, problem, **kwargs)
     return rescore_and_select(logits, problem)
 
 

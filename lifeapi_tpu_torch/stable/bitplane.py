@@ -1,7 +1,9 @@
 """Bit-sliced still-life constraint propagation on int64 board planes.
 
-Counterpart of :mod:`lifeapi_tpu.stable.bitplane` (its lines 1-580 and the
-``Vulnerable``/branch-priority part): the 10-plane layout of the reference
+Counterpart of :mod:`lifeapi_tpu.stable.bitplane`, all of it: the
+propagation, the three-state (ternary) steps over a stable background that
+:mod:`lifeapi_tpu_torch.mpc.reachability` rolls, and the
+``Vulnerable``/branch-priority part.  The 10-plane layout of the reference
 ``LifeStable`` (state, unknown, 8 inverted option planes,
 LifeStable.hpp:39-53), each plane a port board ``int64[..., 64]``, with the
 espresso netlists replaced by the interval-comparator circuits of
@@ -547,6 +549,287 @@ def propagate(bst: BitStable, max_iters=256):
         active = active & res.consistent & res.changed
         it += 1
     return BitPropagateResult(cur, consistent, changed_ever)
+
+
+# -- three-state (ternary) stepping over a stable background -----------------
+
+
+def step_ternary_packed(state, unknown, naive=False):
+    """Packed three-state Life step (interval semantics of the dormant
+    unknown_step netlists; bit-plane counterpart of
+    stable/ternary.step_ternary).  state/unknown: boards; returns
+    (next_state, next_unknown)."""
+    center_on = state
+    center_unk = unknown
+    known_off = ~state & ~unknown
+
+    on9 = _counts_nibble(state)
+    unk9 = _counts_nibble(unknown)
+    A = nb.sub_bit(on9, center_on)
+    U = nb.sub_bit(unk9, center_unk)
+    AU = nb.add(A, U)
+
+    def in_range(c):
+        return nb.le_const(A, c) & nb.ge_const(AU, c)
+
+    has_23 = in_range(2) | in_range(3)
+    has_3 = in_range(3)
+    # interval is never empty (U >= 0); "contains a non-{2,3}" and
+    # "contains a non-3" by complement of containment
+    only_23 = nb.ge_const(A, 2) & nb.le_const(AU, 3)
+    only_3 = nb.eq_const(A, 3) & nb.eq_const(AU, 3)
+
+    on_like = ~known_off
+    off_like = ~center_on
+
+    maybe_on = (on_like & has_23) | (off_like & has_3)
+    maybe_off = (on_like & ~only_23) | (off_like & ~only_3)
+
+    next_state = maybe_on & ~maybe_off
+    next_unknown = maybe_on & maybe_off
+    if naive:
+        next_unknown = next_unknown | center_unk
+        next_state = next_state & ~center_unk
+    return next_state, next_unknown
+
+
+def refined_step_circuit(cur_on, cur_unk, ruled, A_cur, A_stab, U_stab):
+    """Elementwise core of the options-REFINED ternary step (the reference's
+    dormant ``bitslicing/unknown_step_refined.py:51-85`` semantics): step a
+    board whose unknown cells are *stable* unknowns, using the stable option
+    planes to enumerate only the achievable neighbour configurations instead
+    of the naive count interval.
+
+    Inputs (all exclusive of the center cell):
+      ``A_cur``  nibble — currently known-ON neighbours,
+      ``A_stab`` nibble — stable known-ON neighbours,
+      ``U_stab`` nibble — stable-unknown neighbours,
+    plus the current three-state (``cur_on``/``cur_unk``) and the center's
+    8 ruled option planes.
+
+    For each possible stable option (center s, stable count n): the
+    unknown neighbours contribute exactly ``n - A_stab`` current ON cells
+    (they sit at their stable values), so the current count is
+    ``c = A_cur + n - A_stab``; the center steps by ``life_rule(center, c)``
+    with center = the current state, or s when the current state is
+    unknown.  Aggregating over options yields maybe_on / maybe_off /
+    maybe_unstable exactly as the reference's ``unknown_step_function``.
+
+    Returns ``(next_on, next_unknown, unstable)`` planes:
+      * cells whose current AND stable center are unknown stay unknown;
+        for them ``unstable`` flags that stability of the unknown
+        background could not be guaranteed;
+      * cells with no achievable option at all (inconsistent stable
+        knowledge) come out unknown with ``unstable`` set.
+    """
+    # V = A_cur - A_stab + 8, shifted to stay unsigned: it ranges over
+    # 0..16, so it needs 5 bits (a 4-bit nibble would wrap)
+    eight = nb.const(cur_on, 8, width=5)
+    V = nb.add(A_cur, nb.sub(eight, A_stab, width=5), width=5)
+    # achievable current count for option count n:  c = n + (V - 8)
+    # c == 3  <=>  V == 11 - n ;  c in {2,3}  <=>  V in {10-n, 11-n}
+    eqV = {v: nb.eq_const(V, v) for v in range(4, 12)}
+
+    AU_stab = nb.add(A_stab, U_stab)
+
+    maybe_on = torch.zeros_like(cur_on)
+    maybe_off = torch.zeros_like(cur_on)
+    maybe_unstable = torch.zeros_like(cur_on)
+    any_valid = torch.zeros_like(cur_on)
+    for idx, (_, cnt, live) in enumerate(OPTIONS):
+        # option achievable: not ruled out AND its stable count is reachable
+        # (A_stab <= cnt <= A_stab + U_stab)
+        valid = (~ruled[idx] & nb.le_const(A_stab, cnt)
+                 & nb.ge_const(AU_stab, cnt))
+        # center used for stepping: the current state; the option's stable
+        # center when the current state is unknown
+        center_on = cur_on | cur_unk if live else cur_on
+        # life_rule(center, c): ON iff c==3, or center ON and c==2
+        stepped_on = eqV[11 - cnt] | (center_on & eqV[10 - cnt])
+        unstable = ~stepped_on if live else stepped_on
+        maybe_on = maybe_on | (valid & stepped_on)
+        maybe_off = maybe_off | (valid & ~stepped_on)
+        maybe_unstable = maybe_unstable | (valid & unstable)
+        any_valid = any_valid | valid
+
+    # stable three-state of the center from the option planes alone
+    # (reference StableOptions.to_three_state)
+    maybe_live_o = ~(ruled[0] & ruled[1])
+    maybe_dead_o = ~(ruled[2] & ruled[3] & ruled[4] & ruled[5]
+                     & ruled[6] & ruled[7])
+    keep_unknown = cur_unk & maybe_live_o & maybe_dead_o
+
+    inconsistent = ~any_valid
+    next_unknown = keep_unknown | (maybe_on & maybe_off) | inconsistent
+    next_on = maybe_on & ~maybe_off & ~next_unknown
+    unstable = (keep_unknown & maybe_unstable) | inconsistent
+    return next_on, next_unknown, unstable
+
+
+def step_ternary_refined(cur_state, cur_unknown, stable: BitStable):
+    """Options-refined packed ternary step (reference
+    unknown_step_refined.py semantics; see :func:`refined_step_circuit`).
+
+    ``cur_state``/``cur_unknown``: the current generation (unknown cells
+    are assumed to sit at their stable values — the reference's "all
+    unknowns are stable unknowns" precondition, i.e.
+    ``cur_unknown == stable.unknown``).  ``stable`` carries the stable
+    background knowledge.  Returns (next_state, next_unknown, unstable)."""
+    A_cur = nb.sub_bit(_counts_nibble(cur_state), cur_state)
+    A_stab = nb.sub_bit(_counts_nibble(stable.state), stable.state)
+    U_stab = nb.sub_bit(_counts_nibble(stable.unknown), stable.unknown)
+    return refined_step_circuit(cur_state, cur_unknown, stable.ruled,
+                                A_cur, A_stab, U_stab)
+
+
+def refined_step_tracked_circuit(cur_on, track_unk, free_unk, tracking,
+                                 ruled, A_cur, Tn, F, A_stab, U_stab):
+    """Elementwise core of the SOUND multi-step refined ternary step.
+
+    Generalizes :func:`refined_step_circuit` by dropping its "every
+    unknown is a stable unknown" precondition, which multi-step rollouts
+    violate as soon as a known cell is demoted to unknown.  Cells are
+    partitioned by a ``tracking`` mask — cells whose CURRENT value provably
+    equals their stable value in every completion of the background
+    (stable-unknown cells still at their stable value count as
+    tracking-unknowns):
+
+      * known-ON / known-OFF neighbours contribute exactly their value;
+      * tracking-unknown neighbours (count ``Tn``) contribute their
+        stable bits, which the center's option pins to a SUM interval:
+        for option count n, the stable-ON count among them lies in
+        [max(0, n - A_stab - (U_stab - Tn)), min(n - A_stab, Tn)];
+      * free unknowns (count ``F``) contribute [0, F] unconstrained.
+
+    The current neighbour count is therefore a per-option INTERVAL
+    [c_lo, c_hi], and next-state possibilities are interval queries.
+    With Tn == U_stab and F == 0 the intervals degenerate and this
+    reduces exactly to :func:`refined_step_circuit`.
+
+    The ``keep`` output is the reference's dormant ``unknown_keep``
+    vocabulary (bitslicing/unknown_keep.py:17-26 intended semantics):
+    tracking cells for which EVERY achievable option steps back to its own
+    stable value — they provably remain at their stable value next
+    generation.
+
+    All counts are exclusive of the center.  Returns
+    ``(next_on, next_unknown, keep)``.
+    """
+    cur_unk = track_unk | free_unk
+    known_off = ~cur_on & ~cur_unk
+    track_known = tracking & ~cur_unk
+
+    AU_stab = nb.add(A_stab, U_stab)
+    # D = A_stab + (U_stab - Tn): max stable-ON neighbours outside the
+    # tracking-unknown set (Tn <= U_stab so the subtraction is safe)
+    D = nb.sub(AU_stab, Tn)
+    zero4 = nb.const(cur_on, 0)
+    zero = torch.zeros_like(cur_on)
+
+    maybe_on = zero
+    maybe_off = zero
+    violate = zero
+    any_valid = zero
+    for idx, (_, cnt, live) in enumerate(OPTIONS):
+        cnt_nib = nb.const(cur_on, cnt)
+        valid = (~ruled[idx] & nb.le_const(A_stab, cnt)
+                 & nb.ge_const(AU_stab, cnt))
+        # a tracked KNOWN center's stable value IS its current value:
+        # only options of that polarity are achievable
+        wrong_polarity = known_off if live else cur_on
+        valid = valid & ~(track_known & wrong_polarity)
+
+        # c_lo = A_cur + max(0, cnt - D);  c_hi = A_cur + min(r, Tn) + F
+        m = nb.select(nb.ge_const(D, cnt), zero4, nb.sub(cnt_nib, D))
+        r = nb.sub(cnt_nib, A_stab)  # >= 0 under the valid guard
+        c_lo = nb.add(A_cur, m, width=5)
+        c_hi = nb.add(nb.add(A_cur, nb.minimum(r, Tn), width=5), F, width=5)
+
+        int3 = nb.le_const(c_lo, 3) & nb.ge_const(c_hi, 3)
+        int2 = nb.le_const(c_lo, 2) & nb.ge_const(c_hi, 2)
+        sub23 = nb.ge_const(c_lo, 2) & nb.le_const(c_hi, 3)
+        all3 = nb.eq_const(c_lo, 3) & nb.eq_const(c_hi, 3)
+
+        # center-value hypotheses this option admits
+        live_m = ~zero if live else zero
+        h_on = cur_on | (track_unk & live_m) | free_unk
+        h_off = known_off | (track_unk & ~live_m) | free_unk
+
+        maybe_on = maybe_on | (valid & ((h_on & (int2 | int3))
+                                        | (h_off & int3)))
+        maybe_off = maybe_off | (valid & ((h_on & ~sub23)
+                                          | (h_off & ~all3)))
+        # keep: stepping FROM the option's own center must land back on it
+        stays = sub23 if live else ~int3
+        violate = violate | (valid & ~stays)
+        any_valid = any_valid | valid
+
+    inconsistent = ~any_valid
+    next_unknown = (maybe_on & maybe_off) | inconsistent
+    next_on = maybe_on & ~maybe_off
+    keep = tracking & any_valid & ~violate
+    return next_on, next_unknown, keep
+
+
+def initial_tracking(cur_state, cur_unknown, stable: BitStable):
+    """Cells whose current value provably equals their stable value: known
+    cells agreeing with a KNOWN stable state, plus stable-unknown cells
+    still marked unknown (they sit at their stable values by
+    construction of the rollout's initial state)."""
+    stable_known = ~stable.unknown
+    agree = ~(cur_state ^ stable.state)
+    return ((stable_known & ~cur_unknown & agree)
+            | (stable.unknown & cur_unknown))
+
+
+def _tracked_circuit(cur_state, cur_unknown, tracking, stable: BitStable):
+    """:func:`refined_step_tracked_circuit` on the neighbour counts of a
+    board: ``(next_on, next_unknown, keep)``."""
+    track_unk = cur_unknown & tracking
+    free_unk = cur_unknown & ~tracking
+    A_cur = nb.sub_bit(_counts_nibble(cur_state), cur_state)
+    Tn = nb.sub_bit(_counts_nibble(track_unk), track_unk)
+    F = nb.sub_bit(_counts_nibble(free_unk), free_unk)
+    A_stab = nb.sub_bit(_counts_nibble(stable.state), stable.state)
+    U_stab = nb.sub_bit(_counts_nibble(stable.unknown), stable.unknown)
+    return refined_step_tracked_circuit(
+        cur_state, track_unk, free_unk, tracking, stable.ruled,
+        A_cur, Tn, F, A_stab, U_stab,
+    )
+
+
+def step_ternary_tracked(cur_state, cur_unknown, tracking,
+                         stable: BitStable):
+    """One SOUND refined ternary step with tracking maintenance (see
+    :func:`refined_step_tracked_circuit`).  Returns
+    ``(next_state, next_unknown, next_tracking)``; iterate by feeding all
+    three back (mpc/reachability.refined_rollout)."""
+    next_on, next_unknown, keep = _tracked_circuit(cur_state, cur_unknown,
+                                                   tracking, stable)
+    # a kept tracking cell's next value IS its stable value: keep known
+    # cells at the stable state, keep stable-unknown cells unknown
+    keep_known = keep & ~stable.unknown
+    keep_unk = keep & stable.unknown
+    next_on = ((next_on & ~keep_known) | (stable.state & keep_known)) \
+        & ~keep_unk
+    next_unknown = (next_unknown | keep_unk) & ~keep_known
+    # tracking persists through keep, and (re)starts wherever the next
+    # value is known and equals a known stable value
+    stable_known = ~stable.unknown
+    known_eq = ~next_unknown & stable_known & ~(next_on ^ stable.state)
+    next_tracking = keep | known_eq
+    return next_on, next_unknown, next_tracking
+
+
+def keep_stable(cur_state, cur_unknown, stable: BitStable):
+    """The reference's dormant ``unknown_keep`` correction mask
+    (bitslicing/unknown_keep.py intended semantics): cells that provably
+    remain at their stable value after one step, evaluated under the
+    generator's own "all unknowns are stable unknowns" precondition
+    (``cur_unknown == stable.unknown``, current values at stable
+    values)."""
+    tracking = initial_tracking(cur_state, cur_unknown, stable)
+    return _tracked_circuit(cur_state, cur_unknown, tracking, stable)[2]
 
 
 # -- branch priorities -------------------------------------------------------

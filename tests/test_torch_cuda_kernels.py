@@ -771,3 +771,56 @@ def test_stable_kernels_reject_bad_input(device):
         stable_cuda.beam_search(planes, frontier=3, iters=4, minimise=True)
     with pytest.raises(ValueError):
         stable_cuda.beam_search(planes, frontier=32, iters=4, minimise=True)
+
+
+def test_stable_consistency_is_one_launch_of_kernel_b(device):
+    """``mpc.symmetric.stable_consistency`` on CUDA boards is one launch of
+    kernel B with no host sync, and equals ``bitplane.propagate``'s flags
+    on blocks, blocks with a stray cell and random boards."""
+    from lifeapi_tpu_torch.mpc import symmetric
+
+    gen = torch.Generator().manual_seed(5)
+    blocks = B.move_dyn(rle.parse("2o$2o!"), torch.randint(16, 46, (64,), generator=gen),
+                        torch.randint(16, 46, (64,), generator=gen))
+    stray = B.from_cells([(31, 33)]).expand(64, 64)
+    finals = torch.cat([blocks, blocks | stray, _random_boards(gen, 64, 0.1, "cpu")]).to(device)
+    region = torch.zeros((64, 64), dtype=torch.bool, device=device)
+    region[12:52, 12:52] = True
+    symmetric.stable_consistency(finals, region)
+    torch.cuda.synchronize()
+    before = dict(stable_cuda.LAUNCHES)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = symmetric.stable_consistency(finals, region)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    added = {k: v - before[k] for k, v in stable_cuda.LAUNCHES.items() if v != before[k]}
+    assert added == {"propagate_fused": 1}
+    want = symmetric.stable_consistency_plain(finals, region)
+    assert torch.equal(got, want)
+    assert got[:64].all() and not got.all()
+
+
+def test_run_fused_makes_no_host_sync(device):
+    """``mpc.receding.run_fused`` from a generator on the card: no host sync
+    in the whole call, launches of kernel [2] one a round, and boards that
+    follow the exact step."""
+    from lifeapi_tpu_torch.examples import receding_mpc
+    from lifeapi_tpu_torch.mpc import receding
+
+    problem = receding_mpc.problem(device, horizon=4)
+    gen = torch.Generator(device=device).manual_seed(0)
+    receding.run_fused(problem, gen, steps=2, apply_horizon=2, n_candidates=4, solve_iters=2)
+    torch.cuda.synchronize()
+    before = step_cuda.LAUNCHES["controlled_rollout"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run = receding.run_fused(problem, gen, steps=6, apply_horizon=2, n_candidates=4,
+                                 solve_iters=5)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert step_cuda.LAUNCHES["controlled_rollout"] == before + 3
+    assert run.boards.shape == (7, 64) and run.costs.shape == (3,)
+    for i in range(6):
+        assert torch.equal(run.boards[i + 1], step_cuda.rollout_plain(
+            (run.boards[i] ^ run.applied[i])[None], 1)[0])

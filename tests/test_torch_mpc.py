@@ -183,9 +183,11 @@ def test_solve_reaches_target():
 
 
 def test_solve_rejects_unported_method():
+    """Every method of the JAX package's ``solve`` is ported; an unknown
+    method name still raises."""
     problem = convert.problem_from_jax(_jax_problem("plain"))
     with pytest.raises(ValueError):
-        tsolver.solve(problem, torch.Generator(), method="sqp")
+        tsolver.solve(problem, torch.Generator(), method="newton")
 
 
 def test_cem_reaches_target():
