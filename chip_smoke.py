@@ -14,9 +14,13 @@ Phases, each printing what it saw:
    solver in its demo and bench configurations, and the catalyst search on
    the full 64x64 offset grid and on the example's grid;
 3. checks: every kernel against its plain PyTorch twin on the same inputs
-   (bit-exact), the rollout against an independent numpy B3/S23 oracle,
+   (bit-exact), the rollout against an independent numpy B3/S23 oracle on
+   64 boards and, ``[oracle]``, against the native C oracle
+   (``lifeapi_tpu_torch/native/oracle.c``, built with ``cc``) on all 8192,
    the MPC demo at Hamming 0, the known catalyst hit counts, and every
-   kernel launched by the main path;
+   kernel launched by the main path; ``[state]``: LifeState's parse, step,
+   convolve (both routes), match_live, interaction offsets, strips and
+   patches on the card equal to the same calls on the CPU;
 4. the still-life solver's path ([stable]), with its own counters set to 0
    just before: the beam completion of the bench problem (8192 problems,
    frontier 4, 24 rounds), the queued beam over 131,072 problems, and the
@@ -71,7 +75,17 @@ Phases, each printing what it saw:
    fixture's known answer, then a glider at each of 4096 offsets over two
    propagated eater backgrounds for 32 steps, the card against the CPU on
    256 and the bounds around kernel [1]'s exact Hamming of the completed
-   boards, with the candidates bounded and pruned a second.
+   boards, with the candidates bounded and pruned a second;
+9. last, ``[parallel]``: ``make_mesh()`` at world size 1 over NCCL, then
+   the seven sharded runners of ``parallel/elite.py`` at their unsharded
+   entries' widths with the counters set to 0 just before them (they must
+   launch [1], [2], [3] and [10]): the headline rollout, the catalyst
+   search over 4096 offsets (16/266/3846), the beam over the 8192 bench
+   problems in one pass and two-phase (champion pop 7), the portfolio
+   example's instance (pop 6), the MPC bench problem's 64 candidates and
+   an 8 x 8 scenario sweep at horizon 32, each equal to its unsharded
+   entry on the same inputs (hard costs exactly); each runner's host time
+   beside its entry's, in turns; then the process group is torn down.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -269,6 +283,16 @@ WELD_TIER1_MARKS = (
 # instance (tests/test_torch_portfolio_example.py)
 PORTFOLIO_MIN_POP = 6
 GLIDER = [(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)]
+# the [parallel] phase: the runners at their unsharded entries' full widths
+# (the MPC bench problem's candidates and horizon; the scenario sweep's 8 x 8
+# candidates for 40 iterations; the portfolio example's instance), the
+# kernels their shards launch, and each runner's timing turns (the scenario
+# sweep's calls take seconds, so it takes one turn of each)
+PAR_MPC_C, PAR_MPC_ITERS = 64, 60
+PAR_SWEEP_S, PAR_SWEEP_C, PAR_SWEEP_ITERS = 8, 8, 40
+PARALLEL_KERNELS = ("rollout", "controlled_rollout", "catalyst_rollout", "beam_search")
+PAR_TURNS = {"scenario_sweep": 1}
+PF_REPLICAS, PF_ITERS = 256, 192  # examples/portfolio_minimise.py's defaults
 # the MPC paths: SQP at north-star config 3's width (candidates, horizon,
 # the iterations whose third warms up), run_fused and the D4even solve at
 # horizon 32, the reachability prefilter over a glider at every offset
@@ -919,6 +943,247 @@ def print_share(path, what, share):
     host_ms, dev_ms, kernels = share
     print(f"[{path}] {what}: {host_ms:.2f} ms on the host clock, at least {dev_ms:.2f} ms "
           f"of it in {kernels:.0f} kernels on the device ({dev_ms / host_ms:.1%} busy)")
+
+
+def oracle_gate(boards, rolled):
+    """The headline rollout (kernel [1]) against the native C oracle on
+    every board, as ``bench.py`` gates the JAX package's."""
+    from lifeapi_tpu_torch import native
+
+    t0 = time.perf_counter()
+    native.load_oracle()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = native.step_packed64(native.to_packed64(boards), HEADLINE_T)
+    oracle_s = time.perf_counter() - t0
+    same = (native.to_packed64(rolled) == want).all(axis=-1)
+    print(f"[oracle] C oracle built in {build_s:.2f} s; B={HEADLINE_B} T={HEADLINE_T}: "
+          f"kernel [1] == C oracle on {int(same.sum())} of {same.size} boards "
+          f"({oracle_s:.1f} s of host C)")
+    check(bool(same.all()), "rollout kernel != C oracle")
+
+
+def state_phase(dev):
+    """A few LifeState calls on the card against the same calls on the CPU:
+    parse, step, convolve (the default route and the peel kernels),
+    match_live, interaction offsets, strips and patches."""
+    from lifeapi_tpu_torch import LifeState
+    from lifeapi_tpu_torch.core import board as B
+
+    gen = torch.Generator().manual_seed(7)
+    soup = B.random(gen, (64,), p=0.2) & B.solid_rect(10, 10, 30, 30)
+
+    def calls(d):
+        g = LifeState.parse("bob$2bo$3o!", 20, 20, device=d)
+        e = LifeState.from_cells(EATER, device=d)
+        s = LifeState(soup.to(d))
+        strip = s.get_strip(21)
+        out = [g.stepped(4), g.stepped(), s.stepped(9), s.convolve(g), s.convolve(g, method="sparse"),
+               s.match_live(g), e.interaction_offsets(g), s.set_strip(40, strip),
+               LifeState(device=d).set_patch((21, 21), 2, g.get_patch((21, 21), 2))]
+        return [x.packed.cpu() for x in out] + [strip.cpu()], g
+    got, g_card = calls(dev)
+    want, _ = calls(torch.device("cpu"))
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), "LifeState: card != CPU")
+    check(bool(g_card.stepped(4) == g_card.moved(1, 1)), "LifeState: a glider does not glide")
+    check(LifeState.parse("bob$2bo$3o!").packed.device.type == "cuda"
+          and LifeState().packed.device.type == "cuda",
+          "LifeState: a constructor given no device did not build on the card")
+    print(f"[state] {len(got)} LifeState results on the card == the CPU's (parse, step, "
+          f"convolve by both routes, match_live, interaction offsets, strips, patches)")
+
+
+def parallel_phase(dev, card):
+    """The seven sharded runners over NCCL at world size 1 on the card, each
+    against its unsharded entry on the same inputs, with the kernel
+    counters set to 0 just before the runners and read just after; then
+    each runner's host-clock time beside its unsharded entry's, in turns;
+    then the process group is torn down."""
+    import torch.distributed as dist
+
+    from lifeapi_tpu_torch import search
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+    from lifeapi_tpu_torch.examples import portfolio_minimise
+    from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem, solver
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.parallel import destroy, elite, make_mesh
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import complete as C
+    from lifeapi_tpu_torch.target import LifeTarget
+
+    t0 = time.perf_counter()
+    mesh = make_mesh(device=dev)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    check(dist.get_backend() == backend and mesh.size() == 1,
+          f"the mesh is not {backend} at world size 1")
+    print(f"[parallel] mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} over "
+          f"{dist.get_backend()} on {mesh.device_type} in {time.perf_counter() - t0:.2f} s")
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    boards = B.random(gen, (HEADLINE_B,), device=dev)
+    glider = B.from_cells(GLIDER, device=dev)
+    eater = B.from_cells(EATER, device=dev)
+    grid = torch.tensor([[dx, dy] for dx in range(64) for dy in range(64)], device=dev)
+    mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    mask[20:44, 20:44] = True
+    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!", device=dev), 31, 31))
+    bench = MPCProblem(initial=B.empty(device=dev), target=target, horizon=32,
+                       control_mask=mask, weights=CostWeights())
+    logits0 = solver.init_logits(torch.Generator().manual_seed(0), bench, PAR_MPC_C)
+    initials = B.random(gen, (PAR_SWEEP_S,), p=0.05, device=dev) & B.solid_rect(
+        20, 20, 24, 24, device=dev)
+    known, unknown = eater_problem(dev)
+    beam_bst = BP.make(state=known.expand(BEAM_B, 64), unknown=unknown.expand(BEAM_B, 64))
+    anchors = B.from_cells(portfolio_minimise.ANCHORS, device=dev)
+    pf_unknown = B.zoi(B.zoi(anchors)) & ~anchors
+
+    def sweep_gen():
+        return torch.Generator().manual_seed(1)
+
+    sharded = {
+        "rollout": lambda: elite.sharded_rollout(boards, HEADLINE_T, mesh),
+        "catalyst_search": lambda: elite.sharded_catalyst_search(glider, eater, grid, 64, mesh),
+        "beam_complete": lambda: elite.sharded_beam_complete(
+            beam_bst, mesh, frontier=BEAM_F, iters=BEAM_ITERS),
+        "beam_complete_two_phase": lambda: elite.sharded_beam_complete(
+            beam_bst, mesh, frontier=BEAM_F, iters=BEAM_ITERS, two_phase=True),
+        "portfolio": lambda: elite.sharded_portfolio(
+            anchors, pf_unknown, torch.Generator().manual_seed(0), mesh, replicas=PF_REPLICAS,
+            frontier=4, iters=PF_ITERS, two_phase=True),
+        "candidate_solve": lambda: elite.sharded_candidate_solve(
+            bench, logits0, mesh, iters=PAR_MPC_ITERS),
+        "scenario_sweep": lambda: elite.sharded_scenario_sweep(
+            initials, target, 32, mask, mesh, sweep_gen(),
+            candidates_per_scenario=PAR_SWEEP_C, iters=PAR_SWEEP_ITERS),
+    }
+
+    def candidate_ref():
+        logits, _ = solver.solve_gradient(logits0, bench, iters=PAR_MPC_ITERS, lr=0.15)
+        probs = torch.sigmoid(logits) * mask
+        return probs, solver.hard_score_batch(probs, bench)[0]
+
+    def sweep_ref():
+        first = MPCProblem(initials[0], target, 32, mask, weights=CostWeights())
+        lg0 = solver.init_logits(sweep_gen(), first, PAR_SWEEP_S * PAR_SWEEP_C).reshape(
+            PAR_SWEEP_S, PAR_SWEEP_C, 32, 64, 64)
+        best = []
+        for initial, lg in zip(initials, lg0):
+            p = MPCProblem(initial, target, 32, mask, weights=CostWeights())
+            lg, _ = solver.solve_gradient(lg, p, iters=PAR_SWEEP_ITERS)
+            best.append(solver.hard_score_batch(torch.sigmoid(lg) * mask, p)[0].min())
+        return torch.stack(best)
+
+    unsharded = {
+        "rollout": lambda: step_cuda.rollout(boards, HEADLINE_T),
+        "catalyst_search": lambda: search.catalyst_search(glider, eater, grid, 64),
+        "beam_complete": lambda: C.complete_stable_beam(
+            beam_bst, frontier=BEAM_F, iters=BEAM_ITERS, dense=False),
+        "portfolio": lambda: C.complete_stable_portfolio(
+            anchors, pf_unknown, torch.Generator().manual_seed(0), replicas=PF_REPLICAS,
+            frontier=4, iters=PF_ITERS),
+        "candidate_solve": candidate_ref,
+        "scenario_sweep": sweep_ref,
+    }
+    unsharded["beam_complete_two_phase"] = unsharded["beam_complete"]
+
+    reset_counters()
+    t0 = time.perf_counter()
+    got = {name: fn() for name, fn in sharded.items()}
+    torch.cuda.synchronize()
+    print(f"[parallel] the seven runners ran in {time.perf_counter() - t0:.2f} s")
+    read_counters("parallel", PARALLEL_KERNELS)
+    want = {name: fn() for name, fn in unsharded.items() if name != "beam_complete_two_phase"}
+
+    final, pop = got["rollout"]
+    check(torch.equal(final, want["rollout"]), "sharded_rollout != rollout")
+    check(int(pop) == int(B.population(want["rollout"]).sum()), "sharded_rollout population")
+    inter, rec, hits = got["catalyst_search"]
+    ref = want["catalyst_search"]
+    check(torch.equal(inter, ref.interacted) and torch.equal(rec, ref.recovered),
+          "sharded_catalyst_search flags != catalyst_search's")
+    answers = (int(hits), int(inter.sum()), int(rec.sum()))
+    check(answers == (16, 266, 3846), f"sharded catalyst counts {answers} != 16/266/3846")
+    ref = want["beam_complete"]
+    for name in ("beam_complete", "beam_complete_two_phase"):
+        found, best, bpop, champ, champ_pop = got[name]
+        check(torch.equal(found, ref.found) and torch.equal(best, ref.best)
+              and torch.equal(bpop, ref.best_pop), f"sharded {name} != complete_stable_beam")
+        check(int(champ_pop) == 7 and torch.equal(B.population(champ), champ_pop)
+              and torch.equal(step_cuda.rollout(champ[None], 1)[0], champ),
+              f"sharded {name}: the champion is not a still life at pop 7")
+    pf, pf_ref = got["portfolio"], want["portfolio"]
+    pf_dense = B.to_dense(pf.best).cpu().numpy()
+    check(pf.found and pf.best_pop == pf_ref.best_pop == PORTFOLIO_MIN_POP
+          and torch.equal(step_cuda.rollout(pf.best[None], 1)[0], pf.best)
+          and all(pf_dense[x, y] for x, y in portfolio_minimise.ANCHORS),
+          f"sharded_portfolio pop {pf.best_pop} != complete_stable_portfolio's "
+          f"{pf_ref.best_pop} (the instance's minimum is {PORTFOLIO_MIN_POP})")
+    best_cost, best_probs, all_costs = got["candidate_solve"]
+    probs, costs = want["candidate_solve"]
+    check(torch.equal(all_costs, costs) and float(best_cost) == float(costs.min())
+          and torch.equal(best_probs, probs[torch.argmin(costs)]),
+          "sharded_candidate_solve != solve_gradient + hard_score_batch")
+    per, champ_cost = got["scenario_sweep"]
+    check(torch.equal(per, want["scenario_sweep"]) and float(champ_cost) == float(per.min()),
+          "sharded_scenario_sweep != solve_gradient + hard_score_batch per scenario")
+    print(f"[parallel] every runner == its unsharded entry: rollout B={HEADLINE_B} "
+          f"T={HEADLINE_T} (population {int(pop)}); catalyst 4096 offsets: {answers[0]} hits, "
+          f"{answers[1]} interacted, {answers[2]} recovered; beam {BEAM_B} problems F={BEAM_F} "
+          f"{BEAM_ITERS} rounds, one pass and two-phase, champion pop 7; portfolio {PF_REPLICAS} "
+          f"replicas F=4 {PF_ITERS} rounds two-phase, champion pop {pf.best_pop} (unsharded "
+          f"{pf_ref.best_pop}); candidate solve {PAR_MPC_C} candidates horizon 32: hard costs "
+          f"equal, best {float(best_cost)}; scenario sweep {PAR_SWEEP_S} x {PAR_SWEEP_C} horizon "
+          f"32 {PAR_SWEEP_ITERS} iterations: per-scenario hard costs equal, champion "
+          f"{float(champ_cost)}")
+
+    # The timings pair each runner with its entry doing the same work: the
+    # two-phase beam with two passes of the entry, the second bounded by the
+    # champion's population; the portfolio in one pass on both sides (the
+    # entry's second pass, seeded over the big ZOI, is other work than the
+    # runner's champion-bounded one).
+    def beam_two_pass():
+        res = unsharded["beam_complete"]()
+        key = torch.where(res.found, res.best_pop.to(torch.int64).clamp(max=elite.SENTINEL),
+                          elite.SENTINEL)
+        return C.complete_stable_beam(beam_bst, frontier=BEAM_F, iters=BEAM_ITERS, dense=False,
+                                      init_bound=key.min().reshape(1))
+
+    timed = dict(sharded)
+    timed["portfolio"] = lambda: elite.sharded_portfolio(
+        anchors, pf_unknown, torch.Generator().manual_seed(0), mesh, replicas=PF_REPLICAS,
+        frontier=4, iters=PF_ITERS, two_phase=False)
+    unsharded["beam_complete_two_phase"] = beam_two_pass
+    unsharded["portfolio"] = lambda: C.complete_stable_portfolio(
+        anchors, pf_unknown, torch.Generator().manual_seed(0), replicas=PF_REPLICAS,
+        frontier=4, iters=PF_ITERS, reminimise=False)
+    one, one_ref = timed["portfolio"](), unsharded["portfolio"]()
+    check(one.found and one.best_pop == one_ref.best_pop and torch.equal(one.best, one_ref.best),
+          f"one-pass sharded_portfolio pop {one.best_pop} != complete_stable_portfolio's "
+          f"(reminimise=False) {one_ref.best_pop}")
+    print(f"[parallel] one-pass portfolio: sharded champion == unsharded (pop {one.best_pop})")
+
+    print(f"[parallel] host-clock seconds, sharded at world size 1 / unsharded entry on the "
+          f"same work (two-phase beam: two passes of the entry; portfolio: one pass each), in "
+          f"turns (unsharded, sharded, sharded, unsharded) ({card}):")
+    for name, fn in timed.items():
+        times = {"sharded": [], "unsharded": []}
+        turns = PAR_TURNS.get(name, 2)
+        for which in ("unsharded", "sharded", "sharded", "unsharded")[:2 * turns]:
+            times[which].append(wall(fn if which == "sharded" else unsharded[name], 1))
+        sh, un = statistics.median(times["sharded"]), statistics.median(times["unsharded"])
+        print(f"[parallel]   {name}: {sh:.4f} s / {un:.4f} s ({sh / un:.3f}x, "
+              f"{turns} turn{'s' if turns > 1 else ''} each)")
+    # what the exchange is made of: one all-reduce of a key, one gather of
+    # the beam's boards (the one-pass beam runner does 3 of each)
+    key = torch.zeros(1, dtype=torch.int64, device=dev)
+    best = want["beam_complete"].best
+    reduce_ms = wall(lambda: elite._reduce(key, dist.ReduceOp.MIN), 20) * 1e3
+    gather_ms = wall(lambda: elite._gather(best), 20) * 1e3
+    print(f"[parallel] host clock, median of 20, fenced: one all-reduce of int64[1] "
+          f"{reduce_ms:.4f} ms, one gather of int64[{BEAM_B}, 64] {gather_ms:.4f} ms")
+    destroy()
+    check(not dist.is_initialized(), "the process group outlived the phase")
 
 
 def sqp_problem(dev, horizon):
@@ -2519,6 +2784,7 @@ def main():
     check(torch.equal(got, want), "ragged rollout kernel != plain twin")
     print(f"[rollout] B={HEADLINE_B} T={HEADLINE_T}: kernel == plain on all "
           f"boards, == numpy oracle on 64; ragged B=1000 T=37 kernel == plain")
+    oracle_gate(boards, rolled)
 
     # -- 3b. MPC ----------------------------------------------------------------
     demo_ham = int(hamming_cost(demo_sol.final_board, demo.target))
@@ -2560,6 +2826,9 @@ def main():
     check((hits, n_inter, n_rec) == (16, 266, 3846), "catalyst counts differ from 16/266/3846")
     check(example_hits == 13, "example grid did not give 13 hits")
     print(f"[counters] {launches}")
+
+    # -- 3d. LifeState on the card against the CPU ----------------------------------
+    state_phase(dev)
 
     # -- 4. the still-life solver ------------------------------------------------
     stable_launches, stable_err, stable_inputs = stable_phase(dev)
@@ -2641,6 +2910,8 @@ def main():
     print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, run_fused {mpc_times['receding']:.3f} s "
           f"a replan round, D4 symmetric solve {mpc_times['symmetric']:.3f} s, reachability "
           f"{mpc_times['reach']:.4g} candidates/s ({card})")
+    # -- 9. the sharded runners over NCCL (last: thousands of MPC kernels) ------------
+    parallel_phase(dev, card)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [

@@ -12,7 +12,8 @@ twin that CPU tensors take.
 This package never imports jax.
 """
 
-from .core import bitops, board, convolve, rle, step  # noqa: F401
+from .core import bitops, board, convolve, rle, step, strips  # noqa: F401
+from .state import LifeState  # noqa: F401
 from .target import LifeTarget  # noqa: F401
 from . import history, mpc, ops, search, stable, symmetry, utils, weld  # noqa: F401
 from . import convert  # noqa: F401

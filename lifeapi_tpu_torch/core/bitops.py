@@ -71,3 +71,40 @@ def reverse64(x):
     for s, m in _REVERSE_STEPS:
         x = (shr64(x, s) & m) | ((x & m) << s)
     return x
+
+
+def bitrev32(x):
+    """Reverse the low 32 bits of each word (reference Bits.hpp:10-23);
+    the result lies in [0, 2**32)."""
+    return shr64(reverse64(x & 0xFFFFFFFF), 32)
+
+
+def longest_run64(x):
+    """Length of the longest *circular* run of 1 bits of each int64 word
+    (reference Bits.hpp:29-62): 0 for 0, 64 for all ones.  Each round
+    erodes every run by one bit, so the count of rounds with a bit left is
+    the longest run."""
+    count = torch.zeros_like(x)
+    for _ in range(64):
+        count += x != 0
+        x = x & rotl64(x, 1)
+    return count
+
+
+def populated_width64(x):
+    """Width of the smallest circular window holding every set bit
+    (reference Bits.hpp:64-79): 64 - the longest circular run of zeros,
+    0 for 0.  ``~x`` of an int64 word is its bit complement (a negative
+    number where x's top bit is clear), which is what the run takes."""
+    return torch.where(x == 0, 0, 64 - longest_run64(~x))
+
+
+def convolve_word64(x, y):
+    """OR-convolution of two 64-bit words: bit k of the result is set iff
+    there are set bits i of x and j of y with i + j == k (mod 64)
+    (reference Bits.hpp:132-143).  ``(x >> k) & 1`` is bit k of x for
+    every k, the sign bit included."""
+    out = torch.zeros_like(torch.broadcast_tensors(x, y)[0])
+    for k in range(64):
+        out = out | (rotl64(y, k) & -((x >> k) & 1))
+    return out

@@ -360,16 +360,22 @@ def _build_replicas(state, unknown, dx, dy):
 def _portfolio_champion(res, dx, dy):
     """Back-transform the best replica's board to the original
     orientation; returns (best_pop, champion board) or (None, None)."""
-    from ..core import board as BRD
-    from ..symmetry import transforms as TR
-
     found = res.found.cpu().numpy()
     if not found.any():
         return None, None
     pops = np.where(found, res.best_pop.cpu().numpy(), np.iinfo(np.int32).max)
     i = int(np.argmin(pops))
-    back = BRD.move(res.best[i], -int(dx[i]), -int(dy[i]))
-    return int(pops[i]), TR.transform(back, TR.transform_inverse(i % 16))
+    return int(pops[i]), _unreplicate(res.best[i], i, dx, dy)
+
+
+def _unreplicate(board, i, dx, dy):
+    """Replica ``i``'s board in the instance's own orientation: undo the
+    translation and symmetry transform of :func:`_build_replicas`."""
+    from ..core import board as BRD
+    from ..symmetry import transforms as TR
+
+    back = BRD.move(board, -int(dx[i]), -int(dy[i]))
+    return TR.transform(back, TR.transform_inverse(i % 16))
 
 
 def complete_stable_portfolio(state, unknown, generator=None, replicas=256, frontier=4,
@@ -435,18 +441,26 @@ def complete_stable_portfolio(state, unknown, generator=None, replicas=256, fron
             best_pop, champ = pop3, champ3
 
     if minimise and dfs_polish_timeout:
-        # an incumbent-bounded host DFS: max_pop = champion, so only strict
-        # improvements are explored (reference LifeStable.hpp:1353-1356)
-        hst = HostStable(state=BRD.to_dense(state).cpu().numpy(),
-                         unknown=BRD.to_dense(unknown).cpu().numpy())
-        polish = _Search(time.monotonic() + float(dfs_polish_timeout), True, False,
-                         np.zeros((64, 64), bool))
-        polish.max_pop = int(best_pop)
-        polish.step(hst)
-        if polish.best is not None and polish.best.any():
-            pop4 = int(polish.best.sum())
-            if pop4 < best_pop:
-                best_pop = pop4
-                champ = BRD.from_dense(torch.from_numpy(polish.best)).to(dev)
+        best_pop, champ = _dfs_polish(state, unknown, best_pop, champ, dfs_polish_timeout)
 
     return PortfolioResult(True, champ, best_pop, found_fraction)
+
+
+def _dfs_polish(state, unknown, best_pop, champ, timeout):
+    """An incumbent-bounded host DFS: max_pop = the champion's population,
+    so only strict improvements are explored (reference
+    LifeStable.hpp:1353-1356).  Returns (best_pop, champion), the DFS's
+    completion where it is smaller, on ``state``'s device."""
+    from ..core import board as BRD
+
+    hst = HostStable(state=BRD.to_dense(state).cpu().numpy(),
+                     unknown=BRD.to_dense(unknown).cpu().numpy())
+    polish = _Search(time.monotonic() + float(timeout), True, False,
+                     np.zeros((64, 64), bool))
+    polish.max_pop = int(best_pop)
+    polish.step(hst)
+    if polish.best is not None and polish.best.any():
+        pop = int(polish.best.sum())
+        if pop < best_pop:
+            return pop, BRD.from_dense(torch.from_numpy(polish.best)).to(state.device)
+    return best_pop, champ

@@ -1,1 +1,1 @@
-from . import debug  # noqa: F401
+from . import checkpoint, debug, profiling, prng  # noqa: F401

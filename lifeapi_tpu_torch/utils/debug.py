@@ -32,3 +32,10 @@ def check_board(board):
     """Boards are ``torch.int64[..., 64]``."""
     assert board.dtype == torch.int64, board.dtype
     assert board.shape[-1:] == (64,), board.shape
+
+
+def check_board_packed(board):
+    """The JAX package's name for :func:`check_board`: a board is one
+    ``int64`` word per column here, where the JAX package packs
+    ``uint32[..., 64, 2]``."""
+    check_board(board)

@@ -824,3 +824,61 @@ def test_run_fused_makes_no_host_sync(device):
     for i in range(6):
         assert torch.equal(run.boards[i + 1], step_cuda.rollout_plain(
             (run.boards[i] ^ run.applied[i])[None], 1)[0])
+
+
+# ---------------------------------------------------------------------------
+# the C oracle on the card's rollout; the mesh and runners over NCCL
+# ---------------------------------------------------------------------------
+
+
+def test_rollout_kernel_matches_c_oracle(device):
+    from lifeapi_tpu_torch import native
+
+    boards = _random_boards(torch.Generator().manual_seed(4), 1024, 0.4, device)
+    got = step_cuda.rollout(boards, 64)
+    want = native.step_packed64(native.to_packed64(boards), 64)
+    assert (native.to_packed64(got) == want).all()
+
+
+@pytest.fixture
+def nccl_mesh(device):
+    import torch.distributed as dist
+
+    from lifeapi_tpu_torch.parallel import destroy, make_mesh
+
+    try:
+        mesh = make_mesh()
+        assert dist.get_backend() == "nccl" and mesh.device_type == "cuda"
+        yield mesh
+    finally:
+        destroy()
+
+
+def test_sharded_rollout_over_nccl(nccl_mesh):
+    from lifeapi_tpu_torch.parallel import elite
+
+    boards = _random_boards(torch.Generator().manual_seed(5), 512, 0.35, "cuda")
+    before = step_cuda.LAUNCHES["rollout"]
+    final, pop = elite.sharded_rollout(boards, 37, nccl_mesh)
+    assert step_cuda.LAUNCHES["rollout"] == before + 1
+    want = step_cuda.rollout(boards, 37)
+    assert final.is_cuda and torch.equal(final, want)
+    assert int(pop) == int(B.population(want).sum())
+
+
+def test_sharded_beam_complete_over_nccl(nccl_mesh):
+    from lifeapi_tpu_torch.parallel import elite
+    from lifeapi_tpu_torch.stable import complete as C
+
+    eater = B.move(rle.parse("2b2o$bobo$bo$2o!"), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)])
+    unknown = (B.zoi(eater) & ~eater) | hide
+    bst = BP.make(state=(eater & ~hide).expand(64, 64).cuda(),
+                  unknown=unknown.expand(64, 64).cuda())
+    for two_phase in (False, True):
+        found, best, pop, champ, champ_pop = elite.sharded_beam_complete(
+            bst, nccl_mesh, frontier=4, iters=24, two_phase=two_phase)
+        ref = C.complete_stable_beam(bst, frontier=4, iters=24, dense=False)
+        assert torch.equal(found, ref.found) and torch.equal(best, ref.best)
+        assert torch.equal(pop, ref.best_pop)
+        assert int(champ_pop) == 7 and torch.equal(champ, ref.best[0])
