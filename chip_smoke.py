@@ -58,7 +58,19 @@ Phases, each printing what it saw:
    with the SM clock read under the same load),
    the calibrated word-op ceilings, every kernel's bound (the rollout,
    solver and peel kernels' from the SASS of the library just built), and
-   the NTT kernels' tensor-core instructions (HMMA) in that SASS;
+   the NTT kernels' tensor-core instructions (HMMA) in that SASS; then
+   ``[roofline]``: the lane-ops a board of the plain circuits
+   (``utils.roofline``: the step of [1] and [4], the propagation step of
+   [5], the simple step), before and after CSE, traced on CPU tensors and
+   on the card's, which must agree, with post-CSE no more than pre-CSE;
+   beside each, the SASS of [1], [4] and [5] and the kernel's rate in the
+   circuit's lane-ops over the card's lane-op peak; and ``[entry]``:
+   ``graft_entry``'s forward step at its own shape (4 candidates, horizon
+   8) and at the MPC bench's width (64 candidates, horizon 32), each with
+   the counters set to 0 just before: the soft costs against the same call
+   on the CPU (rtol 1e-4), kernel [2]'s hard costs and finals against
+   ``controlled_rollout_plain`` and the numpy step of the toggles, the host
+   time and the device's busy share;
 8. after the timings, the MPC paths, each with the counters set to 0 just
    before it and read just after: ``[sqp]``, ``solve(method="sqp")`` at
    north-star config 3's width (64 candidates, horizon 32, a protected
@@ -76,7 +88,7 @@ Phases, each printing what it saw:
    propagated eater backgrounds for 32 steps, the card against the CPU on
    256 and the bounds around kernel [1]'s exact Hamming of the completed
    boards, with the candidates bounded and pruned a second;
-9. last, ``[parallel]``: ``make_mesh()`` at world size 1 over NCCL, then
+9. ``[parallel]``: ``make_mesh()`` at world size 1 over NCCL, then
    the seven sharded runners of ``parallel/elite.py`` at their unsharded
    entries' widths with the counters set to 0 just before them (they must
    launch [1], [2], [3] and [10]): the headline rollout, the catalyst
@@ -85,7 +97,16 @@ Phases, each printing what it saw:
    example's instance (pop 6), the MPC bench problem's 64 candidates and
    an 8 x 8 scenario sweep at horizon 32, each equal to its unsharded
    entry on the same inputs (hard costs exactly); each runner's host time
-   beside its entry's, in turns; then the process group is torn down.
+   beside its entry's, in turns; then the process group is torn down;
+10. last, ``[dryrun]``: ``graft_entry.dryrun_multichip`` over every card
+   (NCCL; in this process on one card, whose counters must show [1], [2],
+   [3] and [10]), every result held to the same runners on a mesh of one
+   rank; and ``[adversarial]``: the 224 instances of
+   ``tests/test_beam_adversarial.py`` (``tests/torch_beam_sweep.py``)
+   through kernel [10] at frontier 8, 96 rounds, with the counters set to
+   0 just before: every find a still life keeping its knowns, every proof
+   one the host DFS also finds, no DFS completion proved inconsistent, at
+   least 40 of each, and the kernel equal to its plain version.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  There is no CPU path: without
@@ -531,12 +552,13 @@ def ntt_sass_counts(funcs):
 
 
 def issue_peak():
-    """Warp instructions per second the card can issue at most."""
-    mhz = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.split()[0]
+    """(warp instructions per second the card can issue at most, its SMs,
+    the SM clock's maximum in MHz): ``utils.roofline.card_issue_peak``."""
+    from lifeapi_tpu_torch.utils.roofline import card_issue_peak
+
+    peak = card_issue_peak()
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return sms * SCHEDULERS_PER_SM * float(mhz) * 1e6, sms, float(mhz)
+    return peak, sms, peak / (sms * SCHEDULERS_PER_SM * 1e6)
 
 
 def print_occupancy():
@@ -1003,14 +1025,12 @@ def parallel_phase(dev, card):
 
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.core import board as B
-    from lifeapi_tpu_torch.core import rle
     from lifeapi_tpu_torch.examples import portfolio_minimise
     from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem, solver
     from lifeapi_tpu_torch.ops import step_cuda
     from lifeapi_tpu_torch.parallel import destroy, elite, make_mesh
     from lifeapi_tpu_torch.stable import bitplane as BP
     from lifeapi_tpu_torch.stable import complete as C
-    from lifeapi_tpu_torch.target import LifeTarget
 
     t0 = time.perf_counter()
     mesh = make_mesh(device=dev)
@@ -1025,11 +1045,8 @@ def parallel_phase(dev, card):
     glider = B.from_cells(GLIDER, device=dev)
     eater = B.from_cells(EATER, device=dev)
     grid = torch.tensor([[dx, dy] for dx in range(64) for dy in range(64)], device=dev)
-    mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
-    mask[20:44, 20:44] = True
-    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!", device=dev), 31, 31))
-    bench = MPCProblem(initial=B.empty(device=dev), target=target, horizon=32,
-                       control_mask=mask, weights=CostWeights())
+    bench = bench_problem(dev)
+    mask, target = bench.control_mask, bench.target
     logits0 = solver.init_logits(torch.Generator().manual_seed(0), bench, PAR_MPC_C)
     initials = B.random(gen, (PAR_SWEEP_S,), p=0.05, device=dev) & B.solid_rect(
         20, 20, 24, 24, device=dev)
@@ -1184,6 +1201,181 @@ def parallel_phase(dev, card):
           f"{reduce_ms:.4f} ms, one gather of int64[{BEAM_B}, 64] {gather_ms:.4f} ms")
     destroy()
     check(not dist.is_initialized(), "the process group outlived the phase")
+
+
+def bench_problem(dev):
+    """The MPC bench problem (bench.py): steer the empty board to a block
+    at (31, 31) in 32 generations through toggles in ``[20:44, 20:44]``."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import rle
+    from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem
+    from lifeapi_tpu_torch.target import LifeTarget
+
+    mask = torch.zeros((64, 64), dtype=torch.bool, device=dev)
+    mask[20:44, 20:44] = True
+    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!", device=dev), 31, 31))
+    return MPCProblem(initial=B.empty(device=dev), target=target, horizon=32,
+                      control_mask=mask, weights=CostWeights())
+
+
+def roofline_phase(sass, dev_ms, card):
+    """The plain circuits' lane-op counts (``utils.roofline``), before and
+    after CSE, traced on CPU tensors and on CUDA tensors (equal, and no
+    more after CSE than before); beside each, the SASS of the kernel that
+    runs the circuit and the kernel's rate in the circuit's lane-ops, from
+    its device time, as a share of the card's 32-bit lane-op peak."""
+    from lifeapi_tpu_torch.utils import roofline as R
+
+    counters = {"step": R.step_lane_ops_per_board,
+                "fixpoint step": R.fixpoint_step_lane_ops_per_board,
+                "simple step": R.simple_step_lane_ops_per_board}
+    reset_counters()
+    t0 = time.perf_counter()
+    counts = {}
+    for name, fn in counters.items():
+        got = {(dev, post): fn(post_cse=post, device=dev)
+               for dev in ("cpu", "cuda") for post in (False, True)}
+        check(got["cpu", False] == got["cuda", False] and got["cpu", True] == got["cuda", True],
+              f"[roofline] {name}: the counts on the CPU and on the card differ: {got}")
+        check(got["cpu", True] <= got["cpu", False],
+              f"[roofline] {name}: more lane-ops after CSE than before: {got}")
+        counts[name] = got["cpu", False], got["cpu", True]
+    seconds = time.perf_counter() - t0
+    read_counters("roofline", ())
+    peak = R.card_issue_peak() * R.LANES
+    print(f"[roofline] lane-ops a board of the plain circuits (32-bit lane-ops, an int64 "
+          f"element 2), traced on the CPU and on the card, equal, in {seconds:.2f} s; before "
+          f"/ after CSE: " + "; ".join(f"{k} {a} / {b}" for k, (a, b) in counts.items()))
+    print(f"[roofline] the card's 32-bit lane-op peak {peak:.6g}/s (SMs x 4 x 32 x "
+          f"clocks.max.sm; {card})")
+    work = {"rollout": ("step", HEADLINE_B * HEADLINE_T, "a board-generation"),
+            "rollout_lohi": ("step", HEADLINE_B * HEADLINE_T, "a board-generation"),
+            "propagate_step": ("fixpoint step", FIX_B, "a board")}
+    for kernel, (circuit, units, per) in work.items():
+        d, mhz = dev_ms[kernel]
+        ops = counts[circuit][1]
+        rate = ops * units / (d * 1e-3)
+        print(f"[roofline] {kernel}: the plain circuit's count, not the kernel's: {ops} "
+              f"lane-ops {per} after CSE; the kernel's SASS {sass[kernel]:g} warp "
+              f"instructions {per} ({32 * sass[kernel]:g} thread instructions); on the device "
+              f"{d:.4f} ms ({mhz} MHz) for {units} of them: {rate:.6g} circuit lane-ops/s, "
+              f"{R.pct_of_peak(rate, peak):.1f}% of the lane-op peak")
+
+
+def entry_phase(dev, card):
+    """``graft_entry``'s forward step on the card at the entry's own shape
+    (4 candidates, horizon 8) and at the MPC bench's width (64 candidates,
+    horizon 32), each with the counters set to 0 just before: the soft
+    costs against the same call on the CPU (rtol 1e-4), the hard costs and
+    finals of kernel [2] against ``controlled_rollout_plain`` and the
+    finals against the numpy step of the toggles (exactly); then each
+    forward's host time and the device's busy share."""
+    from lifeapi_tpu_torch import graft_entry
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.examples import life_step_dense
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import step_cuda
+
+    fn, (logits,) = graft_entry.entry()
+    check(logits.device.type == "cuda", "entry() given no device did not build on the card")
+    bench = bench_problem(dev)
+    shapes = {
+        "entry (4 candidates, horizon 8)": (
+            fn, graft_entry.forward_step(graft_entry.flagship_problem("cpu")),
+            graft_entry.flagship_problem(dev), logits),
+        "MPC bench width (64 candidates, horizon 32)": (
+            graft_entry.forward_step(bench),
+            graft_entry.forward_step(bench_problem(torch.device("cpu"))), bench,
+            solver.init_logits(torch.Generator().manual_seed(0), bench, 64)),
+    }
+    t_phase = time.perf_counter()
+    for what, (forward, forward_cpu, problem, lg) in shapes.items():
+        reset_counters()
+        soft, hard, finals = forward(lg)
+        read_counters("entry", ("controlled_rollout",))
+        soft_cpu = forward_cpu(lg.cpu())[0]
+        check(torch.allclose(soft.cpu(), soft_cpu, rtol=1e-4, atol=0),
+              f"[entry] {what}: soft costs on the card {soft.tolist()} != the CPU's "
+              f"{soft_cpu.tolist()}")
+        toggles = solver.candidate_toggles(torch.sigmoid(lg) * problem.control_mask, problem)
+        starts = problem.initial.expand(toggles.shape[1], 64).contiguous()
+        finals_p = step_cuda.controlled_rollout_plain(starts, toggles)
+        check(torch.equal(finals, finals_p)
+              and torch.equal(hard, solver.hard_cost(finals_p, toggles, problem)),
+              f"[entry] {what}: kernel [2]'s finals or hard costs != the plain version's")
+        cells = B.to_dense(starts).cpu().numpy()
+        for tog in B.to_dense(toggles).cpu().numpy():
+            cells = life_step_dense(cells ^ tog)
+        check((cells == B.to_dense(finals).cpu().numpy()).all(),
+              f"[entry] {what}: the finals leave the numpy step of the toggles")
+        print(f"[entry] {what}: soft costs = the CPU's at rtol 1e-4 (max relative "
+              f"{float(((soft.cpu() - soft_cpu).abs() / soft_cpu.abs()).max()):.3g}); hard "
+              f"costs and finals = controlled_rollout_plain and the numpy step; best hard "
+              f"cost {float(hard.min())}")
+        print_share("entry", f"forward, {what}, median of 3 ({card})",
+                    device_share(lambda: forward(lg)))
+    print(f"[entry] phase {time.perf_counter() - t_phase:.2f} s")
+
+
+def dryrun_phase(card):
+    """``graft_entry.dryrun_multichip`` over every card of the machine
+    (NCCL), with the counters set to 0 just before; one card runs it in
+    this process, whose counters must show [1], [2], [3] and [10]."""
+    import torch.distributed as dist
+
+    from lifeapi_tpu_torch import graft_entry
+
+    check(not dist.is_initialized(), "[dryrun] a process group outlived [parallel]")
+    n = torch.cuda.device_count()
+    reset_counters()
+    t0 = time.perf_counter()
+    graft_entry.dryrun_multichip(n)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if n == 1:
+        read_counters("dryrun", PARALLEL_KERNELS)
+    check(not dist.is_initialized(), "[dryrun] the dry run left a process group")
+    print(f"[dryrun] dryrun_multichip({n}) over NCCL, world size {n}: every assertion held "
+          f"against the one-rank mesh in {seconds:.2f} s ({card})")
+
+
+def adversarial_phase(dev, card, err):
+    """The 224-instance beam-vs-DFS sweep of ``tests/test_beam_adversarial.py``
+    (``tests/torch_beam_sweep.py``) through kernel [10] at F = 8, 96 rounds,
+    with the counters set to 0 just before: the four properties against the
+    host DFS, then the kernel against its plain version on the same planes,
+    bit for bit."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    import torch_beam_sweep as S
+    from lifeapi_tpu_torch.stable import bitplane as BP
+    from lifeapi_tpu_torch.stable import complete as C
+    from lifeapi_tpu_torch.stable import propagate as P
+
+    states, unknowns = S.sweep_instances()
+    st = P.make(state=torch.from_numpy(states).to(dev), unknown=torch.from_numpy(unknowns).to(dev))
+    kw = dict(frontier=S.FRONTIER, iters=S.ITERS, minimise=False)
+    reset_counters()
+    t0 = time.perf_counter()
+    res = C.complete_stable_beam(st, **kw)
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    read_counters("adversarial", ("beam_search",))
+    t0 = time.perf_counter()
+    dfs = S.dfs_verdicts(states, unknowns)
+    dfs_s = time.perf_counter() - t0
+    n_found, n_proved = S.check_sweep(
+        states, unknowns, res.found.cpu().numpy(), res.best.cpu().numpy(),
+        res.proved_inconsistent.cpu().numpy(), dfs)
+    planes = BP.to_planes(BP.from_dense_stable(st)).contiguous()
+    t0 = time.perf_counter()
+    kernel_vs_plain("beam_search", (planes,), kw, err)
+    compare_s = time.perf_counter() - t0
+    print(f"[adversarial] {S.N_INSTANCES} instances (seed {S.SEED}), F={S.FRONTIER}, "
+          f"{S.ITERS} rounds: {n_found} finds, {n_proved} proofs, each find a still life "
+          f"keeping its knowns, each proof DFS-inconsistent, no DFS completion proved "
+          f"inconsistent; kernel [10] == beam_search_plain ({compare_s:.3f} s for both); the "
+          f"beam {beam_s:.3f} s on the card (the first call, host clock), the host DFS "
+          f"{dfs_s:.3f} s ({card})")
 
 
 def sqp_problem(dev, horizon):
@@ -2551,15 +2743,16 @@ def fixpoint_bytes(name):
 
 
 def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
-    """bound_ms and bound_by of every kernel at the shapes timed above: the
-    larger of its bytes (each input read once, each output written once)
-    over the memory rate and its operations over the card's rate for them:
-    the rollout, solver and peel kernels' SASS over the issue peak, the
-    calibration's word-ops over its calibrated ceiling, the dense counts'
-    NTT FLOP over the bf16 tensor-core peak.  Data-dependent work is what
-    this run's inputs need: the fixpoint steps and priorities of
-    solver_work, the cells each peel takes (the union: the smaller side of
-    each pair)."""
+    """(bound_ms and bound_by of every kernel at the shapes timed above,
+    the SASS warp instructions a board-generation of [1] and [4] and a board
+    of [5]).  A bound is the larger of its bytes (each input read once,
+    each output written once) over the memory rate and its operations over
+    the card's rate for them: the rollout, solver and peel kernels' SASS
+    over the issue peak, the calibration's word-ops over its calibrated
+    ceiling, the dense counts' NTT FLOP over the bf16 tensor-core peak.
+    Data-dependent work is what this run's inputs need: the fixpoint steps
+    and priorities of solver_work, the cells each peel takes (the union:
+    the smaller side of each pair)."""
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.ops.calibrate_cuda import ops_per_iter
     from lifeapi_tpu_torch.stable import bitplane as BP
@@ -2695,7 +2888,8 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
               f"{MOD_INSTRUCTIONS} instructions = {warp_instructions} warp instructions "
               f"over the issue peak ({mod_ms:.4f} ms); the kernel's call {ms[name]:.4f} ms is "
               f"{ms[name] / mod_ms:.3g}x it{on_device(name, mod_ms)}")
-    return bounds
+    return bounds, {"rollout": sass["rollout"], "rollout_lohi": sass["rollout_lohi"],
+                    "propagate_step": step_a}
 
 
 def main():
@@ -2741,9 +2935,7 @@ def main():
     demo = MPCProblem(initial=B.empty(device=dev), target=block_target(),
                       horizon=8, control_mask=mask(24, 40),
                       weights=CostWeights(target=1.0, control=0.01))
-    bench = MPCProblem(initial=B.empty(device=dev), target=block_target(),
-                       horizon=32, control_mask=mask(20, 44),
-                       weights=CostWeights())
+    bench = bench_problem(dev)
     glider = B.from_cells(GLIDER, device=dev)
     eater = B.from_cells(EATER, device=dev)
     full_grid = torch.tensor([[dx, dy] for dx in range(64) for dy in range(64)],
@@ -2899,7 +3091,9 @@ def main():
     stable_timings(stable_inputs, ms, plain_ms, dev_ms, card)
     ceilings = conv_timings(conv_inputs, ms, plain_ms, lib_ms, dev_ms, card)
     weld_timings(weld_run, ms, plain_ms, dev_ms, card)
-    bounds = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms, dev_ms, lib_path)
+    bounds, sass = kernel_bounds(ceilings, stable_inputs, conv_inputs, ms, dev_ms, lib_path)
+    roofline_phase(sass, dev_ms, card)
+    entry_phase(dev, card)
 
     # -- 8. the MPC paths: SQP, receding horizon, symmetric, reachability -----------
     # after the kernel timings: their profiler traces keep fewer of a
@@ -2912,6 +3106,9 @@ def main():
           f"{mpc_times['reach']:.4g} candidates/s ({card})")
     # -- 9. the sharded runners over NCCL (last: thousands of MPC kernels) ------------
     parallel_phase(dev, card)
+    # -- 10. the dry run over every card, then the 224-instance sweep ------------------
+    dryrun_phase(card)
+    adversarial_phase(dev, card, stable_err)
     print(f"[done] {time.perf_counter() - t_start:.1f} s in all")
 
     kernels = [

@@ -43,16 +43,19 @@ def _side_sums(col0, col1):
 
 def step(board):
     """One Life generation on the 64x64 torus, bit-exact with the reference
-    ``Step`` (LifeAPI.hpp:1196-1216, Rokicki formula at :837-848)."""
-    u0, u1, b0, b1 = _side_sums(*count_rows(board))
-    a = board
-    aw = roll_y(a, 1)
-    ae = roll_y(a, -1)
+    ``Step`` (LifeAPI.hpp:1196-1216, Rokicki formula at :837-848).  The
+    y-neighbours and their half-sum are computed once and shared by the
+    column counts (``count_rows``) and the formula, so the circuit has no
+    common subexpression (``utils.roofline`` counts it the same before and
+    after CSE)."""
+    aw = roll_y(board, 1)
+    ae = roll_y(board, -1)
     s0 = aw ^ ae
     s1 = aw & ae
+    u0, u1, b0, b1 = _side_sums(s0 ^ board, (s0 & board) | s1)
     ts0 = b0 ^ u0
     ts1 = (b0 & u0) | (ts0 & s0)
-    return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | a)
+    return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | board)
 
 
 def step_alt(board):
