@@ -993,7 +993,7 @@ def state_phase(dev):
     from lifeapi_tpu_torch.core import board as B
 
     gen = torch.Generator().manual_seed(7)
-    soup = B.random(gen, (64,), p=0.2) & B.solid_rect(10, 10, 30, 30)
+    soup = B.random(gen, (64,), p=0.2, device="cpu") & B.solid_rect(10, 10, 30, 30, device="cpu")
 
     def calls(d):
         g = LifeState.parse("bob$2bo$3o!", 20, 20, device=d)
@@ -1013,6 +1013,109 @@ def state_phase(dev):
           "LifeState: a constructor given no device did not build on the card")
     print(f"[state] {len(got)} LifeState results on the card == the CPU's (parse, step, "
           f"convolve by both routes, match_live, interaction offsets, strips, patches)")
+
+
+def device_phase(dev):
+    """The port's one device rule on the card: every constructor given no
+    device builds on the card, the headline's boards drawn from a CPU
+    generator with no device go through kernel [1] once, and the
+    README's eater problem built with no ``device=`` anywhere goes
+    through kernel [10] once, every problem found at pop 7."""
+    from lifeapi_tpu_torch import convert, history
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.core import convolve, ntt, rle
+    from lifeapi_tpu_torch.examples import bellman_pipeline
+    from lifeapi_tpu_torch.native import build as native
+    from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+    from lifeapi_tpu_torch.stable import api, bitplane, complete, propagate
+    from lifeapi_tpu_torch.symmetry import groups
+    from lifeapi_tpu_torch.utils import prng
+
+    t_phase = time.perf_counter()
+    packed = np.zeros((64, 2), dtype=np.uint32)
+    packed[3, 0] = 0b1011
+    dense = np.zeros((64, 64), dtype=bool)
+    dense[20:24, 30:33] = True
+    stable = SimpleNamespace(state=dense, unknown=~dense, ruled=np.zeros((64, 64), np.uint8))
+    problem = SimpleNamespace(
+        initial=packed, target=SimpleNamespace(wanted=packed, unwanted=packed), horizon=4,
+        control_mask=dense, protected=None, background=None, weights=(1.0, 0.01, 0.0, 0.0),
+        tau=1.0)
+    built = {
+        "board.empty": B.empty((2,)), "board.full": B.full(),
+        "board.random": B.random(torch.Generator().manual_seed(1), (3,)),
+        "board.from_cells": B.from_cells([(1, 2)]), "board.cell_mask": B.cell_mask(3, 4),
+        "board.checkerboard": B.checkerboard(), "board.solid_rect": B.solid_rect(1, 2, 3, 4),
+        "board.solid_rect_xy": B.solid_rect_xy(1, 2, 3, 4),
+        "board.nzoi_around": B.nzoi_around((10, 20), 3), "board.cell_zoi": B.cell_zoi((10, 20)),
+        "rle.parse": rle.parse(EATER_RLE), "convolve.default_corona": convolve.default_corona(),
+        "ntt.matrix": ntt.matrix(193, False),
+        "LifeHistory.create": tuple(history.LifeHistory.create()),
+        "history.parse": tuple(history.parse("AB$2C!")),
+        "history.parse_bellman": tuple(history.parse_bellman("C2E$bC3E$!")),
+        "groups.fundamental_domain": groups.fundamental_domain(groups.StaticSymmetry.D4),
+        "propagate.make": tuple(propagate.make(batch=(2,))),
+        "LifeStable()": tuple(api.LifeStable().data),
+        "LifeStable.from_boards": tuple(api.LifeStable.from_boards().data),
+        "bitplane.make": (lambda b: (b.state, b.unknown, *b.ruled))(bitplane.make(batch=(2,))),
+        "complete.draw_offsets": complete.draw_offsets(torch.Generator().manual_seed(9), 8),
+        "native.from_packed64": native.from_packed64(np.arange(64, dtype=np.uint64)),
+        "prng.KeySequence": torch.rand(2, generator=prng.KeySequence(42)(), device=dev),
+        "convert.board_from_packed": convert.board_from_packed(packed),
+        "convert.planes_from_packed": tuple(convert.planes_from_packed([packed, packed])),
+        "convert.history_from_jax": tuple(convert.history_from_jax([packed] * 4)),
+        "convert.target_from_jax": tuple(convert.target_from_jax(problem.target)),
+        "convert.dense_mask": convert.dense_mask(dense),
+        "convert.problem_from_jax": (lambda q: (q.initial, *q.target, q.control_mask))(
+            convert.problem_from_jax(problem)),
+        "convert.bitstable_from_jax": (lambda b: (b.state, b.unknown, *b.ruled))(
+            convert.bitstable_from_jax(SimpleNamespace(state=packed, unknown=packed,
+                                                       ruled=[packed] * 8))),
+        "convert.stable_from_jax": tuple(convert.stable_from_jax(stable)),
+        "convert.lifestable_from_jax": tuple(
+            convert.lifestable_from_jax(SimpleNamespace(data=stable)).data),
+        "convert.weld_from_jax": tuple(convert.weld_from_jax([packed] * 4)),
+        "convert.lohi_from_jax": convert.lohi_from_jax(np.ones((64, 3), np.uint32),
+                                                      np.zeros((64, 3), np.uint32)),
+        "bellman_pipeline.build": bellman_pipeline.build(EATER_RLE, 1, 2),
+    }
+    off_card = [name for name, out in built.items()
+                if not all(t.is_cuda for t in (out if isinstance(out, tuple) else (out,)))]
+    check(not off_card, f"[device] built off the card with no device: {off_card}")
+
+    # the headline rollout from a CPU generator's draw and no device
+    boards = B.random(torch.Generator().manual_seed(0), (HEADLINE_B,))
+    reset_counters()
+    rolled = step_cuda.rollout(boards, HEADLINE_T)
+    torch.cuda.synchronize()
+    rollout_launches = step_cuda.LAUNCHES["rollout"]
+    check(rollout_launches == 1, f"[device] the rollout launched kernel [1] "
+          f"{rollout_launches} times, not once")
+    named = B.random(torch.Generator().manual_seed(0), (HEADLINE_B,), device=dev)
+    check(boards.is_cuda, "[device] the headline's no-device draw is not on the card")
+    check(torch.equal(boards, named)
+          and torch.equal(rolled, step_cuda.rollout_plain(named, HEADLINE_T)),
+          "[device] the no-device draw's rollout != the device='cuda' draw's")
+
+    # the README's eater problem, no device anywhere
+    eater = B.move(rle.parse(EATER_RLE), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)])
+    bst = bitplane.make(state=(eater & ~hide).expand(BEAM_B, 64),
+                        unknown=((B.zoi(eater) & ~eater) | hide).expand(BEAM_B, 64))
+    reset_counters()
+    res = complete.complete_stable_beam(bst, frontier=BEAM_F, iters=BEAM_ITERS, dense=False)
+    torch.cuda.synchronize()
+    beam_launches = stable_cuda.LAUNCHES["beam_search"]
+    check(beam_launches == 1, f"[device] the beam launched kernel [10] {beam_launches} times, "
+          f"not once")
+    check(bst.state.is_cuda, "[device] the README's eater problem is not on the card")
+    check(bool(res.found.all()) and bool((res.best_pop == 7).all()),
+          "[device] the README's eater problem was not found at pop 7 on every problem")
+    print(f"[device] {len(built)} constructors given no device built on the card; "
+          f"B={HEADLINE_B} T={HEADLINE_T} rollout of a CPU generator's draw: kernel [1] "
+          f"launched {rollout_launches}x, == the device='cuda' draw's plain rollout; README "
+          f"eater x{BEAM_B}: kernel [10] launched {beam_launches}x, all found at pop 7; "
+          f"phase {time.perf_counter() - t_phase:.2f} s")
 
 
 def parallel_phase(dev, card):
@@ -3021,6 +3124,9 @@ def main():
 
     # -- 3d. LifeState on the card against the CPU ----------------------------------
     state_phase(dev)
+
+    # -- 3e. the one device rule: no device means the card ---------------------------
+    device_phase(dev)
 
     # -- 4. the still-life solver ------------------------------------------------
     stable_launches, stable_err, stable_inputs = stable_phase(dev)

@@ -7,6 +7,9 @@ planes and results.  Every function here takes numpy arrays, or objects
 whose fields convert with ``np.asarray`` (the JAX package's NamedTuples
 of JAX arrays), so this module never imports jax.
 
+The ``*_from_*`` functions build on the CUDA card unless given another
+``device`` (:func:`lifeapi_tpu_torch._device.resolve`).
+
 Board layouts: the JAX package packs a board as ``uint32[..., 64, 2]``
 with word 0 = bits y 0..31 and word 1 = bits y 32..63 of column x; the
 port holds the same 64 bits as one ``int64`` word per column,
@@ -18,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ._device import resolve
 from .history import LifeHistory
 from .stable.api import LifeStable
 from .mpc.cost import CostWeights
@@ -36,7 +40,7 @@ def board_from_packed(packed, device=None):
     if a.shape[-2:] != (64, 2):
         raise ValueError(f"expected a packed board [..., 64, 2], got {a.shape}")
     words = a[..., 0].astype(np.uint64) | (a[..., 1].astype(np.uint64) << np.uint64(32))
-    return torch.from_numpy(words.view(np.int64)).to(device)
+    return torch.from_numpy(words.view(np.int64)).to(resolve(device))
 
 
 def board_to_packed(board):
@@ -93,7 +97,7 @@ def target_from_jax(target, device=None):
 
 def dense_mask(mask, device=None):
     """A dense ``bool[64, 64]`` mask indexed ``[x, y]`` as a torch tensor."""
-    return torch.from_numpy(np.array(mask, dtype=bool)).to(device)
+    return torch.from_numpy(np.array(mask, dtype=bool)).to(resolve(device))
 
 
 def problem_from_jax(problem, device=None):
@@ -167,6 +171,7 @@ def stable_from_jax(st, device=None):
     """A JAX dense ``Stable`` (bool state and unknown, uint8 ruled, all
     ``[..., 64, 64]`` indexed ``[x, y]``) -> the port's
     :class:`~lifeapi_tpu_torch.stable.propagate.Stable`."""
+    device = resolve(device)
     return Stable(dense_mask(st.state, device), dense_mask(st.unknown, device),
                   torch.from_numpy(np.array(st.ruled, dtype=np.uint8)).to(device))
 
@@ -221,6 +226,7 @@ def lohi_from_jax(lo, hi, device=None):
             raise ValueError(f"expected uint32[64, B], got {a.shape}")
         return torch.from_numpy(a.view(np.int32).copy()).to(device)
 
+    device = resolve(device)
     return one(lo), one(hi)
 
 

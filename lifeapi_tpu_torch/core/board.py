@@ -8,6 +8,8 @@ splits the same word into two uint32 halves (``uint32[..., 64, 2]``);
 ``bool[..., 64, 64]`` indexed ``[x, y]``.
 
 All functions are batched over leading dims and never modify their inputs.
+The constructors build on the CUDA card unless given another ``device``
+(:func:`lifeapi_tpu_torch._device.resolve`).
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from . import bitops
 
 N = 64
@@ -54,23 +57,26 @@ def from_dense(dense):
 
 
 def empty(batch=(), device=None):
-    return torch.zeros((*batch, N), dtype=WORD, device=device)
+    return torch.zeros((*batch, N), dtype=WORD, device=resolve(device))
 
 
 def full(batch=(), device=None):
-    return torch.full((*batch, N), -1, dtype=WORD, device=device)
+    return torch.full((*batch, N), -1, dtype=WORD, device=resolve(device))
 
 
 def random(generator, batch=(), p=0.5, device=None):
     """Random board(s); each cell ON independently with probability p,
     drawn from an explicit ``torch.Generator`` (reference ``RandomState``,
-    LifeAPI.hpp:63-69, draws from a nondeterministic mt19937)."""
+    LifeAPI.hpp:63-69, draws from a nondeterministic mt19937).  The draw is
+    made on the generator's own device and moved to ``device``, so one
+    seed gives the same boards on every device."""
+    dev = resolve(device)
     if p == 0.5:
         raw = torch.randint(0, 256, (*batch, N, 8), dtype=torch.uint8,
-                            generator=generator, device=device)
-        return raw.view(WORD)[..., 0]
-    u = torch.rand((*batch, N, N), generator=generator, device=device)
-    return from_dense(u < p)
+                            generator=generator, device=generator.device)
+        return raw.view(WORD)[..., 0].to(dev)
+    u = torch.rand((*batch, N, N), generator=generator, device=generator.device)
+    return from_dense(u < p).to(dev)
 
 
 def from_cells(cells, batch=(), device=None):
@@ -78,7 +84,7 @@ def from_cells(cells, batch=(), device=None):
     d = np.zeros((N, N), dtype=bool)
     for x, y in cells:
         d[x % N, y % N] = True
-    board = from_dense(torch.from_numpy(d).to(device))
+    board = from_dense(torch.from_numpy(d).to(resolve(device)))
     return board.expand(*batch, N).clone() if batch else board
 
 
@@ -94,7 +100,7 @@ _CHECKER_ODD = 0x5555555555555555
 
 def checkerboard(batch=(), device=None):
     """Parity-of-(x+y) board, (0, 0) OFF (reference LifeAPI.hpp:72-82)."""
-    x = _bit_index(device)
+    x = _bit_index(resolve(device))
     board = torch.where(x % 2 == 0, _CHECKER_EVEN, _CHECKER_ODD)
     return board.expand(*batch, N).clone() if batch else board
 
@@ -106,7 +112,7 @@ def solid_rect(x, y, w, h, device=None):
     xs = np.arange(x, x + min(w, N)) % N
     ys = np.arange(y, y + min(h, N)) % N
     dense[np.ix_(xs, ys)] = True
-    return from_dense(torch.from_numpy(dense).to(device))
+    return from_dense(torch.from_numpy(dense).to(resolve(device)))
 
 
 def solid_rect_xy(x1, y1, x2, y2, device=None):

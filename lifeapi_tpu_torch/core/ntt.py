@@ -23,6 +23,8 @@ import functools
 import numpy as np
 import torch
 
+from .._device import resolve
+
 N = 64
 PRIMES = (193, 257)
 CRT_INVERSE = pow(PRIMES[0], PRIMES[1] - 2, PRIMES[1])  # 193**-1 mod 257
@@ -44,7 +46,7 @@ def matrix(p, inverse, device=None):
     """The 64-point NTT matrix mod p, ``int64[64, 64]`` (its inverse, with
     the 1/64 factor, when ``inverse``), from the same root of unity as the
     JAX package.  Both are symmetric."""
-    return torch.from_numpy(_matrix(p, inverse).copy()).to(device)
+    return torch.from_numpy(_matrix(p, inverse).copy()).to(resolve(device))
 
 
 def reduce(x, p):

@@ -19,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .._device import resolve
 from .board import from_dense, to_dense
 
 N = 64
@@ -181,7 +182,7 @@ def row_rle(denses, spacing=70):
 def parse(rle_str, device=None):
     """RLE -> int64 board (reference ``LifeState::Parse``,
     Parsing.hpp:192-198)."""
-    return from_dense(torch.from_numpy(parse_dense(rle_str)).to(device))
+    return from_dense(torch.from_numpy(parse_dense(rle_str)).to(resolve(device)))
 
 
 def to_rle(board):

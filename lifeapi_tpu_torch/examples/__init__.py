@@ -15,15 +15,13 @@ from contextlib import contextmanager
 import numpy as np
 import torch
 
+from .._device import resolve
+
 
 def resolve_device(name):
-    """``torch.device`` for a device name; asking for CUDA where there is
-    none raises instead of falling back."""
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("CUDA was asked for, but torch.cuda.is_available() is False; "
-                           "pass --device cpu to run on the CPU")
-    return dev
+    """``torch.device`` for a device name, CUDA for None; asking for CUDA
+    where there is none raises instead of falling back."""
+    return resolve(name, who="the example runs")
 
 
 def life_step_dense(dense):

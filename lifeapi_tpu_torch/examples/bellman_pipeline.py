@@ -25,6 +25,7 @@ import torch
 
 from .. import search as SR
 from .. import weld as W
+from .._device import resolve
 from ..core import board, rle
 from ..ops import step_cuda
 from ..stable import complete as C
@@ -45,7 +46,9 @@ HORIZON = 64
 def build(pat, dx, dy, pre_dx=0, pre_dy=0, device=None):
     """The pattern moved by (pre_dx, pre_dy), rotated 270 degrees, then
     moved to (24 + dx, 24 + dy).  ``dx``/``dy`` are ints, or integer tensors
-    for a batch of placements."""
+    for a batch of placements, whose device the board takes unless given
+    another."""
+    device = resolve(device, like=(dx, dy))
     b = tr.transform(board.move(rle.parse(pat, device=device), pre_dx, pre_dy), T.Rotate270)
     if torch.is_tensor(dx):
         return board.move_dyn(b, 24 + dx, 24 + dy)

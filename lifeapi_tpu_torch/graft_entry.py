@@ -29,6 +29,8 @@ from pathlib import Path
 import torch
 import torch.distributed as dist
 
+from ._device import resolve
+
 EATER_RLE = "2b2o$bobo$bo$2o!"
 GLIDER_RLE = "bob$2bo$3o!"
 # the dry run's float32 hard costs against the one-rank mesh's
@@ -49,11 +51,7 @@ _RANK = (
 
 def _device(device):
     """The entry points' device: CUDA unless the caller names another."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("graft_entry runs on CUDA unless given a device, but "
-                           "torch.cuda.is_available() is False; pass device='cpu'")
-    return dev
+    return resolve(device, who="graft_entry runs")
 
 
 def _block_target(dev):

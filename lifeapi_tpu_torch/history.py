@@ -8,6 +8,7 @@ from typing import NamedTuple
 
 import torch
 
+from ._device import resolve
 from .core import board as board_mod
 from .core import convolve as convolve_mod
 from .core import rle as rle_mod
@@ -21,9 +22,12 @@ class LifeHistory(NamedTuple):
 
     @staticmethod
     def create(state=None, history=None, marked=None, original=None, device=None):
-        e = board_mod.empty(device=device)
-        return LifeHistory(*(e if p is None else p
-                             for p in (state, history, marked, original)))
+        """The four planes, each empty where not given, on ``device``, else
+        on the device of the given planes, else on the CUDA card."""
+        planes = (state, history, marked, original)
+        dev = resolve(device, like=planes)
+        e = board_mod.empty(device=dev)
+        return LifeHistory(*(e if p is None else p.to(dev) for p in planes))
 
     def move(self, dx, dy):
         return LifeHistory(*(board_mod.move(p, dx, dy) for p in self))
@@ -69,6 +73,8 @@ _BELLMAN_CHARMAP = {"C": ("state",), "E": ("history",)}
 
 
 def _from_planes(planes, device):
+    device = resolve(device)
+
     def get(name):
         if name in planes:
             return board_mod.from_dense(torch.from_numpy(planes[name]).to(device))

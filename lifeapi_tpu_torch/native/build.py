@@ -23,6 +23,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from .._device import resolve
+
 _SRC = Path(__file__).resolve().parent / "oracle.c"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 CFLAGS = ("-O2", "-shared", "-fPIC")
@@ -115,4 +117,4 @@ def to_packed64(board):
 def from_packed64(words, device=None):
     """The oracle's ``uint64[..., 64]`` words -> port board ``int64[..., 64]``."""
     w = np.ascontiguousarray(words, dtype=np.uint64)
-    return torch.from_numpy(w.view(np.int64).copy()).to(device)
+    return torch.from_numpy(w.view(np.int64).copy()).to(resolve(device))

@@ -34,6 +34,7 @@ import torch
 from ..core import bitops
 from ..core import board as B
 from ..core import ntt
+from .._device import resolve
 from . import _build
 from ._descriptor import descriptor_words, plane_descriptor
 from .stable_cuda import first_cell_mask
@@ -230,8 +231,8 @@ def _twiddles(device):
     """W and V of each prime of :mod:`..core.ntt` as ``bfloat16[4, 64, 64]``
     on ``device`` (exact: every entry is below 257), built once a device."""
     if device not in _TWIDDLES:
-        mats = [ntt.matrix(p, inverse) for p in ntt.PRIMES for inverse in (False, True)]
-        _TWIDDLES[device] = torch.stack(mats).to(device=device, dtype=torch.bfloat16)
+        mats = [ntt.matrix(p, inverse, device) for p in ntt.PRIMES for inverse in (False, True)]
+        _TWIDDLES[device] = torch.stack(mats).to(torch.bfloat16)
     return _TWIDDLES[device]
 
 
@@ -341,6 +342,6 @@ def ntt_kernel_info(device=None):
     bytes a thread)} of the NTT kernel on a CUDA ``device``, from the CUDA
     runtime's occupancy calculator and the kernels' attributes."""
     info = (ctypes.c_int * (3 * len(NTT_INSTANTIATIONS)))()
-    with torch.cuda.device(device):
+    with torch.cuda.device(resolve(device)):
         _launch(_build.library().life_conv_ntt_info, info)
     return {name: tuple(info[3 * k:3 * k + 3]) for k, name in enumerate(NTT_INSTANTIATIONS)}

@@ -32,6 +32,7 @@ import torch
 from ..core import board as B
 from ..stable import bitplane as BP
 from ..stable import nibble as nb
+from .._device import resolve
 from . import _build
 from ._descriptor import descriptor_words, plane_descriptor
 from .step_cuda import _check, _launch, _stream
@@ -303,7 +304,7 @@ def fixpoint_kernel_info(priorities, device=None):
     kernel B, or of kernel C when ``priorities``, on a CUDA ``device``, from
     the CUDA runtime's occupancy calculator and the kernel's attributes."""
     info = (ctypes.c_int * 3)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(resolve(device)):
         _launch(_build.library().life_stable_fixpoint_info, int(bool(priorities)), info)
     return tuple(info)
 
@@ -567,6 +568,6 @@ def beam_kernel_info(frontier, device=None):
     the beam kernel at ``frontier`` on a CUDA ``device``, from the CUDA
     runtime's occupancy calculator and the kernel's attributes."""
     info = (ctypes.c_int * 3)()
-    with torch.cuda.device(device):
+    with torch.cuda.device(resolve(device)):
         _launch(_build.library().life_stable_beam_info, int(frontier), info)
     return tuple(info)

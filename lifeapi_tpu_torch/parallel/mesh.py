@@ -21,6 +21,8 @@ import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
 
+from .._device import resolve
+
 SCENARIO_AXIS = "scenario"
 CANDIDATE_AXIS = "candidate"
 
@@ -28,12 +30,9 @@ _BACKENDS = {"cuda": "nccl", "cpu": "gloo"}
 
 
 def _device_type(device):
-    kind = torch.device("cuda" if device is None else device).type
+    kind = resolve(device, who="the mesh is built").type
     if kind not in _BACKENDS:
         raise ValueError(f"no collective backend for device type {kind!r}")
-    if kind == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("a CUDA mesh was asked for, but torch.cuda.is_available() "
-                           "is False; pass device='cpu' for a gloo mesh")
     return kind
 
 

@@ -30,6 +30,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve
 from ..core import board as B
 from ..core import step as S
 from . import nibble as nb
@@ -76,11 +77,11 @@ class BitPropagateResult(NamedTuple):
 
 def make(state=None, unknown=None, batch=(), device=None):
     """Fresh BitStable: nothing ruled out; a missing state or unknown is
-    empty, on the device of the other."""
-    if device is None:
-        device = next((x.device for x in (state, unknown) if x is not None), None)
-    s = B.empty(batch, device) if state is None else state
-    u = B.empty(batch, device) if unknown is None else unknown
+    empty.  It is built on ``device``, else on the device of the given
+    tensors, else on the CUDA card."""
+    dev = resolve(device, like=(state, unknown))
+    s = B.empty(batch, dev) if state is None else state.to(dev)
+    u = B.empty(batch, dev) if unknown is None else unknown.to(dev)
     shape = torch.broadcast_shapes(s.shape, u.shape)
     s = s.expand(shape).clone()
     u = u.expand(shape) & ~s

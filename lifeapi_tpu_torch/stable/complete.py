@@ -26,6 +26,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .._device import resolve
 from . import options as opt
 from .host import HostStable, big_zoi, count9, zoi
 
@@ -340,8 +341,9 @@ def draw_offsets(generator, replicas, device=None):
     """Per-replica random torus translations ``(dx, dy)``, each
     ``int64[replicas]`` in [0, 64), drawn on the generator's device and
     moved to ``device``."""
+    dev = resolve(device)
     d = torch.randint(0, 64, (2, replicas), generator=generator, device=generator.device)
-    return d[0].to(device), d[1].to(device)
+    return d[0].to(dev), d[1].to(dev)
 
 
 def _build_replicas(state, unknown, dx, dy):

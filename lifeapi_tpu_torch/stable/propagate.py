@@ -23,6 +23,7 @@ from typing import NamedTuple
 
 import torch
 
+from .._device import resolve
 from ..core import board as board_mod
 from . import options as opt
 from . import rules_vec
@@ -54,10 +55,15 @@ class PropagateResult(NamedTuple):
 
 
 def make(state=None, unknown=None, batch=(), device=None):
-    """Fresh Stable; ``state``/``unknown`` may be int64 boards or dense."""
+    """Fresh Stable; ``state``/``unknown`` may be int64 boards or dense.
+    It is built on ``device``, else on the device of the given tensors,
+    else on the CUDA card."""
+    dev = resolve(device, like=(state, unknown))
+
     def to_dense(x):
         if x is None:
-            return torch.zeros((*batch, N, N), dtype=torch.bool, device=device)
+            return torch.zeros((*batch, N, N), dtype=torch.bool, device=dev)
+        x = x.to(dev)
         if x.dtype == torch.int64:
             return board_mod.to_dense(x)
         return x.bool()

@@ -9,13 +9,12 @@ entry point for users coming from the C++ LifeAPI.
 
 The constructors build on the CUDA card unless given ``device="cpu"``
 (or another device); asking for CUDA where there is none raises.  A state
-made from a tensor stays on that tensor's device.
+made from a tensor stays on that tensor's device unless given another.
 """
 
 from __future__ import annotations
 
-import torch
-
+from ._device import resolve
 from .core import board as B
 from .core import convolve as C
 from .core import rle as R
@@ -23,20 +22,18 @@ from .core import step as S
 from .core import strips as ST
 
 
-def _device(device):
-    """The constructors' device: CUDA unless the caller names another."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("LifeState builds on CUDA unless given a device, but "
-                           "torch.cuda.is_available() is False; pass device='cpu'")
-    return dev
+def _device(device, like=()):
+    """The constructors' device, by the port's one rule
+    (:func:`lifeapi_tpu_torch._device.resolve`)."""
+    return resolve(device, like, who="LifeState builds")
 
 
 class LifeState:
     __slots__ = ("packed",)
 
     def __init__(self, packed=None, device=None):
-        self.packed = B.empty(device=_device(device)) if packed is None else packed
+        dev = _device(device, like=(packed,))
+        self.packed = B.empty(device=dev) if packed is None else packed.to(dev)
 
     # -- constructors ------------------------------------------------------
     @staticmethod

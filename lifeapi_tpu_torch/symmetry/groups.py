@@ -14,6 +14,7 @@ import enum
 import numpy as np
 import torch
 
+from .._device import resolve
 from ..core.board import from_dense
 from .transforms import SymmetryTransform as T
 
@@ -172,7 +173,7 @@ def fundamental_domain(sym, device=None):
     else:  # D8, D8even
         d = (y < 32) & (x <= y)
     d = np.broadcast_to(d, (N, N))
-    return from_dense(torch.from_numpy(np.array(d)).to(device))
+    return from_dense(torch.from_numpy(np.array(d)).to(resolve(device)))
 
 
 # ---------------------------------------------------------------------------

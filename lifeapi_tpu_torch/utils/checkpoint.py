@@ -14,6 +14,8 @@ from pathlib import Path
 
 import torch
 
+from .._device import resolve
+
 
 def save(path, state):
     """Save a nest of tensors to the file ``path``."""
@@ -36,9 +38,7 @@ def restore(path, template=None, device=None):
     without it, on ``device``: the CUDA card unless given another."""
     if template is not None:
         return _like(torch.load(Path(path), map_location="cpu", weights_only=True), template)
-    from ..state import _device
-
-    return torch.load(Path(path), map_location=_device(device), weights_only=True)
+    return torch.load(Path(path), map_location=resolve(device), weights_only=True)
 
 
 def save_rle(path, board):
@@ -50,10 +50,8 @@ def save_rle(path, board):
 
 def load_rle(path, device=None):
     """Read a Golly RLE file into a board, on the CUDA card unless given
-    another ``device`` (as :class:`~lifeapi_tpu_torch.state.LifeState`'s
-    constructors)."""
+    another ``device``."""
     from ..core import rle
-    from ..state import _device
 
-    dev = _device(device)
+    dev = resolve(device)
     return rle.parse(Path(path).read_text(), device=dev)

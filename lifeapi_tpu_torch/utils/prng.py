@@ -15,6 +15,8 @@ import hashlib
 
 import torch
 
+from .._device import resolve
+
 _SEED_HIGH = 2**63 - 1  # seeds are drawn from [0, 2**63 - 1)
 
 
@@ -25,11 +27,13 @@ def _generator(seed, device):
 class KeySequence:
     """Stateful source of generators: ``ks = KeySequence(0); g = ks()``.
     Each call returns a new generator, seeded from the next draw of the
-    sequence's own generator, on the same device."""
+    sequence's own generator, on the same device.  A seed makes that
+    generator on ``device``, the CUDA card unless given another; a given
+    generator keeps its own device."""
 
-    def __init__(self, seed_or_generator, device="cpu"):
+    def __init__(self, seed_or_generator, device=None):
         if isinstance(seed_or_generator, int):
-            self._gen = _generator(seed_or_generator, device)
+            self._gen = _generator(seed_or_generator, resolve(device))
         else:
             self._gen = seed_or_generator
 

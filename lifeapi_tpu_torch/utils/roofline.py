@@ -36,6 +36,8 @@ import subprocess
 import torch
 from torch.fx.experimental.proxy_tensor import make_fx
 
+from .._device import resolve
+
 SCHEDULERS_PER_SM = 4
 LANES = 32
 
@@ -224,7 +226,7 @@ def card_issue_peak(device=None):
     if not torch.cuda.is_available():
         raise RuntimeError("card_issue_peak reads a CUDA card, but "
                            "torch.cuda.is_available() is False")
-    index = torch.device("cuda" if device is None else device).index
+    index = resolve(device, who="card_issue_peak reads").index
     index = torch.cuda.current_device() if index is None else index
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -247,11 +249,7 @@ _BATCH = 8  # boards traced at once; the count is per board
 
 
 def _device(device):
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("the counters trace on CUDA unless given a device, but "
-                           "torch.cuda.is_available() is False; pass device='cpu'")
-    return dev
+    return resolve(device, who="the counters trace")
 
 
 def _per_board(fn, args, post_cse):

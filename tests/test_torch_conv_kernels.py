@@ -75,7 +75,7 @@ def test_counts_sparse_fused_matches_pallas(rng, n_planes):
     assert len(got) == len(expect) == n_planes
     for g, e in zip(convert.planes_to_packed(got), expect):
         assert (g == np.asarray(e)).all()
-    assert all(torch.equal(g, e) for g, e in zip(got, convert.planes_from_packed(expect)))
+    assert all(torch.equal(g, e) for g, e in zip(got, convert.planes_from_packed(expect, device="cpu")))
     exact = conv_cuda.conv_counts_fused(torch.from_numpy(da), torch.from_numpy(db))
     counts = sum(tb.to_dense(p).to(torch.int32) << i for i, p in enumerate(got))
     assert torch.equal(counts, exact % (1 << n_planes))  # wraps mod 2**n_planes

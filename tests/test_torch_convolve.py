@@ -25,7 +25,7 @@ EATER = [(0, 0), (1, 0), (0, 1), (2, 1), (2, 2), (2, 3), (3, 3)]
 def _pair(dense):
     """(JAX packed board, port board) of one dense numpy field."""
     packed = jb.from_dense(jnp.asarray(dense))
-    return packed, convert.board_from_packed(packed)
+    return packed, convert.board_from_packed(packed, device="cpu")
 
 
 def _sparse(rng, batch, k, lo=0, hi=64):
@@ -126,7 +126,7 @@ def test_match_family_sparse_patterns(rng):
     (js, ts) = _pair(rng.random((3, 64, 64)) < 0.35)
     live, dead = [(0, 0), (1, 0), (0, 1), (2, 1), (62, 63)], [(3, 3), (63, 0), (1, 63)]
     jl, jd = jb.from_cells(live), jb.from_cells(dead)
-    tl, td = tb.from_cells(live), tb.from_cells(dead)
+    tl, td = tb.from_cells(live, device="cpu"), tb.from_cells(dead, device="cpu")
     _same(conv.match_sparse(ts, live), jconv.match_sparse(js, live))
     _same(conv.match_sparse(ts, dead, invert=True), jconv.match_sparse(js, dead, invert=True))
     _same(conv.match_sparse(ts, []), jconv.match_sparse(js, []))
@@ -134,25 +134,25 @@ def test_match_family_sparse_patterns(rng):
     _same(conv.match_live_and_dead(ts, tl, td), jconv.match_live_and_dead(js, jl, jd))
     # batched patterns take the correlation route
     _same(conv.match_live(ts, tl.expand(3, 64)), jconv.match_live(js, jl))
-    _same(conv.match_live(ts, tb.empty()), jconv.match_live(js, jb.empty()))
+    _same(conv.match_live(ts, tb.empty(device="cpu")), jconv.match_live(js, jb.empty()))
 
 
 def test_match_and_align_with():
-    jpat, tpat = jb.from_cells(EATER), tb.from_cells(EATER)
+    jpat, tpat = jb.from_cells(EATER), tb.from_cells(EATER, device="cpu")
     jstate = jb.move(jpat, 10, 20) | jb.from_cells([(40, 40)])
-    tstate = tb.move(tpat, 10, 20) | tb.from_cells([(40, 40)])
+    tstate = tb.move(tpat, 10, 20) | tb.from_cells([(40, 40)], device="cpu")
     m = conv.match(tstate, tpat)
     _same(m, jconv.match(jstate, jpat))
     assert tb.on_cells(m) == [(10, 20)]
     _same(conv.align_with(tstate, tpat), jconv.align_with(jstate, jpat))
-    assert tb.on_cells(conv.match(tstate | tb.from_cells([(9, 19)]), tpat)) == []
+    assert tb.on_cells(conv.match(tstate | tb.from_cells([(9, 19)], device="cpu"), tpat)) == []
 
 
 def _glider_eater():
     jg = jb.move(jrle.parse("bob$2bo$3o!"), 8, 8)
     je = jb.move(jtr.transform(jrle.parse("2b2o$bobo$bo$2o!"),
                                jtr.SymmetryTransform.Rotate270), 24, 24)
-    return (jg, convert.board_from_packed(jg)), (je, convert.board_from_packed(je))
+    return (jg, convert.board_from_packed(jg, device="cpu")), (je, convert.board_from_packed(je, device="cpu"))
 
 
 @pytest.mark.parametrize("method", [None, "sparse", "ntt_fused", "fft"])
@@ -267,7 +267,7 @@ def test_weld_interaction_offsets_sparse_matches_jax_sparse():
                          centered("2b2o$b3o$b4o$5o$4o$4o!", -1, -1))
     block = JW.LifeWeld.from_state(centered("2o$2o!"))
     for ja, jb_w in ((j, j), (block, j)):
-        ta, tb_w = convert.weld_from_jax(ja), convert.weld_from_jax(jb_w)
+        ta, tb_w = convert.weld_from_jax(ja, device="cpu"), convert.weld_from_jax(jb_w, device="cpu")
         _same(W.interaction_offsets(ta, tb_w, method="sparse"),
               JW.interaction_offsets(ja, jb_w, method="sparse"))
 
@@ -276,7 +276,7 @@ def test_interaction_offsets_predict_then_simulate():
     """The reference's EaterSelfInteractionTest (tests/InteractionTest.cpp):
     for every non-overlapping placement, interaction_offsets predicts
     exactly whether the union of the two still lifes fails to be still."""
-    eater = tb.move(rle.parse("2b2o$bobo$bo$2o!"), 20, 20)
+    eater = tb.move(rle.parse("2b2o$bobo$bo$2o!", device="cpu"), 20, 20)
     offsets = tb.to_dense(conv.interaction_offsets(eater, eater))
     grid = torch.tensor([[dx, dy] for dx in range(-10, 10) for dy in range(-10, 10)])
     moved = tb.move_dyn(eater.expand(len(grid), 64), grid[:, 0], grid[:, 1])
@@ -290,12 +290,12 @@ def test_interaction_offsets_predict_then_simulate():
 
 def test_components_match_jax(rng):
     cells = EATER + [(30 + x, 30 + y) for x, y in EATER] + [(50, 5), (52, 5)]
-    jstate, tstate = jb.from_cells(cells), tb.from_cells(cells)
+    jstate, tstate = jb.from_cells(cells), tb.from_cells(cells, device="cpu")
     got, expect = conv.components(tstate), jconv.components(jstate)
     assert len(got) == len(expect) == 3
     for g, e in zip(got, expect):
         _same(g, e)
-    seed = tb.cell_mask(31, 30)
+    seed = tb.cell_mask(31, 30, device="cpu")
     _same(conv.component_containing(tstate, seed),
           jconv.component_containing(jstate, jb.cell_mask(31, 30)))
-    _same(conv.default_corona(), jconv.default_corona())
+    _same(conv.default_corona(device="cpu"), jconv.default_corona())

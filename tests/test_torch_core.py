@@ -28,7 +28,7 @@ GLIDER = "bob$2bo$3o!"
 def _pair(rng, batch=(12,), p=0.35):
     """The same random boards in both packings: (jax packed, torch int64)."""
     packed = jb.from_dense(jnp.asarray(random_dense(rng, p=p, batch=batch)))
-    return packed, convert.board_from_packed(packed)
+    return packed, convert.board_from_packed(packed, device="cpu")
 
 
 def _same(jax_out, torch_out):
@@ -55,7 +55,7 @@ def _same(jax_out, torch_out):
 
 def test_convert_roundtrip_and_dense(rng):
     words = rng.integers(0, 2**32, size=(5, 64, 2), dtype=np.uint32)
-    t = convert.board_from_packed(words)
+    t = convert.board_from_packed(words, device="cpu")
     assert t.dtype == torch.int64 and t.shape == (5, 64)
     assert (convert.board_to_packed(t) == words).all()
     assert (tb.to_dense(t).numpy() == np.asarray(jb.to_dense(jnp.asarray(words)))).all()
@@ -160,7 +160,7 @@ def test_rolls_and_moves(rng, dx, dy):
 
 def test_roll_conventions():
     """Result column x holds input column x - dx; row y holds row y - dy."""
-    t = tb.from_cells([(3, 7)])
+    t = tb.from_cells([(3, 7)], device="cpu")
     assert tb.on_cells(tb.roll_x(t, 2)) == [(5, 7)]
     assert tb.on_cells(tb.roll_y(t, -9)) == [(3, 62)]
     assert tb.on_cells(tb.move(t, -4, 60)) == [(63, 3)]
@@ -180,11 +180,11 @@ def test_move_dyn_per_board_negative_offsets(rng):
 
 def test_cells_and_constructors(rng):
     cells = [(0, 0), (63, 63), (5, 40), (-1, 3), (70, -2)]
-    _same(jb.from_cells(cells), tb.from_cells(cells))
-    _same(jb.from_cells(cells, batch=(3,)), tb.from_cells(cells, batch=(3,)))
-    assert tb.on_cells(tb.from_cells(cells)) == jb.on_cells(jb.from_cells(cells))
-    _same(jb.empty((2,)), tb.empty((2,)))
-    _same(jb.full((2,)), tb.full((2,)))
+    _same(jb.from_cells(cells), tb.from_cells(cells, device="cpu"))
+    _same(jb.from_cells(cells, batch=(3,)), tb.from_cells(cells, batch=(3,), device="cpu"))
+    assert tb.on_cells(tb.from_cells(cells, device="cpu")) == jb.on_cells(jb.from_cells(cells))
+    _same(jb.empty((2,)), tb.empty((2,), device="cpu"))
+    _same(jb.full((2,)), tb.full((2,), device="cpu"))
     packed, t = _pair(rng, batch=(), p=0.3)
     for x, y in [(0, 0), (63, 31), (17, 32), (-1, -1), (64, 65)]:
         _same(jb.get_cell(packed, x, y), tb.get_cell(t, x, y))
@@ -193,14 +193,14 @@ def test_cells_and_constructors(rng):
 
 
 def test_constructors_and_queries_of_the_board_layer(rng):
-    _same(jb.cell_mask(5, 63), tb.cell_mask(5, 63))
-    _same(jb.checkerboard(), tb.checkerboard())
-    _same(jb.checkerboard((2,)), tb.checkerboard((2,)))
+    _same(jb.cell_mask(5, 63), tb.cell_mask(5, 63, device="cpu"))
+    _same(jb.checkerboard(), tb.checkerboard(device="cpu"))
+    _same(jb.checkerboard((2,)), tb.checkerboard((2,), device="cpu"))
     for args in ((3, 60, 5, 9), (-2, -3, 70, 4), (10, 10, 0, 3)):
-        _same(jb.solid_rect(*args), tb.solid_rect(*args))
-    _same(jb.solid_rect_xy(2, 3, 7, 4), tb.solid_rect_xy(2, 3, 7, 4))
-    _same(jb.nzoi_around((1, 62), 2), tb.nzoi_around((1, 62), 2))
-    _same(jb.cell_zoi((0, 0)), tb.cell_zoi((0, 0)))
+        _same(jb.solid_rect(*args), tb.solid_rect(*args, device="cpu"))
+    _same(jb.solid_rect_xy(2, 3, 7, 4), tb.solid_rect_xy(2, 3, 7, 4, device="cpu"))
+    _same(jb.nzoi_around((1, 62), 2), tb.nzoi_around((1, 62), 2, device="cpu"))
+    _same(jb.cell_zoi((0, 0)), tb.cell_zoi((0, 0), device="cpu"))
     packed, t = _pair(rng, batch=(3,), p=0.01)
     for i in (0, 17, 63):
         lo, hi = jb.zoi_column(packed, i)
@@ -212,20 +212,20 @@ def test_constructors_and_queries_of_the_board_layer(rng):
         assert tb.find_set_neighbour(tone, cell) == jb.find_set_neighbour(one, cell)
     # a pattern across the seam: the wrap-aware bounds agree
     seam = [(62, 63), (63, 0), (0, 1), (1, 1)]
-    _same(jb.xy_bounds(jb.from_cells(seam)), tb.xy_bounds(tb.from_cells(seam)))
-    _same(jb.width_height(jb.from_cells(seam)), tb.width_height(tb.from_cells(seam)))
-    _same(jb.first_on(jb.empty()), tb.first_on(tb.empty()))
-    _same(jb.buffer_around(jb.empty(), (3, 3)), tb.buffer_around(tb.empty(), (3, 3)))
+    _same(jb.xy_bounds(jb.from_cells(seam)), tb.xy_bounds(tb.from_cells(seam, device="cpu")))
+    _same(jb.width_height(jb.from_cells(seam)), tb.width_height(tb.from_cells(seam, device="cpu")))
+    _same(jb.first_on(jb.empty()), tb.first_on(tb.empty(device="cpu")))
+    _same(jb.buffer_around(jb.empty(), (3, 3)), tb.buffer_around(tb.empty(device="cpu"), (3, 3)))
 
 
 def test_random_generator_boards():
     g = torch.Generator().manual_seed(3)
-    a = tb.random(g, (64,))
-    b = tb.random(torch.Generator().manual_seed(3), (64,))
+    a = tb.random(g, (64,), device="cpu")
+    b = tb.random(torch.Generator().manual_seed(3), (64,), device="cpu")
     assert a.dtype == torch.int64 and a.shape == (64, 64)
     assert torch.equal(a, b)
     assert abs(float(tb.population(a).sum()) / (64 * 4096) - 0.5) < 0.01
-    sparse = tb.random(g, (64,), p=0.1)
+    sparse = tb.random(g, (64,), p=0.1, device="cpu")
     assert abs(float(tb.population(sparse).sum()) / (64 * 4096) - 0.1) < 0.01
 
 
@@ -262,11 +262,11 @@ def test_step_matches_dense_oracle(rng, p):
 @pytest.mark.parametrize("text", [EATER, GLIDER, "3o$o2bo$bo!", "x = 3, y = 3\nb2o$2o$bo!",
                                   "7q$$$!!", "2o2$2o!"])
 def test_rle_matches_jax(text):
-    t = trle.parse(text)
+    t = trle.parse(text, device="cpu")
     _same(jrle.parse(text), t)
     moved = tb.move(t, 20, 45)
     assert trle.to_rle(moved) == jrle.to_rle(jb.move(jrle.parse(text), 20, 45))
-    assert torch.equal(trle.parse(trle.to_rle(moved)), tb.move(moved, -32, -32))
+    assert torch.equal(trle.parse(trle.to_rle(moved), device="cpu"), tb.move(moved, -32, -32))
 
 
 def test_count_plane_helpers(rng):
@@ -284,7 +284,7 @@ def test_count_plane_helpers(rng):
     _same(js.add_counts(jpa, jpb), ts.add_counts(tpa, tpb))
     _same(js.subtract_counts(jpa, jpb), ts.subtract_counts(tpa, tpb))
     carry = jb.from_dense(jnp.asarray(random_dense(rng, p=0.5, batch=(12,))))
-    _same(js.add_counts(jpa, jpb, carry), ts.add_counts(tpa, tpb, convert.board_from_packed(carry)))
+    _same(js.add_counts(jpa, jpb, carry), ts.add_counts(tpa, tpb, convert.board_from_packed(carry, device="cpu")))
 
 
 @pytest.mark.parametrize("x, y", [(0, 0), (5, 63), (63, 17), (-1, 3), (32, -64)])

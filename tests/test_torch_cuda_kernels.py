@@ -42,9 +42,9 @@ def _controlled_case(gen, device):
 
 
 def _catalyst_case(gen, device):
-    glider = B.from_cells([(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)])
+    glider = B.from_cells([(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)], device="cpu")
     eater = B.from_cells([(24, 21), (24, 22), (25, 21), (25, 23), (26, 23),
-                          (27, 23), (27, 24)])
+                          (27, 23), (27, 24)], device="cpu")
     offsets = torch.randint(-12, 12, (333, 2), generator=gen)
     args = [t.to(device) for t in rollout_inputs(glider, eater, offsets, 41)]
     return "catalyst_rollout", tuple(args), step_cuda.catalyst_rollout_plain
@@ -167,8 +167,8 @@ def _stable_inputs(device):
 
 
 def _eater_problem(b, device):
-    eater = B.move(rle.parse("2b2o$bobo$bo$2o!"), 20, 20)
-    hide = B.from_cells([(20, 20), (21, 20)])
+    eater = B.move(rle.parse("2b2o$bobo$bo$2o!", device="cpu"), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)], device="cpu")
     unknown = (B.zoi(eater) & ~eater) | hide
     bst = BP.make(state=(eater & ~hide).expand(b, 64), unknown=unknown.expand(b, 64))
     return BP.to_planes(bst).contiguous().to(device), (eater & ~hide).to(device)
@@ -780,9 +780,9 @@ def test_stable_consistency_is_one_launch_of_kernel_b(device):
     from lifeapi_tpu_torch.mpc import symmetric
 
     gen = torch.Generator().manual_seed(5)
-    blocks = B.move_dyn(rle.parse("2o$2o!"), torch.randint(16, 46, (64,), generator=gen),
+    blocks = B.move_dyn(rle.parse("2o$2o!", device="cpu"), torch.randint(16, 46, (64,), generator=gen),
                         torch.randint(16, 46, (64,), generator=gen))
-    stray = B.from_cells([(31, 33)]).expand(64, 64)
+    stray = B.from_cells([(31, 33)], device="cpu").expand(64, 64)
     finals = torch.cat([blocks, blocks | stray, _random_boards(gen, 64, 0.1, "cpu")]).to(device)
     region = torch.zeros((64, 64), dtype=torch.bool, device=device)
     region[12:52, 12:52] = True
@@ -870,8 +870,8 @@ def test_sharded_beam_complete_over_nccl(nccl_mesh):
     from lifeapi_tpu_torch.parallel import elite
     from lifeapi_tpu_torch.stable import complete as C
 
-    eater = B.move(rle.parse("2b2o$bobo$bo$2o!"), 20, 20)
-    hide = B.from_cells([(20, 20), (21, 20)])
+    eater = B.move(rle.parse("2b2o$bobo$bo$2o!", device="cpu"), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)], device="cpu")
     unknown = (B.zoi(eater) & ~eater) | hide
     bst = BP.make(state=(eater & ~hide).expand(64, 64).cuda(),
                   unknown=unknown.expand(64, 64).cuda())

@@ -23,7 +23,7 @@ def _planes():
 def _both():
     planes = _planes()
     jh = jhist.LifeHistory(*(jb.from_cells(c) for c in planes))
-    th = history.LifeHistory(*(tb.from_cells(c) for c in planes))
+    th = history.LifeHistory(*(tb.from_cells(c, device="cpu") for c in planes))
     return jh, th
 
 
@@ -47,19 +47,19 @@ def test_parse_matches_jax(bellman):
     text = jh.rle() if not bellman else "C2E$bC3E$!"
     parse, jparse = ((history.parse_bellman, jhist.parse_bellman) if bellman
                      else (history.parse, jhist.parse))
-    _same(parse(text), jparse(text))
-    _same(parse(text).move(32, 32), jparse(text).move(32, 32))
+    _same(parse(text, device="cpu"), jparse(text))
+    _same(parse(text, device="cpu").move(32, 32), jparse(text).move(32, 32))
 
 
 def test_convert_and_align_with():
     jh, th = _both()
-    _same(convert.history_from_jax(jh), jh)
+    _same(convert.history_from_jax(jh, device="cpu"), jh)
     back = jhist.LifeHistory(*convert.history_to_jax(th))
     assert back.rle() == jh.rle()
     pat_cells = EATER
     jstate = jb.move(jb.from_cells(pat_cells), 10, 20)
-    tstate = tb.move(tb.from_cells(pat_cells), 10, 20)
+    tstate = tb.move(tb.from_cells(pat_cells, device="cpu"), 10, 20)
     jaligned = jhist.LifeHistory.create(state=jstate).align_with(jb.from_cells(pat_cells))
-    taligned = history.LifeHistory.create(state=tstate).align_with(tb.from_cells(pat_cells))
+    taligned = history.LifeHistory.create(state=tstate).align_with(tb.from_cells(pat_cells, device="cpu"))
     _same(taligned, jaligned)
     assert tb.on_cells(taligned.state) == sorted(pat_cells)

@@ -78,7 +78,7 @@ def test_soft_step_and_rollout(rng, tau):
 
 def test_soft_costs(rng):
     jp = _jax_problem("protected")
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     traj = rng.random((3, 2, 64, 64)).astype(np.float32)
     jt, tt = jnp.asarray(traj), torch.from_numpy(traj)
     pairs = [
@@ -96,9 +96,9 @@ def test_soft_costs(rng):
 
 def test_hard_cost_heads(rng):
     jp = _jax_problem("protected")
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     packed = jb.from_dense(jnp.asarray(rng.random((4, 3, 64, 64)) < 0.05))
-    t = convert.board_from_packed(packed)
+    t = convert.board_from_packed(packed, device="cpu")
     assert (hamming_cost(t, tp.target).numpy()
             == np.asarray(jax.vmap(lambda b: jcost.hamming_cost(b, jp.target))(packed))).all()
     assert (tcost.hard_target_cost_any_time(t, tp.target).numpy()
@@ -119,7 +119,7 @@ def test_hard_cost_heads(rng):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_soft_objective_value_and_grad(rng, kind):
     jp = _jax_problem(kind, horizon=4)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits = rng.normal(-1.0, 1.5, size=(3, 4, 64, 64)).astype(np.float32)
     jv, jg = jax.vmap(jax.value_and_grad(
         lambda l: jsolver.soft_objective(l, jp, 0.4)))(jnp.asarray(logits))
@@ -133,7 +133,7 @@ def test_soft_objective_value_and_grad(rng, kind):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_hard_score_batch_bit_identical_to_vmap_path(rng, kind):
     jp = _jax_problem(kind, horizon=4)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     probs = _away_from_half(rng.random((4, 4, 64, 64)) * 0.7)
     jc, jf = jsolver.hard_score_batch(jnp.asarray(probs), jp, use_fused=False)
     tc, tf = tsolver.hard_score_batch(torch.from_numpy(probs), tp)
@@ -149,7 +149,7 @@ def test_hard_score_batch_bit_identical_to_vmap_path(rng, kind):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_rescore_and_select(rng, kind):
     jp = _jax_problem(kind, horizon=3)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits = _logits(rng, (4, 3, 64, 64)) - 2.0
     js = jsolver.rescore_and_select(jnp.asarray(logits), jp)
     ts = convert.solution_to_numpy(tsolver.rescore_and_select(torch.from_numpy(logits), tp))
@@ -163,7 +163,7 @@ def test_rescore_and_select(rng, kind):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_solve_gradient_five_iterations(rng, kind):
     jp = _jax_problem(kind, horizon=3)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits0 = rng.normal(-3.0, 0.5, size=(2, 3, 64, 64)).astype(np.float32)
     jl, jh = jsolver.solve_gradient(jnp.asarray(logits0), jp, iters=5)
     tl, th = tsolver.solve_gradient(torch.from_numpy(logits0), tp, iters=5)
@@ -172,7 +172,7 @@ def test_solve_gradient_five_iterations(rng, kind):
 
 
 def test_solve_reaches_target():
-    problem = convert.problem_from_jax(_jax_problem("plain", horizon=6))
+    problem = convert.problem_from_jax(_jax_problem("plain", horizon=6), device="cpu")
     problem = problem._replace(weights=tcost.CostWeights(target=1.0, control=0.01))
     sol = tsolver.solve(problem, torch.Generator().manual_seed(0), n_candidates=8,
                         iters=120)
@@ -185,17 +185,17 @@ def test_solve_reaches_target():
 def test_solve_rejects_unported_method():
     """Every method of the JAX package's ``solve`` is ported; an unknown
     method name still raises."""
-    problem = convert.problem_from_jax(_jax_problem("plain"))
+    problem = convert.problem_from_jax(_jax_problem("plain"), device="cpu")
     with pytest.raises(ValueError):
         tsolver.solve(problem, torch.Generator(), method="newton")
 
 
 def test_cem_reaches_target():
-    block = tb.move(tb.from_cells([(0, 0), (0, 1), (1, 0), (1, 1)]), 31, 31)
+    block = tb.move(tb.from_cells([(0, 0), (0, 1), (1, 0), (1, 1)], device="cpu"), 31, 31)
     mask = torch.zeros((64, 64), dtype=torch.bool)
     mask[30:34, 30:34] = True
     problem = tsolver.MPCProblem(
-        initial=tb.empty(), target=LifeTarget.from_state(block), horizon=2,
+        initial=tb.empty(device="cpu"), target=LifeTarget.from_state(block), horizon=2,
         control_mask=mask, weights=tcost.CostWeights(target=1.0, control=0.01))
     mean, best_cost, best_sample, history = tsolver.solve_cem(
         problem, torch.Generator().manual_seed(1), pop=128, iters=12, elites=8,
@@ -211,7 +211,7 @@ def test_hard_rollout_matches_jax(rng):
     packed = jb.from_dense(jnp.asarray(rng.random((3, 64, 64)) < 0.3))
     tog = jb.from_dense(jnp.asarray(rng.random((5, 3, 64, 64)) < 0.02))
     expect = jsoft.hard_rollout(packed, tog)
-    got = tsoft.hard_rollout(convert.board_from_packed(packed), convert.board_from_packed(tog))
+    got = tsoft.hard_rollout(convert.board_from_packed(packed, device="cpu"), convert.board_from_packed(tog, device="cpu"))
     assert (convert.board_to_packed(got) == np.asarray(expect)).all()
     probs = _away_from_half(rng.random((2, 64, 64)))
     assert (convert.board_to_packed(tsoft.binarize_controls(torch.from_numpy(probs)))

@@ -72,7 +72,7 @@ def test_conjugate_gradients_match_vmapped_jax_cg(rng, maxiter):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_hvp_matches_jax_jvp_of_grad(rng, kind):
     jp = _jax_problem(kind, horizon=3)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits = rng.normal(-1.5, 1.5, size=(2, 3, 64, 64)).astype(np.float32)
     vecs = rng.normal(size=(2, 3, 64, 64)).astype(np.float32)
 
@@ -92,7 +92,7 @@ def test_hvp_matches_jax_jvp_of_grad(rng, kind):
 @pytest.mark.parametrize("kind", ["plain", "protected"])
 def test_solve_sqp_matches_jax(rng, kind):
     jp = _jax_problem(kind, horizon=2)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits0 = rng.normal(-2.0, 1.0, size=(2, 2, 64, 64)).astype(np.float32)
     expect = jsolver.solve_sqp(jnp.asarray(logits0), jp, iters=2, cg_iters=4)
     got = tsolver.solve_sqp(torch.from_numpy(logits0), tp, iters=2, cg_iters=4)
@@ -104,7 +104,7 @@ def test_sqp_solver_improves():
     """Mirror of ``test_sqp_solver_improves``: the toy problem's best soft
     objective after 30 gradient iterations and 3 SQP steps is below the
     best at the start, and SQP does not undo the warm-up."""
-    problem = convert.problem_from_jax(_jax_problem("plain", horizon=6))
+    problem = convert.problem_from_jax(_jax_problem("plain", horizon=6), device="cpu")
     logits0 = tsolver.init_logits(torch.Generator().manual_seed(2), problem, 4)
     start = tsolver.soft_objective(logits0, problem)
     warm, _ = tsolver.solve_gradient(logits0, problem, iters=30)
@@ -118,7 +118,7 @@ def test_solve_sqp_method_is_warm_up_then_sqp():
     """``solve(method="sqp")``: ``max(iters // 3, 10)`` gradient
     iterations, then ``solve_sqp`` with the caller's kwargs, then the hard
     rescore."""
-    problem = convert.problem_from_jax(_jax_problem("plain", horizon=2))
+    problem = convert.problem_from_jax(_jax_problem("plain", horizon=2), device="cpu")
     sol = tsolver.solve(problem, torch.Generator().manual_seed(5), n_candidates=2,
                         method="sqp", iters=12, cg_iters=3)
     logits0 = tsolver.init_logits(torch.Generator().manual_seed(5), problem, 2)

@@ -20,8 +20,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 def test_constants_match_the_jax_package():
     assert ntt.PRIMES == jconv._NTT_PRIMES
     for p, (w, v) in zip(ntt.PRIMES, jconv._ntt_matrices()):
-        assert np.array_equal(ntt.matrix(p, False).numpy(), np.asarray(w))
-        assert np.array_equal(ntt.matrix(p, True).numpy(), np.asarray(v))
+        assert np.array_equal(ntt.matrix(p, False, device="cpu").numpy(), np.asarray(w))
+        assert np.array_equal(ntt.matrix(p, True, device="cpu").numpy(), np.asarray(v))
     p1, p2 = ntt.PRIMES
     assert p1 * ntt.CRT_INVERSE % p2 == 1
     assert p1 * p2 > 64 * 64  # the CRT holds every count
@@ -29,7 +29,7 @@ def test_constants_match_the_jax_package():
 
 @pytest.mark.parametrize("p", ntt.PRIMES)
 def test_matrices_are_symmetric_inverses(p):
-    w, v = ntt.matrix(p, False), ntt.matrix(p, True)
+    w, v = ntt.matrix(p, False, device="cpu"), ntt.matrix(p, True, device="cpu")
     assert torch.equal(w, w.T) and torch.equal(v, v.T)
     assert torch.equal(w @ v % p, torch.eye(64, dtype=torch.int64))
 
@@ -39,7 +39,7 @@ def test_kernel_twiddles_are_the_matrices_exactly():
     rounding: every entry is below 257."""
     tw = conv_cuda._twiddles(torch.device("cpu"))
     assert tw.dtype == torch.bfloat16 and tw.shape == (4, 64, 64)
-    want = torch.stack([ntt.matrix(p, inverse) for p in ntt.PRIMES
+    want = torch.stack([ntt.matrix(p, inverse, device="cpu") for p in ntt.PRIMES
                         for inverse in (False, True)])
     assert torch.equal(tw.to(torch.int64), want)
     assert int(want.max()) <= 256

@@ -52,7 +52,7 @@ def test_c_dense_matches_numpy(rng):
 def test_c_packed_matches_c_dense(rng):
     d = random_dense(rng, p=0.5, batch=(8,))
     words = native.to_packed64(tb.from_dense(torch.from_numpy(d)))
-    got = tb.to_dense(native.from_packed64(native.step_packed64(words, 3))).numpy()
+    got = tb.to_dense(native.from_packed64(native.step_packed64(words, 3), device="cpu")).numpy()
     assert (got == native.step_dense(d, 3).astype(bool)).all()
 
 
@@ -64,7 +64,7 @@ def test_conversions_match_the_jax_packages(rng):
     assert words.dtype == np.uint64 and words.shape == (4, 64)
     assert (words == jnb.packed32_to_packed64(convert.board_to_packed(t))).all()
     assert (jnb.packed64_to_packed32(words) == convert.board_to_packed(t)).all()
-    assert torch.equal(native.from_packed64(words), t)
+    assert torch.equal(native.from_packed64(words, device="cpu"), t)
 
 
 @pytest.mark.parametrize("bad", [np.zeros((3, 63), np.uint64), np.zeros((64, 63), np.uint8)])
@@ -80,13 +80,13 @@ def test_port_stepping_matches_c_oracle(rng, p):
     plain versions of [1] and [4] against ``life_step_packed_n``."""
     t = _boards(rng, 256, p)
     words = native.to_packed64(t)
-    one = native.from_packed64(native.step_packed64(words, 1))
+    one = native.from_packed64(native.step_packed64(words, 1), device="cpu")
     assert torch.equal(ts.step(t), one)
     for n in (16, 37):
-        want = native.from_packed64(native.step_packed64(words, n))
+        want = native.from_packed64(native.step_packed64(words, n), device="cpu")
         assert torch.equal(ts.step_n(t, n), want)
         assert torch.equal(step_cuda.rollout_plain(t, n), want)
         lo, hi = step_cuda.rollout_lohi_plain(*step_cuda.to_kernel_layout(t), n)
         assert torch.equal(step_cuda.from_kernel_layout(lo, hi), want)
     assert torch.equal(step_cuda.rollout(t, 16), native.from_packed64(
-        native.step_packed64(words, 16)))
+        native.step_packed64(words, 16), device="cpu"))

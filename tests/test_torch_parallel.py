@@ -55,7 +55,7 @@ def jmesh(request):
 
 
 def _t(packed):
-    return convert.board_from_packed(np.asarray(packed))
+    return convert.board_from_packed(np.asarray(packed), device="cpu")
 
 
 def test_mesh(tmesh):
@@ -115,7 +115,7 @@ def test_sharded_candidate_solve_matches_jax(tmesh, jmesh):
     jbest, jprobs, jall = jelite.sharded_candidate_solve(jp, jnp.asarray(logits0), jmesh,
                                                          iters=60, topk=2)
     tbest, tprobs, tall = elite.sharded_candidate_solve(
-        convert.problem_from_jax(jp), torch.from_numpy(logits0), tmesh, iters=60, topk=2)
+        convert.problem_from_jax(jp, device="cpu"), torch.from_numpy(logits0), tmesh, iters=60, topk=2)
     np.testing.assert_allclose(tall.numpy(), np.asarray(jall), **COST_TOL)
     np.testing.assert_allclose(float(tbest), float(jbest), **COST_TOL)
     np.testing.assert_allclose(tprobs.numpy(), np.asarray(jprobs), **COST_TOL)
@@ -132,7 +132,7 @@ def test_sharded_scenario_sweep_matches_jax(tmesh, jmesh):
         candidates_per_scenario=4, iters=40, weights=jp.weights)
     first = JProblem(initials[0], jp.target, jp.horizon, jp.control_mask, weights=jp.weights)
     logits0 = np.array(jsolver.init_logits(key, first, 32)).reshape(8, 4, 4, 64, 64)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     tper, tchamp = elite._scenario_sweep(_t(initials), tp.target, tp.horizon,
                                          tp.control_mask, tmesh, torch.from_numpy(logits0),
                                          40, tp.weights)

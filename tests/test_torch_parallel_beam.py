@@ -46,7 +46,7 @@ def jmesh(request):
 
 
 def _t(packed):
-    return convert.board_from_packed(np.asarray(packed))
+    return convert.board_from_packed(np.asarray(packed), device="cpu")
 
 
 def _instance(hide_cells=((20, 20), (21, 20))):
@@ -85,7 +85,7 @@ def test_sharded_beam_complete_matches_jax(tmesh, jmesh, two_phase):
 
 
 def test_sharded_beam_complete_nothing_found(tmesh):
-    lone = B.from_cells([(30, 30)]).expand(4, 64)
+    lone = B.from_cells([(30, 30)], device="cpu").expand(4, 64)
     found, _, _, champ, champ_pop = elite.sharded_beam_complete(
         BP.make(state=lone, unknown=torch.zeros_like(lone)), tmesh, frontier=2, iters=4,
         two_phase=True)

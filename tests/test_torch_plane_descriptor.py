@@ -15,8 +15,8 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 def _bitstable(batch):
     gen = torch.Generator().manual_seed(0)
-    state = B.random(gen, batch)
-    return BP.make(state=state, unknown=B.random(gen, batch) & ~state)
+    state = B.random(gen, batch, device="cpu")
+    return BP.make(state=state, unknown=B.random(gen, batch, device="cpu") & ~state)
 
 
 def _planes(bst):
@@ -69,7 +69,7 @@ def test_two_dim_batch_flattens_without_a_copy():
 
 
 def test_a_broadcast_batch_is_read_in_place_at_stride_0():
-    plane = B.from_cells([(3, 4)]).expand(2, 6, 64)
+    plane = B.from_cells([(3, 4)], device="cpu").expand(2, 6, 64)
     _, strides, kept = stable_cuda.plane_descriptor((plane,))
     assert kept[0] is plane and strides == [0]
 

@@ -46,7 +46,7 @@ def _eater_instance(hide=((20, 20), (21, 20), (22, 20))):
 
 
 def _t(x):
-    return convert.board_from_packed(x)
+    return convert.board_from_packed(x, device="cpu")
 
 
 def _tt(x):
@@ -121,8 +121,8 @@ def test_portfolio_unsat_instance():
 
 
 def test_draw_offsets_follow_the_generator():
-    a = C.draw_offsets(torch.Generator().manual_seed(9), 64)
-    b = C.draw_offsets(torch.Generator().manual_seed(9), 64)
+    a = C.draw_offsets(torch.Generator().manual_seed(9), 64, device="cpu")
+    b = C.draw_offsets(torch.Generator().manual_seed(9), 64, device="cpu")
     assert all(torch.equal(x, y) for x, y in zip(a, b))
     assert all(int(x.min()) >= 0 and int(x.max()) < 64 for x in a)
 

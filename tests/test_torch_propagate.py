@@ -49,7 +49,7 @@ def _blocks(rng, batch, p_hide=0.3):
 def _pair(state, unknown, ruled):
     """The same instances as a JAX and a port ``Stable``."""
     j = JP.Stable(jnp.asarray(state), jnp.asarray(unknown), jnp.asarray(ruled))
-    return j, convert.stable_from_jax(j)
+    return j, convert.stable_from_jax(j, device="cpu")
 
 
 @pytest.fixture
@@ -126,7 +126,7 @@ def test_lattice_ops(instances, rng):
         assert (P.compatible_with(x_t, y_t).numpy()
                 == np.asarray(JP.compatible_with(x_j, y_j))).all()
     desired = jb.from_dense(jnp.asarray(random_dense(rng, p=0.2)))
-    got = P.compatible_with_state(tr_, convert.board_from_packed(desired))
+    got = P.compatible_with_state(tr_, convert.board_from_packed(desired, device="cpu"))
     assert (got.numpy() == np.asarray(JP.compatible_with_state(jr, desired))).all()
 
 
@@ -158,10 +158,10 @@ def test_make_matches_jax(rng):
     d_state = random_dense(rng, p=0.2)
     d_unknown = random_dense(rng, p=0.3)
     packed = jb.from_dense(jnp.asarray(d_state))
-    _same_stable(P.make(state=convert.board_from_packed(packed),
+    _same_stable(P.make(state=convert.board_from_packed(packed, device="cpu"),
                         unknown=torch.from_numpy(d_unknown)),
                  JP.make(state=packed, unknown=jnp.asarray(d_unknown)))
-    _same_stable(P.make(batch=(2,)), JP.make(batch=(2,)))
+    _same_stable(P.make(batch=(2,), device="cpu"), JP.make(batch=(2,)))
 
 
 def test_dense_propagate_matches_bitplane(rng):

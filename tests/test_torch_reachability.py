@@ -43,7 +43,7 @@ def _eater_stable(hide_cells, ring2=False):
     jst = JBP.BitStable(res.stable.state[0], res.stable.unknown[0],
                         tuple(r[0] for r in res.stable.ruled))
     jtarget = JTarget.from_state(eater)
-    return (jst, jtarget), (convert.bitstable_from_jax(jst), convert.target_from_jax(jtarget))
+    return (jst, jtarget), (convert.bitstable_from_jax(jst, device="cpu"), convert.target_from_jax(jtarget, device="cpu"))
 
 
 def _same(jax_planes, torch_planes):
@@ -66,7 +66,7 @@ def test_refined_rollout_and_bounds_on_eater(steps):
     (jst, jtarget), (tst, ttarget) = _eater_stable(((22, 20), (23, 20)))
     jblink = jb.from_cells([(30, 30), (30, 31), (30, 32)])
     jcur = jst.state | jblink
-    tcur = convert.board_from_packed(jcur)
+    tcur = convert.board_from_packed(jcur, device="cpu")
     jout = JRC.refined_rollout(jcur, jst.unknown, jst, steps)
     tout = RC.refined_rollout(tcur, tst.unknown, tst, steps)
     _same(jout, tout)
@@ -80,7 +80,7 @@ def test_prune_candidates_known_answer():
     """``test_prune_candidates_keeps_reachable``: the quiet candidate is
     kept and certainly recovers (upper 0), the smashed one is pruned."""
     (jst, jtarget), (tst, ttarget) = _eater_stable(((22, 20),))
-    smash = tb.from_cells([(20, 21), (20, 22), (21, 21), (21, 22)])
+    smash = tb.from_cells([(20, 21), (20, 22), (21, 21), (21, 22)], device="cpu")
     initials = torch.stack([tst.state, tst.state | smash])
     keep, lower, upper = RC.prune_candidates(initials, tst, ttarget, steps=4, max_cost=0)
     assert keep.tolist() == [True, False]
@@ -100,7 +100,7 @@ def test_prune_candidates_random(rng, ring2):
     (jst, jtarget), (tst, ttarget) = _eater_stable(() if ring2 else ((22, 20),), ring2=ring2)
     assert int(tb.population(tst.unknown)) == (40 if ring2 else 0)
     jinit = _glider_candidates(rng, jst, 24)
-    tinit = convert.board_from_packed(jinit)
+    tinit = convert.board_from_packed(jinit, device="cpu")
     jk, jl, ju = JRC.prune_candidates(jinit, jst, jtarget, steps=8, max_cost=0)
     tk, tl, tu = RC.prune_candidates(tinit, tst, ttarget, steps=8, max_cost=0)
     assert tk.dtype == torch.bool and tk.shape == (24,)
@@ -118,8 +118,8 @@ def test_bounds_hold_for_the_completions(rng):
     the exact Hamming of the completed board (the eater plus the glider)
     after 8 steps lies within [lower, upper]."""
     (jst, _), (tst, ttarget) = _eater_stable((), ring2=True)
-    eater = tb.move(convert.board_from_packed(jrle.parse(EATER)), 20, 20)
-    tinit = convert.board_from_packed(_glider_candidates(rng, jst, 24))
+    eater = tb.move(convert.board_from_packed(jrle.parse(EATER), device="cpu"), 20, 20)
+    tinit = convert.board_from_packed(_glider_candidates(rng, jst, 24), device="cpu")
     glider_cells = tinit & ~tst.state
     clear = tb.is_empty(glider_cells & tst.unknown)
     assert 6 <= int(clear.sum()) < 24

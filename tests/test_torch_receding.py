@@ -99,7 +99,7 @@ def _exact_dynamics(run):
 @pytest.mark.parametrize("steps, apply_horizon, warm", [(4, 2, True), (3, 2, False)])
 def test_run_matches_jax(monkeypatch, steps, apply_horizon, warm):
     jp = _jax_problem(horizon=3)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     draws = _Draws(7)
     monkeypatch.setattr(jsolver, "init_logits", draws.jax)
     monkeypatch.setattr(tsolver, "init_logits", draws.port)
@@ -118,7 +118,7 @@ def test_run_matches_jax(monkeypatch, steps, apply_horizon, warm):
 
 
 def test_run_with_no_steps():
-    tp = convert.problem_from_jax(_jax_problem(horizon=2))
+    tp = convert.problem_from_jax(_jax_problem(horizon=2), device="cpu")
     got = treceding.run(tp, torch.Generator(), steps=0)
     assert got.boards.shape == (1, 64) and got.applied.shape == (0, 64)
     assert got.applied.dtype == torch.int64 and got.costs.shape == (0,)
@@ -128,7 +128,7 @@ def test_run_fused_matches_jax(monkeypatch):
     """``_run_fused`` from JAX's ``logits0`` and the tails JAX draws, 2
     rounds of 2 applied slices."""
     jp = _jax_problem(horizon=2)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     key = jax.random.key(3)
     steps, A, C = 4, 2, 2
     logits0 = jsolver.init_logits(key, jp, C)
@@ -156,7 +156,7 @@ def test_run_fused_matches_jax(monkeypatch):
 
 
 def test_run_fused_contract():
-    tp = convert.problem_from_jax(_jax_problem(horizon=2))
+    tp = convert.problem_from_jax(_jax_problem(horizon=2), device="cpu")
     with pytest.raises(ValueError):
         treceding.run_fused(tp, torch.Generator(), steps=3, apply_horizon=2)
     with pytest.raises(ValueError):

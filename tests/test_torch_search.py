@@ -43,11 +43,11 @@ def test_catalyst_search_matches_xla_engine(rng, recovery):
     if recovery:
         # recover only the eater's body, with no boundary constraint
         jtarget = JTarget(eater, jb.empty())
-        ttarget = LifeTarget(convert.board_from_packed(eater), tb.empty())
+        ttarget = LifeTarget(convert.board_from_packed(eater, device="cpu"), tb.empty(device="cpu"))
     expect = jsearch.catalyst_search(glider, eater, jnp.asarray(offsets), 16,
                                      recovery_target=jtarget, engine="xla")
     got = convert.placement_to_numpy(search.catalyst_search(
-        convert.board_from_packed(glider), convert.board_from_packed(eater),
+        convert.board_from_packed(glider, device="cpu"), convert.board_from_packed(eater, device="cpu"),
         torch.from_numpy(offsets), 16, recovery_target=ttarget))
     for field in ("offsets", "interacted", "recovered", "reaction_changed", "final"):
         assert (got[field] == np.asarray(getattr(expect, field))).all(), field
@@ -57,18 +57,18 @@ def test_catalyst_search_matches_xla_engine(rng, recovery):
 def test_example_grid_hits():
     """The example's grid (dx, dy in -8..8) at horizon 100 has 13 hits."""
     offsets = torch.tensor([[dx, dy] for dx in range(-8, 9) for dy in range(-8, 9)])
-    result = search.catalyst_search(tb.from_cells(GLIDER_CELLS),
-                                    tb.from_cells(EATER_CELLS), offsets, 100)
+    result = search.catalyst_search(tb.from_cells(GLIDER_CELLS, device="cpu"),
+                                    tb.from_cells(EATER_CELLS, device="cpu"), offsets, 100)
     hits = search.successful_catalysts(result)
     assert int(hits.sum()) == 13
     i = int(torch.nonzero(hits)[0])
-    placed = tb.move(tb.from_cells(EATER_CELLS), *offsets[i].tolist())
+    placed = tb.move(tb.from_cells(EATER_CELLS, device="cpu"), *offsets[i].tolist())
     assert torch.equal(result.final[i], placed)  # the glider is eaten
 
 
 def test_horizon_zero_and_far_catalyst():
-    glider = tb.from_cells(GLIDER_CELLS)
-    far = tb.move(tb.from_cells(EATER_CELLS), 20, -5)
+    glider = tb.from_cells(GLIDER_CELLS, device="cpu")
+    far = tb.move(tb.from_cells(EATER_CELLS, device="cpu"), 20, -5)
     offsets = torch.tensor([[0, 0], [1, 1]])
     for horizon in (0, 12):
         r = search.catalyst_search(glider, far, offsets, horizon)
@@ -78,7 +78,7 @@ def test_horizon_zero_and_far_catalyst():
 
 def _both_pairs():
     glider, eater = _jax_pair()
-    return (glider, eater), (convert.board_from_packed(glider), convert.board_from_packed(eater))
+    return (glider, eater), (convert.board_from_packed(glider, device="cpu"), convert.board_from_packed(eater, device="cpu"))
 
 
 def test_candidate_offsets_match_jax():
@@ -86,7 +86,7 @@ def test_candidate_offsets_match_jax():
     expect = np.asarray(jsearch.candidate_offsets(jg, je))
     got = search.candidate_offsets(tg, te)
     assert got.shape == (4025, 2) and np.array_equal(got.numpy(), expect)
-    area = tb.solid_rect(-8, -8, 17, 17)
+    area = tb.solid_rect(-8, -8, 17, 17, device="cpu")
     expect = np.asarray(jsearch.candidate_offsets(jg, je, search_area=jb.solid_rect(-8, -8, 17, 17)))
     assert np.array_equal(search.candidate_offsets(tg, te, search_area=area).numpy(), expect)
 
@@ -114,9 +114,9 @@ def test_all_orientations_match_jax(recovery):
     (jg, je), (tg, te) = _both_pairs()
     area = jb.solid_rect(-8, -8, 17, 17)
     joffsets = jsearch.candidate_offsets(jg, je, search_area=area)
-    toffsets = search.candidate_offsets(tg, te, search_area=tb.solid_rect(-8, -8, 17, 17))
+    toffsets = search.candidate_offsets(tg, te, search_area=tb.solid_rect(-8, -8, 17, 17, device="cpu"))
     jtarget = JTarget(je, jb.empty()) if recovery else None
-    ttarget = LifeTarget(te, tb.empty()) if recovery else None
+    ttarget = LifeTarget(te, tb.empty(device="cpu")) if recovery else None
     expect = jsearch.catalyst_search_all_orientations(jg, je, joffsets, 48, jtarget)
     got = search.catalyst_search_all_orientations(tg, te, toffsets, 48, ttarget)
     assert [int(t) for t, _ in got] == [int(t) for t, _ in expect]

@@ -30,9 +30,9 @@ def _pair(hide=((20, 20), (21, 20))):
     h = jb.from_cells(list(hide))
     state, unknown = e & ~h, (jb.zoi(e) & ~e) | h
     j = JLS.from_boards(state=state, unknown=unknown)
-    t = LifeStable.from_boards(state=convert.board_from_packed(state),
-                               unknown=convert.board_from_packed(unknown))
-    _same(convert.lifestable_from_jax(j), j)
+    t = LifeStable.from_boards(state=convert.board_from_packed(state, device="cpu"),
+                               unknown=convert.board_from_packed(unknown, device="cpu"))
+    _same(convert.lifestable_from_jax(j, device="cpu"), j)
     return j, t
 
 
@@ -76,7 +76,7 @@ def test_propagation_methods(method):
 def test_cell_ops_and_lattice():
     j, t = _pair()
     cells_j = jb.from_cells([(19, 21), (24, 24)])
-    cells_t = convert.board_from_packed(cells_j)
+    cells_t = convert.board_from_packed(cells_j, device="cpu")
     _same(t.set_on(cells_t), j.set_on(cells_j))
     _same(t.set_off(cells_t), j.set_off(cells_j))
     _same(t.restrict_options(cells_t, opt.DEAD_MASK), j.restrict_options(cells_j, opt.DEAD_MASK))
@@ -92,11 +92,11 @@ def test_cell_ops_and_lattice():
     _same_board(t.differences(tp), j.differences(jp))
     assert bool(t.compatible_with(tp)) == bool(j.compatible_with(jp))
     e = jb.move(jrle.parse(EATER), 20, 20)
-    assert bool(tp.compatible_with(convert.board_from_packed(e))) == bool(jp.compatible_with(e))
+    assert bool(tp.compatible_with(convert.board_from_packed(e, device="cpu"))) == bool(jp.compatible_with(e))
     _same_board(tp.perturbed_unknowns(), jp.perturbed_unknowns())
     _same_board(tp.vulnerable(), jp.vulnerable())
     cell = jb.from_cells([(22, 23)])
-    to, tc, tch = tp.test_unknowns(convert.board_from_packed(cell))
+    to, tc, tch = tp.test_unknowns(convert.board_from_packed(cell, device="cpu"))
     jo, jc, jch = jp.test_unknowns(cell)
     _same(to, jo)
     assert bool(tc) == bool(jc) and bool(tch) == bool(jch)

@@ -49,8 +49,8 @@ def _compare(jbst, frontier, iters, minimise, seed=None):
     expect = JC.complete_stable_beam(jbst, frontier=frontier, iters=iters,
                                      minimise=minimise, fused=True, interpret=True,
                                      dense=False, seed=seed)
-    planes = BP.to_planes(convert.bitstable_from_jax(jbst)).contiguous()
-    tseed = None if seed is None else convert.board_from_packed(seed).contiguous()
+    planes = BP.to_planes(convert.bitstable_from_jax(jbst, device="cpu")).contiguous()
+    tseed = None if seed is None else convert.board_from_packed(seed, device="cpu").contiguous()
     best, best_pop, found, complete, exhausted = stable_cuda.beam_search(
         planes, frontier=frontier, iters=iters, minimise=minimise, seed=tseed)
     assert (expect.found == found.numpy()).all()

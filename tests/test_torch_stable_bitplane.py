@@ -47,7 +47,7 @@ def _random_planes(rng, n, batch=(3,)):
     """n random packed planes, as (jax tuple, port tuple)."""
     words = rng.integers(0, 2**32, size=(n, *batch, 64, 2), dtype=np.uint32)
     return (tuple(jnp.asarray(w) for w in words),
-            tuple(convert.board_from_packed(w) for w in words))
+            tuple(convert.board_from_packed(w, device="cpu") for w in words))
 
 
 def _eater_bst(batch=4, ring2=False, hide_cells=((20, 20), (21, 20))):
@@ -78,7 +78,7 @@ def _block_bst(rng, batch, p_hide):
 
 
 def _port(bst):
-    return convert.bitstable_from_jax(bst)
+    return convert.bitstable_from_jax(bst, device="cpu")
 
 
 def _same_bst(jbst, tbst):
@@ -259,7 +259,7 @@ def test_set_on_set_off(rng):
 def test_bitstable_converters_roundtrip(rng):
     jp, _ = _random_planes(rng, 10)
     jbst = JBP.BitStable(jp[0], jp[1], tuple(jp[2:]))
-    tbst = convert.bitstable_from_jax(jbst)
+    tbst = convert.bitstable_from_jax(jbst, device="cpu")
     assert tbst.state.dtype == torch.int64 and tbst.state.shape == (3, 64)
     back = convert.bitstable_to_jax(tbst)
     for a, b in zip((jbst.state, jbst.unknown, *jbst.ruled), (back[0], back[1], *back[2])):
@@ -272,7 +272,7 @@ def test_bitstable_converters_roundtrip(rng):
 def test_dense_stable_converters(rng):
     jbst = JBP.propagate(_block_bst(rng, 3, 0.3)).stable
     jdense = JBP.to_dense_stable(jbst)
-    tdense = convert.stable_from_jax(jdense)
+    tdense = convert.stable_from_jax(jdense, device="cpu")
     assert tdense.ruled.dtype == torch.uint8
     for a, b in zip(jdense, tdense):
         assert (np.asarray(a) == b.numpy()).all()
@@ -286,4 +286,4 @@ def test_dense_stable_converters(rng):
     for a, b in zip(jmade, tmade):
         assert (np.asarray(a) == b.numpy()).all()
     packed = jb.from_dense(jnp.asarray(st))
-    _same_bst(JBP.make(state=packed), BP.make(state=convert.board_from_packed(packed)))
+    _same_bst(JBP.make(state=packed), BP.make(state=convert.board_from_packed(packed, device="cpu")))

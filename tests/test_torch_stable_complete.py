@@ -40,7 +40,7 @@ def _eater(hide_cells=((20, 20), (21, 20)), ring2=False):
 def _dense_pair(states, unknowns):
     """JAX and port dense ``Stable`` of the same dense boards."""
     jst = JP.make(state=jnp.asarray(states), unknown=jnp.asarray(unknowns))
-    return jst, convert.stable_from_jax(jst)
+    return jst, convert.stable_from_jax(jst, device="cpu")
 
 
 def _eater_dense(b, **kw):
@@ -113,7 +113,7 @@ def test_beam_seeded():
     expect = JC.complete_stable_beam(jst, frontier=4, iters=24, minimise=True,
                                      fused=False, seed=jnp.broadcast_to(seed, (3, 64, 2)))
     got = C.complete_stable_beam(tst, frontier=4, iters=24, minimise=True,
-                                 seed=convert.board_from_packed(seed))
+                                 seed=convert.board_from_packed(seed, device="cpu"))
     out = convert.beam_result_to_numpy(got)
     for key in ("found", "best", "best_pop", "proved_inconsistent"):
         assert (np.asarray(getattr(expect, key)) == out[key]).all(), key
@@ -133,7 +133,7 @@ def test_beam_init_bound(bound, found):
     st, un = _eater()
     jbst = JBP.make(state=jnp.broadcast_to(st, (4, 64, 2)),
                     unknown=jnp.broadcast_to(un, (4, 64, 2)))
-    got = _compare(jbst, convert.bitstable_from_jax(jbst), frontier=4, iters=24,
+    got = _compare(jbst, convert.bitstable_from_jax(jbst, device="cpu"), frontier=4, iters=24,
                    minimise=True, dense=False, init_bound=bound)
     assert bool(got.found.all()) is found and bool(got.found.any()) is found
     assert (got.best_pop == 7).all()
@@ -156,7 +156,7 @@ def test_queued_equals_per_chunk_calls():
     st, un = _eater()
     jbst = JBP.make(state=jnp.stack([jnp.roll(st, i, axis=-2) for i in range(21)]),
                     unknown=jnp.stack([jnp.roll(un, i, axis=-2) for i in range(21)]))
-    bst = convert.bitstable_from_jax(jbst)
+    bst = convert.bitstable_from_jax(jbst, device="cpu")
     got = C.complete_stable_beam_queued(bst, chunk=8, frontier=4, iters=16)
     whole = C.complete_stable_beam(bst, frontier=4, iters=16, return_boards=False)
     keys = ("found", "best_pop", "proved_inconsistent")

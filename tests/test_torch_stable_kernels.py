@@ -56,7 +56,7 @@ def _board_any(mask_cols):
 
 
 def _planes(jbst):
-    return BP.to_planes(convert.bitstable_from_jax(jbst)).contiguous()
+    return BP.to_planes(convert.bitstable_from_jax(jbst, device="cpu")).contiguous()
 
 
 def test_step_twin_matches_pallas_on_all_boards(rng):
@@ -76,7 +76,7 @@ def test_step_twin_matches_pallas_on_all_boards(rng):
 def test_fixpoint_twin_matches_pallas_on_all_boards(rng):
     jbst = _instances(rng)
     expect = SP.propagate_fused_inkernel(jbst, batch_tile=8, interpret=True)
-    res = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst))
+    res = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst, device="cpu"))
     _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
     assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
     assert (np.asarray(expect.changed) == res.changed.numpy()).all()
@@ -118,7 +118,7 @@ def test_fused_entry_matches_pallas_and_the_in_kernel_fixpoint(rng, max_iters):
     cap = {} if max_iters is None else {"max_iters": max_iters}
     jbst = _with_lone_cells(_instances(rng))
     expect = SP.propagate_fused(jbst, batch_tile=10, interpret=True, **cap)
-    bst = convert.bitstable_from_jax(jbst)
+    bst = convert.bitstable_from_jax(jbst, device="cpu")
     res = stable_cuda.propagate_fused(bst, **cap)
     _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
     assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
@@ -136,14 +136,14 @@ def test_fused_entry_matches_pallas_and_the_in_kernel_fixpoint(rng, max_iters):
 def test_fused_loop_matches_pallas_and_detects_contradiction(rng):
     jbst = _with_lone_cells(_instances(rng))
     expect = SP.propagate_fused(jbst, batch_tile=10, interpret=True)
-    res = stable_cuda.propagate_fused(convert.bitstable_from_jax(jbst))
+    res = stable_cuda.propagate_fused(convert.bitstable_from_jax(jbst, device="cpu"))
     _same_planes(SP._to_kernel_planes(expect.stable), BP.to_planes(res.stable))
     assert (np.asarray(expect.consistent) == res.consistent.numpy()).all()
     assert (np.asarray(expect.changed) == res.changed.numpy()).all()
     assert not res.consistent[-2:].any()
     # the three fixpoint entries agree on every board
-    inkernel = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst))
-    beam_res, levels = stable_cuda.propagate_fused_beam(convert.bitstable_from_jax(jbst))
+    inkernel = stable_cuda.propagate_fused_inkernel(convert.bitstable_from_jax(jbst, device="cpu"))
+    beam_res, levels = stable_cuda.propagate_fused_beam(convert.bitstable_from_jax(jbst, device="cpu"))
     for other in (inkernel, beam_res):
         assert torch.equal(BP.to_planes(other.stable), BP.to_planes(res.stable))
         assert torch.equal(other.consistent, res.consistent)
@@ -158,7 +158,7 @@ def test_entry_plain_versions_on_cpu(rng):
     """``propagate_fused_plain`` / ``propagate_fused_beam_plain`` (what the
     card's entries are held against) equal the entries on CPU tensors, and
     no launch is counted."""
-    bst = convert.bitstable_from_jax(_instances(rng))
+    bst = convert.bitstable_from_jax(_instances(rng), device="cpu")
     before = dict(stable_cuda.LAUNCHES)
     res, plain = stable_cuda.propagate_fused(bst), stable_cuda.propagate_fused_plain(bst)
     assert torch.equal(BP.to_planes(res.stable), BP.to_planes(plain.stable))

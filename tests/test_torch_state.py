@@ -34,14 +34,14 @@ SPARSE_RLE = "bob$2bo$3o6$10b2o$10b2o8$20b3o!"  # glider, block, blinker
 def _pair(packed):
     """(JAX state, port state) of the same packed uint32 board."""
     packed = np.asarray(packed)
-    return JState(jnp.asarray(packed)), LifeState(convert.board_from_packed(packed))
+    return JState(jnp.asarray(packed)), LifeState(convert.board_from_packed(packed, device="cpu"))
 
 
 def _same(j, t):
     """Results of one method in both packages are equal."""
     if isinstance(t, LifeState):
         assert isinstance(j, JState)
-        assert torch.equal(t.packed, convert.board_from_packed(np.asarray(j.packed)))
+        assert torch.equal(t.packed, convert.board_from_packed(np.asarray(j.packed), device="cpu"))
     elif isinstance(t, (list, tuple)):
         assert len(j) == len(t)
         for a, b in zip(j, t):

@@ -22,7 +22,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 def _boards(rng, batch, p):
     packed = jb.from_dense(jnp.asarray(random_dense(rng, p=p, batch=batch)))
-    return packed, convert.board_from_packed(packed)
+    return packed, convert.board_from_packed(packed, device="cpu")
 
 
 def _eo(packed):
@@ -50,9 +50,9 @@ def test_controlled_rollout_matches_pallas(rng):
 
 
 def test_catalyst_rollout_matches_pallas(rng):
-    glider = tb.from_cells([(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)])
+    glider = tb.from_cells([(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)], device="cpu")
     eater = tb.from_cells([(24, 21), (24, 22), (25, 21), (25, 23), (26, 23),
-                           (27, 23), (27, 24)])
+                           (27, 23), (27, 24)], device="cpu")
     offsets = torch.from_numpy(rng.integers(-16, 4, size=(128, 2)))
     horizon = 16
     boards, placed, zoi, base = rollout_inputs(glider, eater, offsets, horizon)
@@ -78,7 +78,7 @@ def test_rollout_lohi_matches_pallas(rng):
     assert lo.dtype == hi.dtype == torch.int32 and lo.shape == (64, 128)
     assert all((a == np.asarray(b)).all() for a, b in zip(convert.lohi_to_jax(lo, hi),
                                                           (jlo, jhi)))
-    assert all(torch.equal(a, b) for a, b in zip(convert.lohi_from_jax(jlo, jhi), (lo, hi)))
+    assert all(torch.equal(a, b) for a, b in zip(convert.lohi_from_jax(jlo, jhi, device="cpu"), (lo, hi)))
     assert torch.equal(step_cuda.from_kernel_layout(lo, hi), t)
     assert (convert.board_to_packed(step_cuda.from_kernel_layout(lo, hi))
             == np.asarray(K.from_kernel_layout(jlo, jhi))).all()

@@ -86,7 +86,7 @@ def test_convolve_word64(rng):
 def _board_pair(rng, batch=()):
     d = random_dense(rng, p=0.3, batch=batch)
     j = jb.from_dense(jnp.asarray(d))
-    return j, convert.board_from_packed(np.asarray(j))
+    return j, convert.board_from_packed(np.asarray(j), device="cpu")
 
 
 @pytest.mark.parametrize("width", [1, 2, 3, 4, 5, 6])
@@ -103,8 +103,8 @@ def test_get_and_set_strip(rng, width, column):
     jvalue = jnp.stack(_halves(value.numpy().view(np.uint64)), axis=-1)
     got = tstrips.set_strip(t, column, value)
     want = jstrips.set_strip(j, column, jvalue)
-    assert torch.equal(got, convert.board_from_packed(np.asarray(want)))
-    assert torch.equal(t, convert.board_from_packed(np.asarray(j)))  # input untouched
+    assert torch.equal(got, convert.board_from_packed(np.asarray(want), device="cpu"))
+    assert torch.equal(t, convert.board_from_packed(np.asarray(j), device="cpu"))  # input untouched
 
 
 @pytest.mark.parametrize("radius", [0, 1, 2, 3])
@@ -116,7 +116,7 @@ def test_get_and_set_patch(rng, radius):
         _, base = _board_pair(rng)
         got = tstrips.set_patch(base, cell, radius, val)
         want = jstrips.set_patch(jnp.asarray(convert.board_to_packed(base)), cell, radius, val)
-        assert torch.equal(got, convert.board_from_packed(np.asarray(want)))
+        assert torch.equal(got, convert.board_from_packed(np.asarray(want), device="cpu"))
 
 
 @pytest.mark.parametrize("width", [2, 4, 6])

@@ -67,7 +67,7 @@ def _jax_problem(horizon, protected=False):
 @pytest.mark.parametrize("name, protected", [("C2even", False), ("D4even", True)])
 def test_symmetric_objective_value_and_grad(rng, name, protected):
     jp = _jax_problem(3, protected)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits = rng.normal(-1.0, 1.5, size=(2, 3, 64, 64)).astype(np.float32)
     jv, jg = jax.vmap(jax.value_and_grad(
         lambda l: jsym.symmetric_objective(l, jp, JS[name])))(jnp.asarray(logits))
@@ -83,8 +83,8 @@ def test_stable_consistency_known_answers():
     lone-cell region is not."""
     region = torch.zeros((64, 64), dtype=torch.bool)
     region[28:34, 28:34] = True
-    blk = tb.move(trle.parse("2o$2o!"), 30, 30)
-    lone = tb.from_cells([(30, 30)])
+    blk = tb.move(trle.parse("2o$2o!", device="cpu"), 30, 30)
+    lone = tb.from_cells([(30, 30)], device="cpu")
     got = tsym.stable_consistency(torch.stack([blk, lone]), region)
     assert got.tolist() == [True, False]
     assert bool(tsym.stable_consistency(blk, region))  # unbatched, as JAX's
@@ -111,7 +111,7 @@ def test_stable_consistency_matches_jax_on_random_regions(rng):
     packed = jb.from_dense(jnp.asarray(np.stack(boards)))
     want = np.array([bool(jsym.stable_consistency(packed[i], jnp.asarray(regions[i])))
                      for i in range(12)])
-    got = np.array([bool(tsym.stable_consistency(convert.board_from_packed(packed[i]),
+    got = np.array([bool(tsym.stable_consistency(convert.board_from_packed(packed[i], device="cpu"),
                                                  torch.from_numpy(regions[i])))
                     for i in range(12)])
     assert (got == want).all()
@@ -119,7 +119,7 @@ def test_stable_consistency_matches_jax_on_random_regions(rng):
     # one region over the whole batch at once
     region = jnp.asarray(regions[0])
     want_b = np.asarray(jsym.stable_consistency(packed, region))
-    got_b = tsym.stable_consistency(convert.board_from_packed(packed), torch.from_numpy(regions[0]))
+    got_b = tsym.stable_consistency(convert.board_from_packed(packed, device="cpu"), torch.from_numpy(regions[0]))
     assert (got_b.numpy() == want_b).all()
 
 
@@ -128,7 +128,7 @@ def test_solve_symmetric_all_costs_match_jax(monkeypatch, rng, protected):
     """From injected logits, 2 candidates, horizon 2, 5 iterations, with a
     stable region whose penalty some candidates pay."""
     jp = _jax_problem(2, protected)
-    tp = convert.problem_from_jax(jp)
+    tp = convert.problem_from_jax(jp, device="cpu")
     logits0 = (rng.normal(-1.0, 1.5, size=(3, 2, 64, 64))).astype(np.float32)
     monkeypatch.setattr(jsolver, "init_logits", lambda *a, **k: jnp.asarray(logits0))
     monkeypatch.setattr(tsolver, "init_logits", lambda *a, **k: torch.from_numpy(logits0))
@@ -160,12 +160,12 @@ def test_symmetric_solve_produces_symmetric_controls(monkeypatch):
     the toggles) for ``chip_smoke.py``, which has no JAX: from it, with any
     value elsewhere, the solve is the same."""
     sym = tgroups.StaticSymmetry.C2even
-    blk = tb.move(trle.parse("2o$2o!"), 20, 20)
+    blk = tb.move(trle.parse("2o$2o!", device="cpu"), 20, 20)
     image = ttr.transform(blk, ttr.SymmetryTransform.Rotate180EvenBoth)
     target = LifeTarget.from_state(blk | image)
     box = torch.zeros((64, 64))
     box[18:24, 18:24] = 1.0
-    problem = MPCProblem(initial=tb.empty(), target=target, horizon=3,
+    problem = MPCProblem(initial=tb.empty(device="cpu"), target=target, horizon=3,
                          control_mask=tsym.orbit_symmetrize(box, sym) > 0,
                          weights=CostWeights(target=1.0, control=0.01))
     jp = JProblem(initial=jb.empty(), target=JTarget(*(convert.board_to_packed(b) for b in target)),

@@ -24,7 +24,7 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 def _pair(dense):
     packed = jb.from_dense(jnp.asarray(dense))
-    return packed, convert.board_from_packed(packed)
+    return packed, convert.board_from_packed(packed, device="cpu")
 
 
 def _same(got, expect):
@@ -68,7 +68,7 @@ def test_transform_matches_jax(rng, t):
 
 def test_groups_and_names():
     for s in S:
-        _same(groups.fundamental_domain(s), jgroups.fundamental_domain(int(s)))
+        _same(groups.fundamental_domain(s, device="cpu"), jgroups.fundamental_domain(int(s)))
         assert groups.symmetry_from_string(groups.symmetry_to_string(s)) == s
     for name in ("garbage", "D4_+2", "C2_2", "D4x", "D2/odd", "D8_4"):
         assert int(groups.symmetry_from_string(name)) == int(jgroups.symmetry_from_string(name))
@@ -93,7 +93,7 @@ def test_hashes_match_jax(rng):
         assert orbits.canonical_hash(transforms.transform(tp, t)) == orbits.canonical_hash(tp)
     # tied maximal gaps: still translation invariant, and equal to JAX
     cells = [(0, 5), (21, 5), (22, 5), (43, 5), (0, 6)]
-    base = tb.from_cells(cells)
+    base = tb.from_cells(cells, device="cpu")
     assert orbits.octo_hash(base) == jorbits.octo_hash(jb.from_cells(cells))
     assert orbits.canonical_hash(tb.move(base, 22, 11)) == orbits.canonical_hash(base)
 
@@ -117,7 +117,7 @@ def test_fingerprint_matches_jax(rng):
     [(24, 21), (24, 22), (25, 21), (25, 23), (26, 23), (27, 23), (27, 24)],  # eater
 ])
 def test_orbits_match_jax(cells):
-    jp, tp = jb.from_cells(cells), tb.from_cells(cells)
+    jp, tp = jb.from_cells(cells), tb.from_cells(cells, device="cpu")
     got, expect = orbits.symmetry_orbit(tp), jorbits.symmetry_orbit(jp)
     assert len(got) == len(expect)
     for g, e in zip(got, expect):
@@ -128,7 +128,7 @@ def test_orbits_match_jax(cells):
 
 def test_matches_live_and_dead_sym_matches_jax(rng):
     live = [(0, 0), (1, 0), (0, 1), (2, 1)]
-    jl, tl = jb.from_cells(live), tb.from_cells(live)
+    jl, tl = jb.from_cells(live), tb.from_cells(live, device="cpu")
     jd, td = jb.boundary(jl), tb.boundary(tl)
     jstate = jb.move(jl, 10, 10) | jb.move(jtr.transform(jl, 6), 40, 30)
     tstate = tb.move(tl, 10, 10) | tb.move(transforms.transform(tl, T.Rotate90), 40, 30)
@@ -145,7 +145,7 @@ def test_offsets_match_jax():
               T.ReflectAcrossYeqNegXP1, T.Rotate90):
         for vec in ((2, 4), (9, 61)):
             assert offsets.perp_component(t, vec) == joffsets.perp_component(int(t), vec)
-    jp, tp = jb.from_cells([(2, 3), (4, 3), (5, 9)]), tb.from_cells([(2, 3), (4, 3), (5, 9)])
+    jp, tp = jb.from_cells([(2, 3), (4, 3), (5, 9)]), tb.from_cells([(2, 3), (4, 3), (5, 9)], device="cpu")
     for s in (S.C1, S.C2, S.C4, S.D2AcrossX, S.D2AcrossY, S.D2diagodd, S.D2negdiagodd,
               S.D4, S.D4diag):
         for off in ((0, 0), (3, 5), (4, 60)):
@@ -164,5 +164,5 @@ def test_offsets_match_jax():
 def test_fundamental_domain_covers_board_under_symmetricize():
     """Reference tests/SymmetryTest.cpp:7-15, on the port alone."""
     for s, off in ((S.C4, (3, 7)), (S.D4diag, (5, 9)), (S.D2diagodd, (3, 61)), (S.C2, (0, 0))):
-        domain = tb.move(groups.fundamental_domain(s), *offsets.halve_offset(s, off))
+        domain = tb.move(groups.fundamental_domain(s, device="cpu"), *offsets.halve_offset(s, off))
         assert bool(tb.is_empty(~offsets.symmetricize(domain, s, off))), (s.name, off)

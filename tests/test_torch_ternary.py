@@ -49,7 +49,7 @@ def _planes(rng, n, batch=(3,), p=None):
     else:
         words = np.asarray(jb.from_dense(jnp.asarray(rng.random((n, *batch, N, N)) < p)))
     return (tuple(jnp.asarray(w) for w in words),
-            tuple(convert.board_from_packed(w) for w in words))
+            tuple(convert.board_from_packed(w, device="cpu") for w in words))
 
 
 def _random_stable(rng, batch=(3,)):
@@ -74,7 +74,7 @@ def _eater_stable(hide_cells=((22, 20), (23, 20))):
     assert bool(res.consistent[0])
     jst = JBP.BitStable(res.stable.state[0], res.stable.unknown[0],
                         tuple(r[0] for r in res.stable.ruled))
-    return jst, convert.bitstable_from_jax(jst)
+    return jst, convert.bitstable_from_jax(jst, device="cpu")
 
 
 # ---------------------------------------------------------------------------
@@ -227,7 +227,7 @@ def test_eater_background_steps_match():
     instance), and the port's keep covering the quiescent background."""
     jst, tst = _eater_stable()
     jblink = jb.from_cells([(27, 26), (27, 27), (27, 28)])
-    tblink = convert.board_from_packed(jblink)
+    tblink = convert.board_from_packed(jblink, device="cpu")
     jcur, tcur = jst.state | jblink, tst.state | tblink
     _same(JBP.step_ternary_refined(jcur, jst.unknown, jst),
           BP.step_ternary_refined(tcur, tst.unknown, tst))

@@ -21,11 +21,11 @@ from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_key_sequence_deterministic_and_distinct():
-    ks1, ks2 = prng.KeySequence(42), prng.KeySequence(42)
+    ks1, ks2 = prng.KeySequence(42, device="cpu"), prng.KeySequence(42, device="cpu")
     a = torch.rand(8, generator=ks1())
     assert torch.equal(a, torch.rand(8, generator=ks2()))
     assert not torch.equal(torch.rand(8, generator=ks1()), a)
-    splits = [torch.rand(8, generator=g) for g in prng.KeySequence(42).split(3)]
+    splits = [torch.rand(8, generator=g) for g in prng.KeySequence(42, device="cpu").split(3)]
     assert torch.equal(splits[0], a)
     assert not torch.equal(splits[1], splits[2])
     own = torch.Generator().manual_seed(42)
@@ -58,13 +58,13 @@ def test_benchmark_and_timer():
 
 def test_trace_writes_a_chrome_trace(tmp_path):
     with profiling.trace(tmp_path / "t") as d:
-        board.zoi(board.from_cells([(1, 2)]))
+        board.zoi(board.from_cells([(1, 2)], device="cpu"))
     events = json.loads((tmp_path / "t" / "trace.json").read_text())["traceEvents"]
     assert str(d) == str(tmp_path / "t") and events
 
 
 def test_checkpoint_roundtrip(tmp_path):
-    state = {"boards": board.from_cells([(1, 2), (3, 4)]),
+    state = {"boards": board.from_cells([(1, 2), (3, 4)], device="cpu"),
              "logits": torch.arange(12.0).reshape(3, 4),
              "incumbents": [torch.tensor([7], dtype=torch.int32), (torch.ones(2),)]}
     path = tmp_path / "ckpt.pt"
@@ -87,7 +87,7 @@ def test_checkpoint_roundtrip(tmp_path):
 
 
 def test_checkpoint_rle(tmp_path):
-    b = board.from_cells([(40, 40), (41, 41)])
+    b = board.from_cells([(40, 40), (41, 41)], device="cpu")
     p = tmp_path / "b.rle"
     checkpoint.save_rle(p, b)
     assert torch.equal(checkpoint.load_rle(p, device="cpu"), board.move(b, -32, -32))
@@ -98,15 +98,15 @@ def test_load_rle_of_the_jax_packages_file(tmp_path):
     p = tmp_path / "jax.rle"
     jcheckpoint.save_rle(p, jb.from_cells(cells))
     want = jcheckpoint.load_rle(p)
-    assert torch.equal(checkpoint.load_rle(p, device="cpu"), convert.board_from_packed(np.asarray(want)))
+    assert torch.equal(checkpoint.load_rle(p, device="cpu"), convert.board_from_packed(np.asarray(want), device="cpu"))
 
 
 def test_stable_invariants_and_board_check():
-    st = P.make(state=board.to_dense(board.from_cells([(5, 5)])),
+    st = P.make(state=board.to_dense(board.from_cells([(5, 5)], device="cpu")),
                 unknown=torch.zeros(64, 64, dtype=torch.bool))
     debug.assert_stable_invariants(P.synchronise_state_known(st).stable)
-    debug.check_board_packed(board.empty())
-    debug.check_board_packed(board.empty((3,)))
+    debug.check_board_packed(board.empty(device="cpu"))
+    debug.check_board_packed(board.empty((3,), device="cpu"))
     for bad in (torch.zeros(64, 2, dtype=torch.int64), torch.zeros(64, dtype=torch.int32)):
         with pytest.raises(AssertionError):
             debug.check_board_packed(bad)

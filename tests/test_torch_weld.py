@@ -40,12 +40,12 @@ def _centered(s, dx=0, dy=0):
 def _weld_pair(i=0):
     s, req = REQUIRED_PAIRS[i]
     j = JW.from_required(_centered(s), _centered(req, -1, -1))
-    return j, convert.weld_from_jax(j)
+    return j, convert.weld_from_jax(j, device="cpu")
 
 
 def _block_pair():
     j = JW.LifeWeld.from_state(_centered(BLOCK))
-    return j, convert.weld_from_jax(j)
+    return j, convert.weld_from_jax(j, device="cpu")
 
 
 def _same_weld(t, j):
@@ -66,8 +66,8 @@ def _same_stable(t, j):
 def test_from_required_and_step(i):
     s, req = REQUIRED_PAIRS[i]
     j, t = _weld_pair(i)
-    got = W.from_required(convert.board_from_packed(_centered(s)),
-                          convert.board_from_packed(_centered(req, -1, -1)))
+    got = W.from_required(convert.board_from_packed(_centered(s), device="cpu"),
+                          convert.board_from_packed(_centered(req, -1, -1), device="cpu"))
     _same_weld(got, j)
     assert bool(W.step(t).equal(t))
     _same_weld(W.step(t), JW.step(j))
@@ -80,7 +80,7 @@ def test_from_required_and_step(i):
         _same_board(a, b)
     assert W.to_bellman_rle(t) == JW.to_bellman_rle(j)
     glider = jb.move(jrle.parse("bob$2bo$3o!"), 5, 5)
-    assert (W.to_bellman_rle(t, convert.board_from_packed(glider))
+    assert (W.to_bellman_rle(t, convert.board_from_packed(glider, device="cpu"))
             == JW.to_bellman_rle(j, glider))
     for p, q in zip(convert.history_to_jax(W.to_history(t)), JW.to_history(j)):
         assert (p == np.asarray(q)).all()
@@ -98,7 +98,7 @@ def test_weld_ops():
         _same_weld(W.LifeWeld(*(p[k] for p in batch)), j.moved(dx, dy))
     glider = jb.move(jrle.parse("bob$2bo$3o!"), 30, 30)
     jg = JW.LifeWeld.from_state(glider)
-    _same_weld(W.step_n(convert.weld_from_jax(jg), 4), JW.step_n(jg, 4))
+    _same_weld(W.step_n(convert.weld_from_jax(jg, device="cpu"), 4), JW.step_n(jg, 4))
     plain = torch.from_numpy(np.random.default_rng(0).integers(-2**63, 2**63, 64))
     from lifeapi_tpu_torch.core import step as S
     assert torch.equal(W.step(W.LifeWeld.from_state(plain)).state, S.step(plain))
@@ -117,7 +117,7 @@ def _bellman_weld(dy):
 
     catalyst = build("2b2o$bobo$bo$2o!")
     j = JW.from_required(catalyst, build("2b2o$b3o$b4o$5o$4o$4o!", -1))
-    return j, convert.weld_from_jax(j)
+    return j, convert.weld_from_jax(j, device="cpu")
 
 
 @pytest.mark.parametrize("duration", [8, 64])
@@ -125,11 +125,11 @@ def test_to_stable_with_history(duration):
     """The Bellman example's reaction: glider against the eater at (0, 4)."""
     glider = jb.move(jrle.parse("bob$2bo$3o!"), 8, 8)
     j, t = _bellman_weld(4)
-    tg = convert.board_from_packed(glider)
+    tg = convert.board_from_packed(glider, device="cpu")
     _same_stable(W.to_stable_with_history(t, tg, duration),
                  JW.to_stable_with_history(j, glider, duration))
     mask = jb.from_dense(jnp.asarray(np.indices((64, 64)).sum(0) % 3 != 0))
-    _same_stable(W.to_stable_with_history(t, tg, duration, convert.board_from_packed(mask)),
+    _same_stable(W.to_stable_with_history(t, tg, duration, convert.board_from_packed(mask, device="cpu")),
                  JW.to_stable_with_history(j, glider, duration, mask))
 
 
@@ -165,8 +165,8 @@ def _prefilter(good, **kw):
                           jb.move(jrle.parse(REQUIRED_PAIRS[0][1]), 19, 19))
     jb_ = JW.LifeWeld.from_state(jb.move(jrle.parse(BLOCK), 20, 20))
     want = JW.unweldable_mask(ja, jb_, starting_good=good, return_stats=True, **kw)
-    got = W.unweldable_mask(convert.weld_from_jax(ja), convert.weld_from_jax(jb_),
-                            starting_good=convert.board_from_packed(good),
+    got = W.unweldable_mask(convert.weld_from_jax(ja, device="cpu"), convert.weld_from_jax(jb_, device="cpu"),
+                            starting_good=convert.board_from_packed(good, device="cpu"),
                             return_stats=True, **kw)
     _same_board(got[0], want[0])
     return got[1], want[1]
@@ -194,8 +194,8 @@ def test_tier1_residue_counted_without_escalation():
     counts the undetermined placements whether or not ``escalate`` is set;
     the JAX package reports 0 without escalation."""
     _, ta = _weld_pair(0)
-    tb = W.LifeWeld.from_state(B.move(convert.board_from_packed(jrle.parse(BLOCK)), 20, 20))
-    good = convert.board_from_packed(_window(3, 4, 3, 6))
+    tb = W.LifeWeld.from_state(B.move(convert.board_from_packed(jrle.parse(BLOCK), device="cpu"), 20, 20))
+    good = convert.board_from_packed(_window(3, 4, 3, 6), device="cpu")
     _, off = W.unweldable_mask(ta, tb, starting_good=good, engine="beam", beam_iters=24,
                                escalate=False, return_stats=True)
     assert off["tier1_residue"] == 2 and off["tier2_completed"] == 0
@@ -215,8 +215,8 @@ def test_tier3_wall_budget_skips_are_counted_and_warned(monkeypatch):
     monkeypatch.setattr(C, "complete_stable_beam",
                         lambda *a, iters, **k: deep(*a, iters=min(iters, 24), **k))
     _, ta = _weld_pair(0)
-    tb = W.LifeWeld.from_state(B.move(convert.board_from_packed(jrle.parse(BLOCK)), 20, 20))
-    good = convert.board_from_packed(_window(3, 4, 3, 6))
+    tb = W.LifeWeld.from_state(B.move(convert.board_from_packed(jrle.parse(BLOCK), device="cpu"), 20, 20))
+    good = convert.board_from_packed(_window(3, 4, 3, 6), device="cpu")
     kw = dict(starting_good=good, engine="beam", beam_iters=24, escalate_dfs_wall_budget=0)
     _, stats = W.unweldable_mask(ta, tb, return_stats=True, **kw)
     assert stats["tier3_instances"] == stats["tier3_wall_budget_skipped"] >= 1

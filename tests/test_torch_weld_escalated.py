@@ -43,8 +43,8 @@ def test_unweldable_beam_escalated(monkeypatch):
     kw = dict(engine="beam", batch_size=32, beam_iters=24, escalate=True,
               escalate_dfs_timeout=30.0, escalate_dfs_wall_budget=None, return_stats=True)
     want_mask, want = JW.unweldable_mask(ja, jb_, starting_good=good, **kw)
-    got_mask, got = W.unweldable_mask(convert.weld_from_jax(ja), convert.weld_from_jax(jb_),
-                                      starting_good=convert.board_from_packed(good), **kw)
+    got_mask, got = W.unweldable_mask(convert.weld_from_jax(ja, device="cpu"), convert.weld_from_jax(jb_, device="cpu"),
+                                      starting_good=convert.board_from_packed(good, device="cpu"), **kw)
     assert (convert.board_to_packed(got_mask) == np.asarray(want_mask)).all()
     assert got == want
     assert (got["tier1_residue"], got["tier2_completed"], got["tier3_instances"],

@@ -22,16 +22,16 @@ COST_TOL = dict(rtol=1e-4, atol=1e-5)
 
 
 def mpc_problem(horizon=3):
-    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!"), 31, 31))
+    target = LifeTarget.from_state(B.move(rle.parse("2o$2o!", device="cpu"), 31, 31))
     mask = torch.zeros(64, 64, dtype=torch.bool)
     mask[28:36, 28:36] = True
-    return MPCProblem(initial=B.empty(), target=target, horizon=horizon, control_mask=mask,
+    return MPCProblem(initial=B.empty(device="cpu"), target=target, horizon=horizon, control_mask=mask,
                       weights=CostWeights(target=1.0, control=0.01))
 
 
 def eater_instance():
-    eater = B.move(rle.parse(EATER_RLE), 20, 20)
-    hide = B.from_cells([(20, 20), (21, 20)])
+    eater = B.move(rle.parse(EATER_RLE, device="cpu"), 20, 20)
+    hide = B.from_cells([(20, 20), (21, 20)], device="cpu")
     return eater & ~hide, (B.zoi(eater) & ~eater) | hide
 
 
@@ -45,8 +45,8 @@ def run_all(mesh):
     boards = torch.from_numpy(rng.integers(-2**63, 2**63 - 1, size=(8, 64), dtype=np.int64))
     out["rollout"] = np_(*elite.sharded_rollout(boards, 6, mesh))
 
-    glider = B.move(rle.parse(GLIDER_RLE), 8, 8)
-    eater = B.move(tr.transform(rle.parse(EATER_RLE), tr.SymmetryTransform.Rotate270), 24, 24)
+    glider = B.move(rle.parse(GLIDER_RLE, device="cpu"), 8, 8)
+    eater = B.move(tr.transform(rle.parse(EATER_RLE, device="cpu"), tr.SymmetryTransform.Rotate270), 24, 24)
     offsets = torch.tensor([[dx, dy] for dx in range(-4, 4) for dy in range(-4, 4)])
     out["catalyst"] = np_(*elite.sharded_catalyst_search(glider, eater, offsets, 32, mesh))
 
@@ -55,7 +55,7 @@ def run_all(mesh):
     out["candidate_solve"] = np_(*elite.sharded_candidate_solve(p, logits0, mesh, iters=5,
                                                                 topk=2))
     initials = torch.from_numpy(rng.integers(0, 2, size=(4, 64, 64)).astype(bool))
-    initials = B.from_dense(initials) & B.solid_rect(26, 26, 12, 12)
+    initials = B.from_dense(initials) & B.solid_rect(26, 26, 12, 12, device="cpu")
     out["scenario_sweep"] = np_(*elite.sharded_scenario_sweep(
         initials, p.target, 3, p.control_mask, mesh, torch.Generator().manual_seed(1),
         candidates_per_scenario=4, iters=3, weights=p.weights))
