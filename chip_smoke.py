@@ -11,8 +11,9 @@ Phases, each printing what it saw:
    fixpoint kernels (the CUDA runtime's occupancy calculator);
 2. the main path, with the kernels' launch counters set to 0 just before:
    the headline rollout (8192 random boards, 512 generations), the MPC
-   solver in its demo and bench configurations, and the catalyst search on
-   the full 64x64 offset grid and on the example's grid;
+   solver in its demo and bench configurations (their gradients through the
+   soft-Life rollout and VJP sweeps), and the catalyst search on the full
+   64x64 offset grid and on the example's grid;
 3. checks: every kernel against its plain PyTorch twin on the same inputs
    (bit-exact), the rollout against an independent numpy B3/S23 oracle on
    64 boards and, ``[oracle]``, against the native C oracle
@@ -76,7 +77,14 @@ Phases, each printing what it saw:
    north-star config 3's width (64 candidates, horizon 32, a protected
    background block), its seconds by stage, the soft objective no worse
    than after the warm-up, kernel [2] against its twin on every candidate,
-   the toy problem's known answer; ``[receding]``, the example through
+   the toy problem's known answer, the launches of the three soft-Life
+   sweeps (``csrc/soft_life.cu``: the rollout, its VJP, the HVP sweep);
+   ``[soft]``, the three sweeps at the same shapes against their plain twins
+   (the forward bit for bit, also at the line search's 192 candidates; the
+   VJP on the cost's cotangent and the HVP sweep within a stated tolerance
+   of the float32 twin and as close to the float64 twin as the float32 twin
+   is), then each sweep's call and device time beside its bytes bound;
+   ``[receding]``, the example through
    ``run`` (Hamming 0) and ``run_fused``, both along the numpy step, then
    ``run_fused`` at horizon 32 under sync-debug mode "error";
    ``[symmetric]``, the C2even problem of ``tests/test_symmetric_mpc.py``
@@ -159,6 +167,34 @@ CONV_REPLACES = {
     "conv_small_packed": "lifeapi_tpu/ops/conv_pallas.py:281",
 }
 CALIBRATE_REPLACES = {"calibrate": "lifeapi_tpu/ops/calibrate_pallas.py:65"}
+# The soft-Life sweeps replace no TPU kernel: the JAX package leaves
+# soft_rollout (lifeapi_tpu/mpc/soft.py:49) to XLA, which fuses it; the
+# line is where its rollout, and so its gradient and HVP, is defined.
+SOFT_SOURCE = "lifeapi_tpu_torch/csrc/soft_life.cu"
+SOFT_REPLACES = dict.fromkeys(("soft_rollout", "soft_rollout_vjp", "soft_rollout_hvp"),
+                              "lifeapi_tpu/mpc/soft.py:49")
+SOFT_KERNELS = {"soft_rollout": "soft_rollout_kernel", "soft_rollout_vjp": "soft_vjp_kernel",
+                "soft_rollout_hvp": "soft_hvp_kernel"}
+# Each sweep's bytes: the boards [T, C, 64, 64] in float32 it reads and
+# writes (the start board once), and its float32 operations a cell and
+# generation, counted from soft_life.cu (a sigmoid as 4: neg, exp, add, div;
+# the gates' arguments 2 each): the forward 34 (toggle 5, stencil 5, three
+# gates 18, step 6), the VJP 56 (toggle 5, two stencils 10, first
+# derivatives 27, the adjoint 14), the HVP 106 (toggle 5, tangent 7, four
+# stencils 20, second derivatives 40, the partials 34), over the card's
+# float32 rate outside the tensor cores (H100 SXM data sheet).
+SOFT_BOARDS_MOVED = {"soft_rollout": 2, "soft_rollout_vjp": 5, "soft_rollout_hvp": 7}
+SOFT_FLOP_PER_CELL = {"soft_rollout": 34, "soft_rollout_vjp": 56, "soft_rollout_hvp": 106}
+FP32_FLOP_PER_S = 67e12
+# the sweeps against their plain twins on the card: the forward bit for
+# bit; the VJP and HVP, which sum a cell's terms in float32 in another order
+# than the twins' autograd, each candidate's relative error (over its cells)
+# within SOFT_TWIN_TOL of the float32 twin, and no further from the float64
+# twin on the same inputs than SOFT_F64_RATIO times the float32 twin is
+# (plus 1e-6): on the cost's cotangent, which is 1 on every cell of the
+# mostly empty board, both float32 sums sit a relative 4e-5 from float64
+# and 2e-5 from each other
+SOFT_TWIN_TOL, SOFT_F64_RATIO = 1e-4, 2.0
 # the convolution layer's bench shapes (bench.py:366-460, 571-618;
 # benches/extra.py:764-809) and the calibration's
 CONV_B, IO_B = 4096, 1024
@@ -727,9 +763,9 @@ def check_still_lifes(res, known, unknown, what):
 def launch_count(counter):
     """The launches counted so far under ``counter`` in the wrappers'
     ``LAUNCHES``."""
-    from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, stable_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, soft_cuda, stable_cuda, step_cuda
 
-    for module in (step_cuda, stable_cuda, conv_cuda, calibrate_cuda):
+    for module in (step_cuda, stable_cuda, conv_cuda, calibrate_cuda, soft_cuda):
         if counter in module.LAUNCHES:
             return module.LAUNCHES[counter]
     raise KeyError(counter)
@@ -928,20 +964,21 @@ def replaced(module, name, value):
 
 
 def reset_counters():
-    from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import soft_cuda, stable_cuda, step_cuda
 
     torch.cuda.synchronize()
     step_cuda.reset_launches()
     stable_cuda.reset_launches()
+    soft_cuda.reset_launches()
 
 
 def read_counters(path, kernels):
     """The launch counters after a path's run; fails unless every kernel
     named was launched."""
-    from lifeapi_tpu_torch.ops import stable_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import soft_cuda, stable_cuda, step_cuda
 
     torch.cuda.synchronize()
-    counts = {**step_cuda.LAUNCHES, **stable_cuda.LAUNCHES}
+    counts = {**step_cuda.LAUNCHES, **stable_cuda.LAUNCHES, **soft_cuda.LAUNCHES}
     counts = {name: n for name, n in counts.items() if n}
     print(f"[{path}] launches {counts}")
     check(all(counts.get(name, 0) > 0 for name in kernels),
@@ -1534,7 +1571,7 @@ def sqp_phase(dev, card):
                            method="sqp", iters=SQP_ITERS)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-    read_counters("sqp", ("controlled_rollout",))
+    sqp_counts = read_counters("sqp", ("controlled_rollout", *SOFT_KERNELS))
     print(f"[sqp] card: {card}")
     print(f"[sqp] config 3 ({SQP_C} candidates, horizon {SQP_HORIZON}, warm-up "
           f"{max(SQP_ITERS // 3, 10)} adam iterations, 8 Newton steps of 12 CG iterations): "
@@ -1592,7 +1629,116 @@ def sqp_phase(dev, card):
     check(float(end.min()) < float(start.min()), "SQP toy problem: no improvement")
     print(f"[sqp] toy problem: best soft objective {float(start.min()):.4f} -> "
           f"{float(end.min()):.4f}")
-    return total
+    return total, sqp_counts
+
+
+def candidate_errs(got, want):
+    """Each candidate's relative error over its cells, candidates on dim 1
+    of generation-major ``[T, C, 64, 64]`` tensors, in float64."""
+    got, want = got.double(), want.double()
+    diff = (got - want).movedim(1, 0).flatten(1).norm(dim=1)
+    return diff / want.movedim(1, 0).flatten(1).norm(dim=1)
+
+
+def soft_inputs(dev, problem, cands, seed=0):
+    """The soft objective's rollout inputs at the [sqp] shapes: the start
+    board, and the controls of ``init_logits``'s draw as ``soft_objective``
+    hands them over (a ``movedim`` view)."""
+    from lifeapi_tpu_torch.core import board as B
+    from lifeapi_tpu_torch.mpc import solver
+
+    logits = solver.init_logits(torch.Generator().manual_seed(seed), problem, cands)
+    controls = (torch.sigmoid(logits) * problem.control_mask).movedim(-3, 0)
+    return B.to_dense(problem.initial).to(torch.float32), controls
+
+
+def soft_phase(dev, card, ms, plain_ms, dev_ms):
+    """The soft-Life sweeps at the [sqp] shapes (64 candidates, horizon 32)
+    against their plain twins on the same inputs: the forward bit for bit
+    (and at the line search's 192 candidates), the VJP on the cost's own
+    cotangent of the trajectory, the HVP sweep along a direction in the
+    control window; then each sweep's call and device time beside its
+    bound.  Fills ``ms``, ``plain_ms`` and ``dev_ms``; returns (max_abs_err,
+    bounds) by kernel."""
+    from lifeapi_tpu_torch.mpc import cost as cost_mod
+    from lifeapi_tpu_torch.ops import soft_cuda
+
+    problem = sqp_problem(dev, SQP_HORIZON)
+    tau = problem.tau
+    p0, controls = soft_inputs(dev, problem, SQP_C)
+    err = {}
+    traj = soft_cuda.rollout(p0, controls, tau)
+    want = soft_cuda.rollout_plain(p0, controls, tau)
+    err["soft_rollout"] = max_err(traj, want)
+    check(torch.equal(traj, want), "[soft] forward sweep != its plain twin")
+    p_ls, c_ls = soft_inputs(dev, problem, 3 * SQP_C, seed=1)
+    check(torch.equal(soft_cuda.rollout(p_ls, c_ls, tau), soft_cuda.rollout_plain(p_ls, c_ls, tau)),
+          "[soft] forward sweep != its plain twin at the line search's candidates")
+    print(f"[soft] forward sweep == plain twin bit for bit at {SQP_C} and {3 * SQP_C} "
+          f"candidates, horizon {SQP_HORIZON} (controls read through the movedim view's "
+          f"strides {tuple(controls.stride())})")
+
+    leaf = traj.detach().requires_grad_(True)
+    with torch.enable_grad():
+        total = cost_mod.soft_total(leaf[-1], leaf, controls, problem.target, problem.protected,
+                                    problem.weights)
+        (g_traj,) = torch.autograd.grad(total.sum(), leaf)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(controls.shape, generator=gen, device=dev) * problem.control_mask
+    vjp = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, tau)
+    vjp_p = soft_cuda.rollout_vjp_plain(p0, controls, traj, g_traj, tau, False)
+    vjp_64 = soft_cuda.rollout_vjp_plain(*(t.double() for t in (p0, controls, traj, g_traj)),
+                                         tau, False)
+    hvp = soft_cuda.rollout_hvp(p0, controls, traj, vjp_p[2], w, None, tau)
+    hvp_p = soft_cuda.rollout_hvp_plain(p0, controls, traj, vjp_p[2], w, None, tau, False)
+    hvp_64 = soft_cuda.rollout_hvp_plain(*(t.double() for t in (p0, controls, traj, vjp_p[2], w)),
+                                         None, tau, False)
+    for name, pairs in (("soft_rollout_vjp", (("g_u", 0), ("lam", 2))),
+                        ("soft_rollout_hvp", (("jw", 0), ("pu", 1), ("px", 2)))):
+        got, plain, plain64 = (vjp, vjp_p, vjp_64) if name == "soft_rollout_vjp" else \
+            (hvp, hvp_p, hvp_64)
+        err[name] = max(max_err(got[i], plain[i]) for _, i in pairs)
+        for what, i in pairs:
+            errs = candidate_errs(got[i], plain[i])
+            own = candidate_errs(got[i].double(), plain64[i])
+            twin = candidate_errs(plain[i].double(), plain64[i])
+            print(f"[soft] {name} {what}: a candidate's relative error, kernel against the "
+                  f"float32 twin median {float(errs.median()):.3g} largest {float(errs.max()):.3g} "
+                  f"(max_abs_err {max_err(got[i], plain[i]):.3g}); against the float64 twin, "
+                  f"kernel median {float(own.median()):.3g} largest {float(own.max()):.3g}, "
+                  f"float32 twin median {float(twin.median()):.3g} largest {float(twin.max()):.3g}")
+            check(float(errs.max()) <= SOFT_TWIN_TOL,
+                  f"[soft] {name} {what}: kernel != float32 twin within {SOFT_TWIN_TOL}")
+            check(all(float(f(own)) <= SOFT_F64_RATIO * float(f(twin)) + 1e-6
+                      for f in (torch.median, torch.max)),
+                  f"[soft] {name} {what}: kernel further from float64 than "
+                  f"{SOFT_F64_RATIO}x the float32 twin")
+
+    calls = {"soft_rollout": (lambda: soft_cuda.rollout(p0, controls, tau),
+                              lambda: soft_cuda.rollout_plain(p0, controls, tau)),
+             "soft_rollout_vjp": (lambda: soft_cuda.rollout_vjp(p0, controls, traj, g_traj, tau),
+                                  lambda: soft_cuda.rollout_vjp_plain(p0, controls, traj,
+                                                                      g_traj, tau, False)),
+             "soft_rollout_hvp": (lambda: soft_cuda.rollout_hvp(p0, controls, traj, vjp[2], w,
+                                                                None, tau),
+                                  lambda: soft_cuda.rollout_hvp_plain(p0, controls, traj, vjp[2],
+                                                                      w, None, tau, False))}
+    cells = controls.shape[0] * SQP_C * 4096
+    bounds = {}
+    for name, (kernel_fn, plain_fn) in calls.items():
+        ms[name], plain_ms[name] = paired_ms(kernel_fn, plain_fn, reps=10)
+        dev_ms[name] = device_ms_at(kernel_fn, SOFT_KERNELS[name], name)
+        by_bytes = SOFT_BOARDS_MOVED[name] * cells * 4 / HBM_BYTES_PER_S * 1e3
+        by_ops = SOFT_FLOP_PER_CELL[name] * cells / FP32_FLOP_PER_S * 1e3
+        bounds[name] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        d, mhz = dev_ms[name]
+        print(f"[soft] {name} ({SOFT_KERNELS[name]}), {SQP_C} candidates x horizon "
+              f"{SQP_HORIZON}: call {ms[name]:.4f} ms, on the device {d:.4f} ms (SM clock "
+              f"{mhz} MHz), bound {by_bytes:.4f} ms by bytes ({SOFT_BOARDS_MOVED[name]} boards "
+              f"a cell-generation, {SOFT_BOARDS_MOVED[name] * cells * 4 / 1e6:.1f} MB) and "
+              f"{by_ops:.4f} ms by float32 operations, so {d / bounds[name][0]:.3g}x its bound; "
+              f"plain twin {plain_ms[name]:.3f} ms ({card})")
+    return err, bounds
 
 
 def receding_phase(dev, card):
@@ -3005,7 +3151,7 @@ def main():
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.core import rle
     from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem, solver
-    from lifeapi_tpu_torch.ops import _build, step_cuda
+    from lifeapi_tpu_torch.ops import _build, soft_cuda, step_cuda
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.target import LifeTarget, hamming_cost
 
@@ -3049,6 +3195,7 @@ def main():
     # -- 2. the main path -----------------------------------------------------
     torch.cuda.synchronize()
     step_cuda.reset_launches()
+    soft_cuda.reset_launches()
     t0 = time.perf_counter()
     rolled = step_cuda.rollout(boards, HEADLINE_T)
     demo_sol = solver.solve(demo, torch.Generator().manual_seed(0),
@@ -3064,6 +3211,9 @@ def main():
           f"launches {launches}")
     check(all(launches[name] > 0 for name in MAIN_PATH_KERNELS),
           f"a kernel of the main path was never launched: {launches}")
+    print(f"[path] soft-Life sweeps of the main path's gradient solves: {soft_cuda.LAUNCHES}")
+    check(soft_cuda.LAUNCHES["soft_rollout"] > 0 and soft_cuda.LAUNCHES["soft_rollout_vjp"] > 0,
+          f"the main path's solves never launched the soft-Life sweeps: {soft_cuda.LAUNCHES}")
     err = dict.fromkeys(MAIN_PATH_KERNELS, 0.0)
 
     # -- 3a. rollout ----------------------------------------------------------
@@ -3205,7 +3355,10 @@ def main():
     # after the kernel timings: their profiler traces keep fewer of a
     # kernel's launches in a process that has already traced these paths'
     # hundred-thousand-kernel calls
-    mpc_times = {"sqp": sqp_phase(dev, card), "receding": receding_phase(dev, card),
+    sqp_s, sqp_counts = sqp_phase(dev, card)
+    soft_err, soft_bounds = soft_phase(dev, card, ms, plain_ms, dev_ms)
+    bounds.update(soft_bounds)
+    mpc_times = {"sqp": sqp_s, "receding": receding_phase(dev, card),
                  "symmetric": symmetric_phase(dev, card), "reach": reach_phase(dev, card)}
     print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, run_fused {mpc_times['receding']:.3f} s "
           f"a replan round, D4 symmetric solve {mpc_times['symmetric']:.3f} s, reachability "
@@ -3226,7 +3379,8 @@ def main():
             (ROLLOUT_SOURCE, REPLACES, launches, err),
             (STABLE_SOURCE, STABLE_REPLACES, stable_launches, stable_err),
             (CONV_SOURCE, CONV_REPLACES, conv_launches, conv_err),
-            (CALIBRATE_SOURCE, CALIBRATE_REPLACES, conv_launches, conv_err))
+            (CALIBRATE_SOURCE, CALIBRATE_REPLACES, conv_launches, conv_err),
+            (SOFT_SOURCE, SOFT_REPLACES, sqp_counts, soft_err))
         for name in replaces
     ]
     print(card)

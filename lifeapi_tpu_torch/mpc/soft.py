@@ -11,9 +11,15 @@ sigmoid windows around [2, 3] and {3} that sharpen to the exact rule as the
 temperature tau -> 0.  Controls are per-step cell toggle probabilities
 applied as a smooth XOR.
 
-The JAX rollout rematerialises each step in the backward pass to save
-memory; here autograd keeps every step's activations, which at 64
-candidates and horizon 32 is a few hundred MB.
+The rollout and its derivatives are the fused sweeps of
+:mod:`lifeapi_tpu_torch.ops.soft_cuda` (one CUDA launch each on the card,
+their plain twins on the CPU), which also holds the per-generation map
+re-exported here.  :func:`soft_rollout` wraps them in autograd Functions
+whose backward is a sweep too, so a gradient and a Hessian-vector product by
+double backward stay a few launches, whatever the horizon.  Memory: the
+rollout keeps its trajectory for the backward, and a VJP kept for a double
+backward its adjoints, one ``[T, C, 64, 64]`` float32 array each; the JAX
+rollout rematerialises each step instead.
 """
 
 from __future__ import annotations
@@ -22,45 +28,74 @@ import torch
 
 from ..core import board as B
 from ..core import step as S
+from ..ops import soft_cuda
+from ..ops.soft_cuda import neighbour_sum, soft_gates, soft_step, soft_toggle  # noqa: F401
 
 
-def neighbour_sum(p):
-    """Expected live neighbours (center excluded), float [..., 64, 64]."""
-    v = p + torch.roll(p, 1, dims=-1) + torch.roll(p, -1, dims=-1)
-    total = v + torch.roll(v, 1, dims=-2) + torch.roll(v, -1, dims=-2)
-    return total - p
+class SoftRollout(torch.autograd.Function):
+    """``traj`` ``[T, *batch, 64, 64]`` of the controlled soft rollout.  Its
+    backward is :class:`SoftRolloutVJP`, so a graph built through it (a
+    gradient under ``create_graph=True``) differentiates again."""
+
+    @staticmethod
+    def forward(ctx, p0, controls, tau):
+        traj = soft_cuda.rollout(p0, controls, tau)
+        ctx.save_for_backward(p0, controls, traj)
+        ctx.tau = tau
+        return traj
+
+    @staticmethod
+    def backward(ctx, g_traj):
+        p0, controls, traj = ctx.saved_tensors
+        g_u, g_p0 = SoftRolloutVJP.apply(p0, controls, traj, g_traj, ctx.tau,
+                                         ctx.needs_input_grad[0])
+        return g_p0, g_u, None
 
 
-def soft_gates(count, tau):
-    """(survive, birth) gate values for a neighbour count."""
-    sig = torch.sigmoid
-    survive = sig((count - 1.5) / tau) * sig((3.5 - count) / tau)
-    birth = sig((count - 2.5) / tau) * sig((3.5 - count) / tau)
-    return survive, birth
+class SoftRolloutVJP(torch.autograd.Function):
+    """(the cotangent of the controls, of ``p0`` or None) from ``g_traj``.
+    It takes ``traj`` as an input: its backward returns the partials with
+    the states held fixed, and the states' own dependence on the controls
+    reaches them through :class:`SoftRollout` again, along with the cost's
+    curvature."""
 
+    @staticmethod
+    def forward(ctx, p0, controls, traj, g_traj, tau, want_p0):
+        g_u, g_p0, lam = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, tau, want_p0)
+        ctx.save_for_backward(p0, controls, traj, lam)
+        ctx.tau = tau
+        ctx.set_materialize_grads(False)
+        return (soft_cuda.sum_over_batch(g_u, controls.shape),
+                g_p0.sum_to_size(p0.shape) if want_p0 else None)
 
-def soft_step(p, tau=0.2):
-    """One soft-Life generation on probabilities [..., 64, 64]."""
-    count = neighbour_sum(p)
-    survive, birth = soft_gates(count, tau)
-    return p * survive + (1.0 - p) * birth
-
-
-def soft_toggle(p, u):
-    """Smooth XOR: toggle each cell with probability u."""
-    return p * (1.0 - u) + (1.0 - p) * u
+    @staticmethod
+    def backward(ctx, w_u, w_p0):
+        p0, controls, traj, lam = ctx.saved_tensors
+        w_u = torch.zeros_like(controls) if w_u is None else w_u
+        jw, pu, px, px0 = soft_cuda.rollout_hvp(
+            p0, controls, traj, lam, soft_cuda.over_batch(w_u, traj.shape[1:-2]), w_p0, ctx.tau,
+            ctx.needs_input_grad[0])
+        return (None if px0 is None else px0.sum_to_size(p0.shape),
+                soft_cuda.sum_over_batch(pu, controls.shape), px, jw, None, None)
 
 
 def soft_rollout(p0, controls, tau=0.2):
     """Roll the horizon: at each step apply the control toggles, then the
     soft dynamics.  controls: [T, ..., 64, 64] toggle probabilities.
-    Returns (final p, trajectory [T, ...])."""
-    p = p0
-    traj = []
-    for u in controls:
-        p = soft_step(soft_toggle(p, u), tau)
-        traj.append(p)
-    return p, torch.stack(traj)
+    Returns (final p, trajectory [T, ...]).
+
+    Runs the fused sweeps, which implement this module's ``soft_toggle``
+    and ``soft_step``.  Where either has been replaced (``bench_torch/
+    control.py`` rounds every generation to bfloat16 that way), the
+    replacement is looped eagerly instead, under plain autograd."""
+    if soft_step is not soft_cuda.soft_step or soft_toggle is not soft_cuda.soft_toggle:
+        p, traj = p0, []
+        for u in controls:
+            p = soft_step(soft_toggle(p, u), tau)
+            traj.append(p)
+        return p, torch.stack(traj)
+    traj = SoftRollout.apply(p0, controls, tau)
+    return traj[-1], traj
 
 
 def hard_rollout(board0, toggles):

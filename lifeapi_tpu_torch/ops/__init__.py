@@ -1,1 +1,1 @@
-from . import stable_cuda, step_cuda  # noqa: F401
+from . import soft_cuda, stable_cuda, step_cuda  # noqa: F401

@@ -29,6 +29,8 @@ LINK_FLAGS = (*ARCH_FLAGS, "-shared")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
 # launcher name -> argument types; every launcher returns its cudaError_t
 SIGNATURES = {
     "life_rollout": (_P, _P, _I, _I, _P),
@@ -48,6 +50,10 @@ SIGNATURES = {
     "life_conv_small_packed": (_P, _P, _P, _P, _I, _I, _P),
     "life_conv_ntt_info": (_P,),
     "life_calibrate": (_P, _P, _P, _I, _I, _I, _P),
+    "life_soft_rollout": (_P, _L, _P, _L, _L, _P, _I, _I, _F, _P),
+    "life_soft_rollout_vjp": (_P, _L, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "life_soft_rollout_hvp": (_P, _L, _P, _L, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P,
+                              _I, _I, _F, _P),
 }
 
 _library = None

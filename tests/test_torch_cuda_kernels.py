@@ -11,7 +11,7 @@ import torch
 
 from lifeapi_tpu_torch.core import board as B
 from lifeapi_tpu_torch.core import ntt, rle
-from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, stable_cuda, step_cuda
+from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, soft_cuda, stable_cuda, step_cuda
 from lifeapi_tpu_torch.search import rollout_inputs
 from lifeapi_tpu_torch.stable import bitplane as BP
 from lifeapi_tpu_torch.stable import host as H
@@ -882,3 +882,105 @@ def test_sharded_beam_complete_over_nccl(nccl_mesh):
         assert torch.equal(found, ref.found) and torch.equal(best, ref.best)
         assert torch.equal(pop, ref.best_pop)
         assert int(champ_pop) == 7 and torch.equal(champ, ref.best[0])
+
+
+# ---------------------------------------------------------------------------
+# Soft-Life sweeps (csrc/soft_life.cu)
+# ---------------------------------------------------------------------------
+
+SOFT_TAU = 0.25
+
+
+def _soft_inputs(device, cands, horizon=32, seed=0):
+    """The SQP cell's shapes: p0 a board [64, 64], the controls the
+    ``movedim`` view ``soft_objective`` hands over, sigmoid of
+    ``init_logits``'s draw inside a 10 x 10 control window."""
+    gen = torch.Generator().manual_seed(seed)
+    p0 = (torch.rand((64, 64), generator=gen) < 0.3).float()
+    logits = -3.0 + 0.5 * torch.randn((cands, horizon, 64, 64), generator=gen)
+    mask = torch.zeros((64, 64))
+    mask[36:46, 36:46] = 1.0
+    controls = (torch.sigmoid(logits) * mask).movedim(-3, 0)
+    return p0.to(device), controls.to(device)
+
+
+def _candidate_errs(got, want):
+    """Each candidate's relative error, ``|got - want| / |want|`` over its
+    cells (candidates on dim 1), in float64."""
+    got, want = got.double(), want.double()
+    diff = (got - want).movedim(1, 0).flatten(1).norm(dim=1)
+    return diff / want.movedim(1, 0).flatten(1).norm(dim=1)
+
+
+def _soft_pair(name, args):
+    before = soft_cuda.LAUNCHES[f"soft_{name}"]
+    got = getattr(soft_cuda, name)(*args)
+    torch.cuda.synchronize()
+    assert soft_cuda.LAUNCHES[f"soft_{name}"] == before + 1
+    return got, getattr(soft_cuda, f"{name}_plain")(*args)
+
+
+@pytest.mark.parametrize("cands", [1, 64, 192])
+def test_soft_rollout_kernel_equals_twin_bit_for_bit(device, cands):
+    p0, controls = _soft_inputs(device, cands)
+    assert controls.stride(1) == 32 * 4096  # read in place through its strides
+    got, want = _soft_pair("rollout", (p0, controls, SOFT_TAU))
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
+def _as_accurate(got, want32, want64):
+    """The kernel within a relative 1e-4 of the float32 twin on every
+    candidate, and no further from the float64 twin than twice the float32
+    twin is (plus 1e-6): both sum a cell's terms in float32, in different
+    orders, so neither is the exact answer."""
+    errs = _candidate_errs(got, want32)
+    own, twin = _candidate_errs(got, want64), _candidate_errs(want32, want64)
+    assert errs.max() <= 1e-4, errs
+    assert own.median() <= 2 * twin.median() + 1e-6 and own.max() <= 2 * twin.max() + 1e-6, \
+        (own, twin)
+
+
+def test_soft_adjoint_kernels_match_twins(device):
+    """The VJP and the HVP sweep at 64 candidates and horizon 32 against
+    their twins on the card, in float32 and in float64."""
+    p0, controls = _soft_inputs(device, 64)
+    traj = soft_cuda.rollout(p0, controls, SOFT_TAU)
+    gen = torch.Generator(device=device).manual_seed(1)
+    g_traj = torch.randn(traj.shape, generator=gen, device=device) * 1e-2
+    w = torch.randn(controls.shape, generator=gen, device=device) * (controls > 0)
+    args = (p0, controls, traj, g_traj)
+    (g_u, _, lam), (g_u32, _, lam32) = _soft_pair("rollout_vjp", (*args, SOFT_TAU, False))
+    g_u64, _, lam64 = soft_cuda.rollout_vjp_plain(*(a.double() for a in args), SOFT_TAU, False)
+    _as_accurate(g_u, g_u32, g_u64)
+    _as_accurate(lam, lam32, lam64)
+    args = (p0, controls, traj, lam32, w)
+    got, want32 = _soft_pair("rollout_hvp", (*args, None, SOFT_TAU, False))
+    want64 = soft_cuda.rollout_hvp_plain(*(a.double() for a in args), None, SOFT_TAU, False)
+    for g, e32, e64 in zip(got[:3], want32[:3], want64[:3]):
+        _as_accurate(g, e32, e64)
+
+
+def test_soft_kernels_read_nothing_back_and_refuse_float64(device):
+    p0, controls = _soft_inputs(device, 4, horizon=3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        traj = soft_cuda.rollout(p0, controls, SOFT_TAU)
+        _, _, lam = soft_cuda.rollout_vjp(p0, controls, traj, traj, SOFT_TAU, True)
+        soft_cuda.rollout_hvp(p0, controls, traj, lam, torch.ones_like(traj), p0, SOFT_TAU, True)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with pytest.raises(TypeError):
+        soft_cuda.rollout(p0.double(), controls.double(), SOFT_TAU)
+
+
+def test_soft_kernels_take_unaligned_inputs(device):
+    """Controls and cotangents 4 bytes off 16 are copied, not refused."""
+    p0, controls = _soft_inputs(device, 5, horizon=4)
+    store = torch.empty(controls.numel() + 1, device=device)
+    odd = store[1:].view(controls.shape)
+    odd.copy_(controls)
+    got, want = _soft_pair("rollout", (p0, odd, SOFT_TAU))
+    assert torch.equal(got, want)
+    g = torch.empty(got.numel() + 1, device=device)[1:].view(got.shape).copy_(got)
+    (g_u, _, _), (g_u_p, _, _) = _soft_pair("rollout_vjp", (p0, odd, got, g, SOFT_TAU, False))
+    assert _candidate_errs(g_u, g_u_p).max() <= 1e-4

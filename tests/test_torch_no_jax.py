@@ -13,7 +13,7 @@ PORT = ROOT / "lifeapi_tpu_torch"
 SOURCES = sorted(p.relative_to(ROOT).as_posix() for p in PORT.rglob("*.py"))
 BENCH = sorted(p.relative_to(ROOT).as_posix() for p in (ROOT / "bench_torch").glob("*.py"))
 # the port's scripts at the root of the repo
-ROOT_SCRIPTS = ["chip_smoke", "device_times"]
+ROOT_SCRIPTS = ["chip_smoke", "device_times", "soft_accuracy"]
 
 
 def _module(path):
