@@ -81,9 +81,12 @@ Phases, each printing what it saw:
    sweeps (``csrc/soft_life.cu``: the rollout, its VJP, the HVP sweep);
    ``[soft]``, the three sweeps at the same shapes against their plain twins
    (the forward bit for bit, also at the line search's 192 candidates; the
-   VJP on the cost's cotangent and the HVP sweep within a stated tolerance
-   of the float32 twin and as close to the float64 twin as the float32 twin
-   is), then each sweep's call and device time beside its bytes bound;
+   adjoint sweeps' ptxas registers and spills, which must be 0, and their
+   threads, shared memory and residency; the VJP on the
+   cost's cotangent and the HVP sweep at 8, 64 and 192 candidates within a
+   stated tolerance of the float32 twin and as close to the float64 twin as
+   the float32 twin is), then each sweep's call and device time beside its
+   bytes bound;
    ``[receding]``, the example through
    ``run`` (Hamming 0) and ``run_fused``, both along the numpy step, then
    ``run_fused`` at horizon 32 under sync-debug mode "error";
@@ -195,6 +198,9 @@ FP32_FLOP_PER_S = 67e12
 # mostly empty board, both float32 sums sit a relative 4e-5 from float64
 # and 2e-5 from each other
 SOFT_TWIN_TOL, SOFT_F64_RATIO = 1e-4, 2.0
+# [soft] holds the adjoint sweeps to their twins at these candidates besides
+# [sqp]'s SQP_C and the line search's 3 * SQP_C
+SOFT_FEW_C = 8
 # the convolution layer's bench shapes (bench.py:366-460, 571-618;
 # benches/extra.py:764-809) and the calibration's
 CONV_B, IO_B = 4096, 1024
@@ -1655,12 +1661,13 @@ def soft_inputs(dev, problem, cands, seed=0):
 def soft_phase(dev, card, ms, plain_ms, dev_ms):
     """The soft-Life sweeps at the [sqp] shapes (64 candidates, horizon 32)
     against their plain twins on the same inputs: the forward bit for bit
-    (and at the line search's 192 candidates), the VJP on the cost's own
-    cotangent of the trajectory, the HVP sweep along a direction in the
-    control window; then each sweep's call and device time beside its
-    bound.  Fills ``ms``, ``plain_ms`` and ``dev_ms``; returns (max_abs_err,
-    bounds) by kernel."""
-    from lifeapi_tpu_torch.mpc import cost as cost_mod
+    (and at the line search's 192 candidates); the adjoint sweeps' launch
+    shapes (``soft_sweeps_report``), then the VJP on the cost's own
+    cotangent of the trajectory and the HVP sweep along a direction in the
+    control window at 8, 64 and 192 candidates (``soft_adjoint_checks``);
+    then each sweep's call and device time beside its bound at 64.  Fills
+    ``ms``, ``plain_ms`` and ``dev_ms``; returns (max_abs_err, bounds) by
+    kernel."""
     from lifeapi_tpu_torch.ops import soft_cuda
 
     problem = sqp_problem(dev, SQP_HORIZON)
@@ -1678,41 +1685,15 @@ def soft_phase(dev, card, ms, plain_ms, dev_ms):
           f"candidates, horizon {SQP_HORIZON} (controls read through the movedim view's "
           f"strides {tuple(controls.stride())})")
 
-    leaf = traj.detach().requires_grad_(True)
-    with torch.enable_grad():
-        total = cost_mod.soft_total(leaf[-1], leaf, controls, problem.target, problem.protected,
-                                    problem.weights)
-        (g_traj,) = torch.autograd.grad(total.sum(), leaf)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    w = torch.randn(controls.shape, generator=gen, device=dev) * problem.control_mask
-    vjp = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, tau)
-    vjp_p = soft_cuda.rollout_vjp_plain(p0, controls, traj, g_traj, tau, False)
-    vjp_64 = soft_cuda.rollout_vjp_plain(*(t.double() for t in (p0, controls, traj, g_traj)),
-                                         tau, False)
-    hvp = soft_cuda.rollout_hvp(p0, controls, traj, vjp_p[2], w, None, tau)
-    hvp_p = soft_cuda.rollout_hvp_plain(p0, controls, traj, vjp_p[2], w, None, tau, False)
-    hvp_64 = soft_cuda.rollout_hvp_plain(*(t.double() for t in (p0, controls, traj, vjp_p[2], w)),
-                                         None, tau, False)
-    for name, pairs in (("soft_rollout_vjp", (("g_u", 0), ("lam", 2))),
-                        ("soft_rollout_hvp", (("jw", 0), ("pu", 1), ("px", 2)))):
-        got, plain, plain64 = (vjp, vjp_p, vjp_64) if name == "soft_rollout_vjp" else \
-            (hvp, hvp_p, hvp_64)
-        err[name] = max(max_err(got[i], plain[i]) for _, i in pairs)
-        for what, i in pairs:
-            errs = candidate_errs(got[i], plain[i])
-            own = candidate_errs(got[i].double(), plain64[i])
-            twin = candidate_errs(plain[i].double(), plain64[i])
-            print(f"[soft] {name} {what}: a candidate's relative error, kernel against the "
-                  f"float32 twin median {float(errs.median()):.3g} largest {float(errs.max()):.3g} "
-                  f"(max_abs_err {max_err(got[i], plain[i]):.3g}); against the float64 twin, "
-                  f"kernel median {float(own.median()):.3g} largest {float(own.max()):.3g}, "
-                  f"float32 twin median {float(twin.median()):.3g} largest {float(twin.max()):.3g}")
-            check(float(errs.max()) <= SOFT_TWIN_TOL,
-                  f"[soft] {name} {what}: kernel != float32 twin within {SOFT_TWIN_TOL}")
-            check(all(float(f(own)) <= SOFT_F64_RATIO * float(f(twin)) + 1e-6
-                      for f in (torch.median, torch.max)),
-                  f"[soft] {name} {what}: kernel further from float64 than "
-                  f"{SOFT_F64_RATIO}x the float32 twin")
+    soft_sweeps_report(card)
+    err["soft_rollout_vjp"] = err["soft_rollout_hvp"] = 0.0
+    for cands in (SOFT_FEW_C, SQP_C, 3 * SQP_C):
+        p_c, c_c = (p0, controls) if cands == SQP_C else soft_inputs(dev, problem, cands, seed=2)
+        inputs, errs = soft_adjoint_checks(problem, p_c, c_c, card)
+        for name, e in errs.items():
+            err[name] = max(err[name], e)
+        if cands == SQP_C:
+            traj, g_traj, w, vjp = inputs
 
     calls = {"soft_rollout": (lambda: soft_cuda.rollout(p0, controls, tau),
                               lambda: soft_cuda.rollout_plain(p0, controls, tau)),
@@ -1739,6 +1720,85 @@ def soft_phase(dev, card, ms, plain_ms, dev_ms):
               f"{by_ops:.4f} ms by float32 operations, so {d / bounds[name][0]:.3g}x its bound; "
               f"plain twin {plain_ms[name]:.3f} ms ({card})")
     return err, bounds
+
+
+def soft_sweeps_report(card):
+    """The adjoint sweeps' launch shapes on this card: ptxas's registers and
+    spill bytes of each, and the threads, dynamic shared memory and
+    residency of its clusters of two CTAs.  Fails if either sweep spills."""
+    from lifeapi_tpu_torch.ops import _build, soft_cuda
+
+    rows = [(name, regs, spill) for name, regs, spill in
+            ptxas_report(_build.library_path().with_suffix(".log").read_text())
+            if name in ("soft_vjp_kernel", "soft_hvp_kernel")]
+    for name, regs, spill in rows:
+        print(f"[soft] ptxas: {name}: {regs} registers, {spill} bytes spill stores")
+    check(len(rows) == 2, f"[soft] expected the two adjoint sweeps, got {rows}")
+    check(all(spill == 0 for _, _, spill in rows), f"[soft] an adjoint sweep spills: {rows}")
+    for name in soft_cuda.SWEEP_KERNELS:
+        info = soft_cuda.sweep_info(name)
+        print(f"[soft] {name}: clusters of 2 CTAs a candidate, {info['threads']} threads and "
+              f"{info['shared']} bytes of dynamic shared memory a CTA, {info['ctas_per_sm']} "
+              f"CTA(s) an SM, {info['clusters']} clusters resident at once ({card})")
+
+
+def soft_adjoint_checks(problem, p0, controls, card):
+    """The VJP on the cost's own cotangent of the trajectory and the HVP
+    sweep along a direction in the control window, each launched once and
+    held to its float32 twin within SOFT_TWIN_TOL and to its float64 twin
+    within SOFT_F64_RATIO of the float32 twin, at ``controls``' candidates.
+    Returns ((traj, g_traj, w, the VJP's outputs), max_abs_err by kernel)."""
+    from lifeapi_tpu_torch.mpc import cost as cost_mod
+    from lifeapi_tpu_torch.ops import soft_cuda
+
+    tau, dev = problem.tau, controls.device
+    cands = controls.shape[1]
+    traj = soft_cuda.rollout(p0, controls, tau)
+    leaf = traj.detach().requires_grad_(True)
+    with torch.enable_grad():
+        total = cost_mod.soft_total(leaf[-1], leaf, controls, problem.target, problem.protected,
+                                    problem.weights)
+        (g_traj,) = torch.autograd.grad(total.sum(), leaf)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(controls.shape, generator=gen, device=dev) * problem.control_mask
+    launches = dict(soft_cuda.LAUNCHES)
+    vjp = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, tau)
+    vjp_p = soft_cuda.rollout_vjp_plain(p0, controls, traj, g_traj, tau, False)
+    vjp_64 = soft_cuda.rollout_vjp_plain(*(t.double() for t in (p0, controls, traj, g_traj)),
+                                         tau, False)
+    hvp = soft_cuda.rollout_hvp(p0, controls, traj, vjp_p[2], w, None, tau)
+    hvp_p = soft_cuda.rollout_hvp_plain(p0, controls, traj, vjp_p[2], w, None, tau, False)
+    hvp_64 = soft_cuda.rollout_hvp_plain(*(t.double() for t in (p0, controls, traj, vjp_p[2], w)),
+                                         None, tau, False)
+    torch.cuda.synchronize()
+    for name in ("soft_rollout_vjp", "soft_rollout_hvp"):
+        check(soft_cuda.LAUNCHES[name] == launches[name] + 1,
+              f"[soft] {name} at {cands} candidates: not one launch")
+    print(f"[soft] VJP and HVP sweeps at {cands} candidates x horizon {controls.shape[0]}: "
+          f"2 CTAs a candidate, {cands * 2} CTAs ({card})")
+    err = {}
+    for name, pairs in (("soft_rollout_vjp", (("g_u", 0), ("lam", 2))),
+                        ("soft_rollout_hvp", (("jw", 0), ("pu", 1), ("px", 2)))):
+        got, plain, plain64 = (vjp, vjp_p, vjp_64) if name == "soft_rollout_vjp" else \
+            (hvp, hvp_p, hvp_64)
+        err[name] = max(max_err(got[i], plain[i]) for _, i in pairs)
+        for what, i in pairs:
+            errs = candidate_errs(got[i], plain[i])
+            own = candidate_errs(got[i].double(), plain64[i])
+            twin = candidate_errs(plain[i].double(), plain64[i])
+            print(f"[soft] {name} {what} at {cands}: a candidate's relative error, kernel against "
+                  f"the float32 twin median {float(errs.median()):.3g} largest "
+                  f"{float(errs.max()):.3g} (max_abs_err {max_err(got[i], plain[i]):.3g}); against "
+                  f"the float64 twin, kernel median {float(own.median()):.3g} largest "
+                  f"{float(own.max()):.3g}, float32 twin median {float(twin.median()):.3g} largest "
+                  f"{float(twin.max()):.3g}")
+            check(float(errs.max()) <= SOFT_TWIN_TOL,
+                  f"[soft] {name} {what} at {cands}: kernel != float32 twin within {SOFT_TWIN_TOL}")
+            check(all(float(f(own)) <= SOFT_F64_RATIO * float(f(twin)) + 1e-6
+                      for f in (torch.median, torch.max)),
+                  f"[soft] {name} {what} at {cands}: kernel further from float64 than "
+                  f"{SOFT_F64_RATIO}x the float32 twin")
+    return (traj, g_traj, w, vjp), err
 
 
 def receding_phase(dev, card):

@@ -23,12 +23,16 @@ at 13 planes, and ``union_interacting(method="sparse")`` on the seven mask
 pairs of ``interaction_offsets`` over 1024 7-cell pairs (the whole call);
 and [11] and ``bitwise_or`` at 4096, [12] and the union again (``_l2``) with
 each call's inputs and outputs one of copies that together pass 100 MB, so
-that they come from device memory and not from the 50 MB L2.  Each peel
+that they come from device memory and not from the 50 MB L2; and the
+soft-Life rollout, VJP and HVP sweeps at 8, 64 and 192 candidates x
+horizon 32 (``soft_rollout_vjp_64`` etc.).  Each peel and sweep
 time has the SM clock read under it.  Prints one JSON line a
 tree; then, in one more process that loads every tree's package under a
 name of its own, the call times of that union and of
 ``interaction_offsets(method="sparse")`` on the same pairs, the trees timed
-in turns; then the card's name and power limit.
+in turns, and whether each tree's VJP and HVP sweeps give the first tree's
+outputs bit for bit on the same seeded inputs (with the largest absolute
+difference); then the card's name and power limit.
 """
 
 import importlib.util
@@ -40,6 +44,11 @@ from pathlib import Path
 import torch
 
 ROOT = Path(__file__).resolve().parent
+# the soft-Life sweeps at [sqp]'s horizon 32: fewer candidates than SMs,
+# [sqp]'s 64 and the line search's 192
+SOFT_C, SOFT_TAU = (8, 64, 192), 0.25
+SOFT_KERNELS = {"soft_rollout": "soft_rollout_kernel", "soft_rollout_vjp": "soft_vjp_kernel",
+                "soft_rollout_hvp": "soft_hvp_kernel"}
 # the peel at a batch where its bytes bound (100 MB, 0.030 ms) is above a
 # launch's fixed cost
 LARGE_B = 65536
@@ -128,6 +137,54 @@ def peel_cases(S, dev):
     return cases, floors
 
 
+def soft_case_inputs(dev, cands, seed=0):
+    """The adjoint sweeps' inputs at [sqp]'s shapes (horizon 32) for
+    ``cands`` candidates, from a seed, on the card: the start board, the
+    controls as ``soft_objective`` hands them over (a ``movedim`` view of
+    sigmoid of ``init_logits``'s draw inside a 10 x 10 window), a
+    trajectory cotangent, an HVP direction in the window, and the
+    trajectory and adjoints of the forward and VJP twins, so that every
+    tree's sweeps read the same tensors."""
+    import numpy as np
+
+    from lifeapi_tpu_torch.ops import soft_cuda
+
+    rng = np.random.default_rng(seed)
+    mask = np.zeros((64, 64), np.float32)
+    mask[36:46, 36:46] = 1.0
+    p0 = (rng.random((64, 64)) < 0.3).astype(np.float32)
+    logits = rng.normal(-3.0, 0.5, (cands, 32, 64, 64)).astype(np.float32)
+    controls = torch.from_numpy(mask / (1 + np.exp(-logits))).to(dev).movedim(-3, 0)
+    p0 = torch.from_numpy(p0).to(dev)
+    g_traj = torch.from_numpy(rng.standard_normal((32, cands, 64, 64), np.float32) * 1e-2).to(dev)
+    w = torch.from_numpy(rng.standard_normal((32, cands, 64, 64), np.float32) * mask).to(dev)
+    traj = soft_cuda.rollout_plain(p0, controls, SOFT_TAU)
+    lam = soft_cuda.rollout_vjp_plain(p0, controls, traj, g_traj, SOFT_TAU, False)[2]
+    return p0, controls, traj, g_traj, w, lam
+
+
+def soft_cases(dev):
+    """{name: (call, kernel pattern, counter, calls a trace, whole call)} of
+    the three soft-Life sweeps at SOFT_C candidates x horizon 32."""
+    from lifeapi_tpu_torch.ops import soft_cuda
+
+    cases = {}
+    for cands in SOFT_C:
+        calls = soft_calls(soft_cuda, *soft_case_inputs(dev, cands))
+        for name, fn in calls.items():
+            cases[f"{name}_{cands}"] = (fn, SOFT_KERNELS[name], name, 20, False)
+    return cases
+
+
+def soft_calls(soft_cuda, p0, controls, traj, g_traj, w, lam):
+    """{counter: call} of the three sweeps on these inputs."""
+    return {"soft_rollout": lambda: soft_cuda.rollout(p0, controls, SOFT_TAU),
+            "soft_rollout_vjp": lambda: soft_cuda.rollout_vjp(p0, controls, traj, g_traj,
+                                                              SOFT_TAU),
+            "soft_rollout_hvp": lambda: soft_cuda.rollout_hvp(p0, controls, traj, lam, w, None,
+                                                              SOFT_TAU)}
+
+
 def measure(tree):
     import chip_smoke as S  # this checkout's, before the tree goes on the path
 
@@ -179,22 +236,52 @@ def measure(tree):
         out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
     for name, fn in floors.items():
         out[name], clocks[name] = S.operator_device_ms(fn), S.sm_clock_under(fn)
+    for name, (fn, kernel, counter, n, whole) in soft_cases(dev).items():
+        out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
     return {"tree": str(tree), "device_ms": out, "sm_clock_mhz_under_rollout": mhz,
             "sm_clock_mhz": clocks}
 
 
-def load_tree(tree, k):
-    """The lifeapi_tpu_torch package of ``tree`` imported as ``tree<k>``, so
-    several trees' packages live in one process (the package imports itself
-    by relative imports only)."""
+def load_tree(tree, k, module="core.convolve"):
+    """``module`` of the lifeapi_tpu_torch package of ``tree``, the package
+    imported as ``tree<k>``, so several trees' packages live in one process
+    (the package imports itself by relative imports only)."""
     name = f"tree{k}"
-    init = Path(tree) / "lifeapi_tpu_torch" / "__init__.py"
-    spec = importlib.util.spec_from_file_location(name, init,
-                                                  submodule_search_locations=[str(init.parent)])
-    module = importlib.util.module_from_spec(spec)
-    sys.modules[name] = module
-    spec.loader.exec_module(module)
-    return importlib.import_module(f"{name}.core.convolve")
+    if name not in sys.modules:
+        init = Path(tree) / "lifeapi_tpu_torch" / "__init__.py"
+        spec = importlib.util.spec_from_file_location(
+            name, init, submodule_search_locations=[str(init.parent)])
+        package = importlib.util.module_from_spec(spec)
+        sys.modules[name] = package
+        spec.loader.exec_module(package)
+    return importlib.import_module(f"{name}.{module}")
+
+
+def soft_outputs_agree(trees):
+    """Each tree's VJP and HVP sweeps on the same seeded inputs at each of
+    SOFT_C candidates, against the first tree's: whether every output is
+    equal bit for bit, the largest absolute difference, and that over the
+    first tree's largest magnitude."""
+    dev = torch.device("cuda")
+    sweeps = [load_tree(tree, k, "ops.soft_cuda") for k, tree in enumerate(trees)]
+    out = {}
+    for cands in SOFT_C:
+        p0, controls, traj, g_traj, w, lam = soft_case_inputs(dev, cands, seed=1)
+        results = []
+        for soft_cuda in sweeps:
+            g_u, _, lam_k = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, SOFT_TAU)
+            results.append((g_u, lam_k, *soft_cuda.rollout_hvp(p0, controls, traj, lam, w, None,
+                                                               SOFT_TAU)[:3]))
+        torch.cuda.synchronize()
+        for k, got in enumerate(results[1:], start=1):
+            pairs = list(zip(("g_u", "lam", "jw", "pu", "px"), got, results[0]))
+            out[f"{cands} tree{k} vs tree0"] = {
+                "bit_equal": {what: bool(torch.equal(a, b)) for what, a, b in pairs},
+                "max_abs_diff": {what: float((a.double() - b.double()).abs().max())
+                                 for what, a, b in pairs},
+                "max_rel_diff": {what: float((a.double() - b.double()).abs().max()
+                                             / b.double().abs().max()) for what, a, b in pairs}}
+    return out
 
 
 def call_turns(trees):
@@ -227,7 +314,8 @@ def call_turns(trees):
             end.synchronize()
             samples[name].append(start.elapsed_time(end))
     return {"trees": [str(t) for t in trees],
-            "call_ms": {name: statistics.median(v) for name, v in samples.items()}}
+            "call_ms": {name: statistics.median(v) for name, v in samples.items()},
+            "soft_sweeps_against_tree0": soft_outputs_agree(trees)}
 
 
 def main():

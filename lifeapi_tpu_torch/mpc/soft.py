@@ -16,7 +16,9 @@ The rollout and its derivatives are the fused sweeps of
 their plain twins on the CPU), which also holds the per-generation map
 re-exported here.  :func:`soft_rollout` wraps them in autograd Functions
 whose backward is a sweep too, so a gradient and a Hessian-vector product by
-double backward stay a few launches, whatever the horizon.  Memory: the
+double backward stay a few launches, whatever the horizon.  Unlike JAX's
+``scan``, which differentiates to any order, the rollout differentiates
+twice: a third derivative raises.  Memory: the
 rollout keeps its trajectory for the backward, and a VJP kept for a double
 backward its adjoints, one ``[T, C, 64, 64]`` float32 array each; the JAX
 rollout rematerialises each step instead.
@@ -57,7 +59,9 @@ class SoftRolloutVJP(torch.autograd.Function):
     It takes ``traj`` as an input: its backward returns the partials with
     the states held fixed, and the states' own dependence on the controls
     reaches them through :class:`SoftRollout` again, along with the cost's
-    curvature."""
+    curvature.  That backward, the HVP sweep, is differentiable once only:
+    a third derivative through :func:`soft_rollout` raises (each further
+    order would need a sweep of its own, and no caller takes one)."""
 
     @staticmethod
     def forward(ctx, p0, controls, traj, g_traj, tau, want_p0):
@@ -71,12 +75,47 @@ class SoftRolloutVJP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, w_u, w_p0):
         p0, controls, traj, lam = ctx.saved_tensors
-        w_u = torch.zeros_like(controls) if w_u is None else w_u
-        jw, pu, px, px0 = soft_cuda.rollout_hvp(
-            p0, controls, traj, lam, soft_cuda.over_batch(w_u, traj.shape[1:-2]), w_p0, ctx.tau,
-            ctx.needs_input_grad[0])
-        return (None if px0 is None else px0.sum_to_size(p0.shape),
-                soft_cuda.sum_over_batch(pu, controls.shape), px, jw, None, None)
+        with torch.no_grad():
+            w = torch.zeros_like(controls) if w_u is None else w_u
+            jw, pu, px, px0 = soft_cuda.rollout_hvp(
+                p0, controls, traj, lam, soft_cuda.over_batch(w, traj.shape[1:-2]), w_p0,
+                ctx.tau, ctx.needs_input_grad[0])
+            grads = (None if px0 is None else px0.sum_to_size(p0.shape),
+                     soft_cuda.sum_over_batch(pu, controls.shape), px, jw)
+        return (*_differentiable_no_further(grads, (p0, controls, traj, lam, w_u, w_p0)),
+                None, None)
+
+
+class _ThirdDerivative(torch.autograd.Function):
+    """Aliases of the HVP sweep's first ``n`` tensors on a node that raises
+    when differentiated.  The tensors after them, the sweep's inputs that
+    need a gradient, tie the node to the graph, so that a derivative
+    through the aliases reaches it."""
+
+    @staticmethod
+    def forward(ctx, n, *tensors):
+        return tuple(t.view_as(t) for t in tensors[:n])
+
+    @staticmethod
+    def backward(ctx, *_):
+        raise RuntimeError("soft_rollout differentiates twice at most: its second derivative, "
+                           "the HVP sweep, has no derivative of its own")
+
+
+def _differentiable_no_further(grads, inputs):
+    """``grads`` as they are, or, where the backward builds a graph
+    (``create_graph``) and any input of it needs a gradient, aliases on a
+    node that raises when differentiated: the sweep's outputs carry no
+    graph, and a graph of the twin would miss the adjoints' dependence on
+    the controls, so a third derivative would come out silently wrong.
+    (``once_differentiable`` raises only where the incoming cotangents
+    themselves need a gradient, which an HVP's direction does not.)"""
+    needs = [t for t in inputs if t is not None and t.requires_grad]
+    if not torch.is_grad_enabled() or not needs:
+        return grads
+    given = [g for g in grads if g is not None]
+    raising = iter(_ThirdDerivative.apply(len(given), *given, *needs))
+    return tuple(None if g is None else next(raising) for g in grads)
 
 
 def soft_rollout(p0, controls, tau=0.2):

@@ -54,6 +54,7 @@ SIGNATURES = {
     "life_soft_rollout_vjp": (_P, _L, _P, _L, _L, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "life_soft_rollout_hvp": (_P, _L, _P, _L, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                               _I, _I, _F, _P),
+    "life_soft_sweep_info": (_I, _P),
 }
 
 _library = None

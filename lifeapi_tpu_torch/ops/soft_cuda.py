@@ -36,9 +36,13 @@ derivatives in q and c.  The three sweeps:
   back through the rollout's VJP.
 
 On a CUDA tensor each entry point launches its kernel in
-``csrc/soft_life.cu`` on the current stream: one block of 1024 threads a
-candidate, 4 cells a thread, the stencil's rows exchanged through shared
-memory, the horizon looped inside the kernel.  The forward kernel computes
+``csrc/soft_life.cu`` on the current stream, the horizon looped inside
+the kernel, the stencil's rows exchanged through shared memory.  The
+forward is one block of 1024 threads a candidate, 4 cells a thread.  The VJP
+and HVP sweeps take their inputs by TMA copies into a ring of stages in
+shared memory, and split a candidate over a thread-block cluster of two
+CTAs of 1024 threads, 2 cells a thread, which store the rows at their
+edges into each other's shared memory.  The forward kernel computes
 in the eager ops' order with their roundings, so it equals
 :func:`rollout_plain` bit for bit on the card.  On a CPU tensor each entry
 takes its plain twin, the same sweep written per generation in plain
@@ -305,6 +309,19 @@ def _grid(batch):
     if not 0 < c < 2**31:
         raise ValueError(f"{c} candidates out of range")
     return c
+
+
+SWEEP_KERNELS = {"rollout_vjp": 0, "rollout_hvp": 1}
+
+
+def sweep_info(name):
+    """How the current CUDA device runs the ``name`` sweep (``rollout_vjp``
+    or ``rollout_hvp``), two CTAs a candidate: {threads and shared (dynamic
+    bytes) a CTA, as launched; ctas_per_sm and clusters (resident at once
+    over the card), from the runtime's occupancy calculator}."""
+    info = (ctypes.c_int * 4)()
+    _launch(_build.library().life_soft_sweep_info, SWEEP_KERNELS[name], info)
+    return dict(zip(("threads", "shared", "ctas_per_sm", "clusters"), info))
 
 
 def rollout(p0, controls, tau):

@@ -2,6 +2,8 @@
 the compiler's register report, the SASS listing and the profiler's
 traces.  No compiler or card is needed."""
 
+import ctypes
+import re
 import shutil
 from types import SimpleNamespace
 
@@ -32,6 +34,37 @@ def test_build_key_covers_sources_and_shared_headers(tmp_path):
         path = csrc / name
         path.write_text(path.read_text() + "\n// edited\n")
         assert _build.library_file(csrc) != before, name
+
+
+def _launchers():
+    """{name: (return type, [parameter types])} of every ``extern "C"``
+    launcher in the kernels' sources."""
+    found = {}
+    for source in sorted(_build.CSRC.glob("*.cu")):
+        for ret, name, params in re.findall(r'extern "C" (\w+) (\w+)\(([^)]*)\)',
+                                            source.read_text()):
+            assert name not in found, name
+            found[name] = (ret, [" ".join(p.split()[:-1]) for p in params.split(",")])
+    return found
+
+
+def _ctype(c_type):
+    if "*" in c_type or c_type == "cudaStream_t":
+        return ctypes.c_void_p
+    return {"int": ctypes.c_int, "long long": ctypes.c_longlong, "float": ctypes.c_float}[c_type]
+
+
+def test_every_launcher_has_a_signature():
+    assert sorted(_launchers()) == sorted(_build.SIGNATURES)
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_launcher_signature_matches_its_declaration(name):
+    """The ctypes argument types the library is loaded with are those of
+    the launcher's C declaration, one for one."""
+    ret, params = _launchers()[name]
+    assert ret == "cudaError_t"
+    assert [_ctype(t) for t in params] == list(_build.SIGNATURES[name])
 
 
 def test_ptxas_report_names_each_kernel():

@@ -940,6 +940,95 @@ def _as_accurate(got, want32, want64):
         (own, twin)
 
 
+def _as_accurate_or_zero(got, want32, want64):
+    """``_as_accurate``, or all zero where the float64 twin is (``px`` at
+    horizon 1: the last state feeds no generation)."""
+    if not want64.any():
+        assert not got.any()
+    else:
+        _as_accurate(got, want32, want64)
+
+
+def _soft_adjoints(device, cands, horizon, want_p0, seed=0):
+    """The VJP and HVP sweeps (each one launch) against their float32 and
+    float64 twins on the card, at ``cands`` candidates and ``horizon``;
+    with ``want_p0`` also the start board's cotangent and a ``w_p0``."""
+    p0, controls = _soft_inputs(device, cands, horizon, seed)
+    traj = soft_cuda.rollout(p0, controls, SOFT_TAU)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    g_traj = torch.randn(traj.shape, generator=gen, device=device) * 1e-2
+    w = torch.randn(controls.shape, generator=gen, device=device) * (controls > 0)
+    w_p0 = torch.randn(p0.shape, generator=gen, device=device) if want_p0 else None
+    args = (p0, controls, traj, g_traj)
+    got, want32 = _soft_pair("rollout_vjp", (*args, SOFT_TAU, want_p0))
+    want64 = soft_cuda.rollout_vjp_plain(*(a.double() for a in args), SOFT_TAU, want_p0)
+    lam32 = want32[2]
+    for g, e32, e64 in zip(got, want32, want64):
+        _as_accurate_or_none(g, e32, e64)
+    args = (p0, controls, traj, lam32, w, w_p0)
+    got, want32 = _soft_pair("rollout_hvp", (*args, SOFT_TAU, want_p0))
+    want64 = soft_cuda.rollout_hvp_plain(*(None if a is None else a.double() for a in args),
+                                         SOFT_TAU, want_p0)
+    for g, e32, e64 in zip(got, want32, want64):
+        _as_accurate_or_none(g, e32, e64)
+
+
+def _as_accurate_or_none(got, want32, want64):
+    """``_as_accurate_or_zero`` on generation-major outputs and on the start
+    board's ``[C, 64, 64]``; None where the twin gives None."""
+    if want64 is None:
+        assert got is None
+        return
+    _as_accurate_or_zero(*(t if t.dim() == 4 else t[None] for t in (got, want32, want64)))
+
+
+@pytest.mark.parametrize("want_p0", [False, True])
+@pytest.mark.parametrize("horizon", [1, 2, 3, 32])
+@pytest.mark.parametrize("cands", [1, 8, 64, 132, 192])
+def test_soft_adjoint_sweeps_at_every_launch_shape(device, cands, horizon, want_p0):
+    """Clusters of two CTAs a candidate in under one wave of the SMs (1, 8,
+    64 candidates) and in several (132, 192), rings that wrap at horizons
+    1-3 and 32, the start board's cotangents on and off, the controls
+    through the movedim view."""
+    _soft_adjoints(device, cands, horizon, want_p0)
+
+
+@pytest.mark.parametrize("cands", [8, 64])
+def test_soft_adjoint_sweeps_off_the_ring_stages(device, cands):
+    """A horizon that is no multiple of the ring's stages, on other seeds."""
+    _soft_adjoints(device, cands, 5, True, seed=2)
+
+
+def test_soft_sweeps_never_spill(device):
+    """ptxas gives both adjoint sweeps their registers without spills, at
+    most 64 a thread of 1024; the runtime finds room for a CTA an SM and
+    for the 64 candidates' clusters of two in one wave."""
+    import chip_smoke
+    from lifeapi_tpu_torch.ops import _build
+
+    report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    sweeps = {name: (regs, spill) for name, regs, spill in report
+              if name in ("soft_vjp_kernel", "soft_hvp_kernel")}
+    assert sorted(sweeps) == ["soft_hvp_kernel", "soft_vjp_kernel"]
+    assert all(regs <= 64 and spill == 0 for regs, spill in sweeps.values()), sweeps
+    for name in ("rollout_vjp", "rollout_hvp"):
+        info = soft_cuda.sweep_info(name)
+        assert info["threads"] == 1024 and info["ctas_per_sm"] >= 1, (name, info)
+        assert info["clusters"] >= 64, (name, info)
+
+
+def test_soft_third_derivative_raises_on_the_card(device):
+    from lifeapi_tpu_torch.mpc import soft
+
+    p0, controls = _soft_inputs(device, 2, horizon=3)
+    u = controls.detach().clone().requires_grad_(True)
+    _, traj = soft.soft_rollout(p0, u, 0.5)
+    (g,) = torch.autograd.grad((traj ** 3).sum(), u, create_graph=True)
+    (h,) = torch.autograd.grad((g * controls).sum(), u, create_graph=True)
+    with pytest.raises(RuntimeError, match="differentiates twice at most"):
+        torch.autograd.grad(h.sum(), u)
+
+
 def test_soft_adjoint_kernels_match_twins(device):
     """The VJP and the HVP sweep at 64 candidates and horizon 32 against
     their twins on the card, in float32 and in float64."""
@@ -974,7 +1063,8 @@ def test_soft_kernels_read_nothing_back_and_refuse_float64(device):
 
 
 def test_soft_kernels_take_unaligned_inputs(device):
-    """Controls and cotangents 4 bytes off 16 are copied, not refused."""
+    """Controls and cotangents 4 bytes off 16 are copied, not refused, by
+    every sweep."""
     p0, controls = _soft_inputs(device, 5, horizon=4)
     store = torch.empty(controls.numel() + 1, device=device)
     odd = store[1:].view(controls.shape)
@@ -982,5 +1072,10 @@ def test_soft_kernels_take_unaligned_inputs(device):
     got, want = _soft_pair("rollout", (p0, odd, SOFT_TAU))
     assert torch.equal(got, want)
     g = torch.empty(got.numel() + 1, device=device)[1:].view(got.shape).copy_(got)
-    (g_u, _, _), (g_u_p, _, _) = _soft_pair("rollout_vjp", (p0, odd, got, g, SOFT_TAU, False))
+    (g_u, _, lam), (g_u_p, _, lam_p) = _soft_pair("rollout_vjp",
+                                                  (p0, odd, got, g, SOFT_TAU, False))
     assert _candidate_errs(g_u, g_u_p).max() <= 1e-4
+    w = torch.empty(got.numel() + 1, device=device)[1:].view(got.shape).copy_(g)
+    hvp, hvp_p = _soft_pair("rollout_hvp", (p0, odd, got, lam_p, w, None, SOFT_TAU, False))
+    for k in range(3):
+        assert _candidate_errs(hvp[k], hvp_p[k]).max() <= 1e-4

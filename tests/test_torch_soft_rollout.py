@@ -169,6 +169,42 @@ def test_gradcheck_and_gradgradcheck_in_float64():
     assert torch.autograd.gradgradcheck(objective, (theta, phi))
 
 
+def _cubic_hvp(rollout, create_graph=False):
+    """(u, p0 leaves, the direction (v, v0), the HVP (h, h0)) of
+    f = sum traj^3 at T=3, C=2, tau 0.5, in float64, from a numpy seed."""
+    p0, u = _inputs(13, np.float64, steps=3, cands=2)
+    rng = np.random.default_rng(14)
+    v, v0 = (torch.from_numpy(rng.standard_normal(a.shape)) for a in (u, p0))
+    uu, pp = _leaves(u, p0)
+    traj = rollout(pp, uu)
+    g, g0 = torch.autograd.grad((traj ** 3).sum(), (uu, pp), create_graph=True)
+    h, h0 = torch.autograd.grad((g * v).sum() + (g0 * v0).sum(), (uu, pp),
+                                create_graph=create_graph)
+    return uu, pp, h, h0
+
+
+def test_hvp_of_a_cubic_equals_the_eager_loops_in_float64():
+    """The HVP sweep's second derivative against double backward of the
+    eager loop, float64 (rtol 1e-9: the sweep's closed-form partials and
+    autograd round differently)."""
+    *_, h, h0 = _cubic_hvp(lambda a, b: soft.soft_rollout(a, b, 0.5)[1])
+    *_, e, e0 = _cubic_hvp(lambda a, b: _eager(a, b, 0.5)[0])
+    torch.testing.assert_close(h, e, rtol=1e-9, atol=1e-12 * float(e.abs().max()))
+    torch.testing.assert_close(h0, e0, rtol=1e-9, atol=1e-12 * float(e0.abs().max()))
+
+
+@pytest.mark.parametrize("wrt", ["controls", "p0"])
+def test_a_third_derivative_through_soft_rollout_raises(wrt):
+    """The HVP sweep has no derivative: a third ``autograd.grad`` through a
+    second taken with ``create_graph`` raises instead of returning a
+    number without the adjoints' dependence on the controls."""
+    uu, pp, h, h0 = _cubic_hvp(lambda a, b: soft.soft_rollout(a, b, 0.5)[1],
+                               create_graph=True)
+    w = torch.from_numpy(np.random.default_rng(15).standard_normal(h.shape))
+    with pytest.raises(RuntimeError, match="differentiates twice at most"):
+        torch.autograd.grad((h * w).sum() + h0.sum(), uu if wrt == "controls" else pp)
+
+
 def _problem(horizon=4):
     block = B.move(rle.parse("2o$2o!", device="cpu"), 10, 10)
     mask = torch.zeros((64, 64), dtype=torch.bool)
