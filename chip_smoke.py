@@ -361,6 +361,9 @@ PF_REPLICAS, PF_ITERS = 256, 192  # examples/portfolio_minimise.py's defaults
 # horizon 32, the reachability prefilter over a glider at every offset
 # (candidates, steps, those held to the CPU)
 SQP_C, SQP_HORIZON, SQP_ITERS = 64, 32, 100
+# [soft] holds the forward to its twin at these candidates: fewer clusters
+# than SMs, [sqp]'s, as many candidates as SMs (264 CTAs), the line search's
+SOFT_ROLLOUT_C = (SOFT_FEW_C, SQP_C, 132, 3 * SQP_C)
 RECEDING_H32 = SYM_HORIZON = 32
 REACH_C, REACH_T, REACH_CPU = 4096, 32, 256
 # the C2even problem's draw of tests/test_symmetric_mpc.py on its control
@@ -1660,29 +1663,32 @@ def soft_inputs(dev, problem, cands, seed=0):
 
 def soft_phase(dev, card, ms, plain_ms, dev_ms):
     """The soft-Life sweeps at the [sqp] shapes (64 candidates, horizon 32)
-    against their plain twins on the same inputs: the forward bit for bit
-    (and at the line search's 192 candidates); the adjoint sweeps' launch
-    shapes (``soft_sweeps_report``), then the VJP on the cost's own
-    cotangent of the trajectory and the HVP sweep along a direction in the
-    control window at 8, 64 and 192 candidates (``soft_adjoint_checks``);
-    then each sweep's call and device time beside its bound at 64.  Fills
-    ``ms``, ``plain_ms`` and ``dev_ms``; returns (max_abs_err, bounds) by
-    kernel."""
+    against their plain twins on the same inputs: the forward bit for bit at
+    SOFT_ROLLOUT_C candidates (among them the line search's 192); the three
+    sweeps' launch shapes (``soft_sweeps_report``), then the VJP on the
+    cost's own cotangent of the trajectory and the HVP sweep along a
+    direction in the control window at 8, 64 and 192 candidates
+    (``soft_adjoint_checks``); then each sweep's call and device time beside
+    its bound at 64, and the forward's at 192.  Fills ``ms``, ``plain_ms``
+    and ``dev_ms``; returns (max_abs_err, bounds) by kernel."""
     from lifeapi_tpu_torch.ops import soft_cuda
 
     problem = sqp_problem(dev, SQP_HORIZON)
     tau = problem.tau
     p0, controls = soft_inputs(dev, problem, SQP_C)
-    err = {}
-    traj = soft_cuda.rollout(p0, controls, tau)
-    want = soft_cuda.rollout_plain(p0, controls, tau)
-    err["soft_rollout"] = max_err(traj, want)
-    check(torch.equal(traj, want), "[soft] forward sweep != its plain twin")
-    p_ls, c_ls = soft_inputs(dev, problem, 3 * SQP_C, seed=1)
-    check(torch.equal(soft_cuda.rollout(p_ls, c_ls, tau), soft_cuda.rollout_plain(p_ls, c_ls, tau)),
-          "[soft] forward sweep != its plain twin at the line search's candidates")
-    print(f"[soft] forward sweep == plain twin bit for bit at {SQP_C} and {3 * SQP_C} "
-          f"candidates, horizon {SQP_HORIZON} (controls read through the movedim view's "
+    err = {"soft_rollout": 0.0}
+    for seed, cands in enumerate(SOFT_ROLLOUT_C):
+        p_c, c_c = (p0, controls) if cands == SQP_C else soft_inputs(dev, problem, cands, seed)
+        before = soft_cuda.LAUNCHES["soft_rollout"]
+        traj = soft_cuda.rollout(p_c, c_c, tau)
+        check(soft_cuda.LAUNCHES["soft_rollout"] == before + 1,
+              f"[soft] forward sweep at {cands} candidates: not one launch")
+        want = soft_cuda.rollout_plain(p_c, c_c, tau)
+        err["soft_rollout"] = max(err["soft_rollout"], max_err(traj, want))
+        check(torch.equal(traj, want), f"[soft] forward sweep != its plain twin at {cands} "
+              f"candidates")
+    print(f"[soft] forward sweep == plain twin bit for bit at {SOFT_ROLLOUT_C} candidates, "
+          f"horizon {SQP_HORIZON}, one launch each (controls read through the movedim view's "
           f"strides {tuple(controls.stride())})")
 
     soft_sweeps_report(card)
@@ -1719,22 +1725,32 @@ def soft_phase(dev, card, ms, plain_ms, dev_ms):
               f"a cell-generation, {SOFT_BOARDS_MOVED[name] * cells * 4 / 1e6:.1f} MB) and "
               f"{by_ops:.4f} ms by float32 operations, so {d / bounds[name][0]:.3g}x its bound; "
               f"plain twin {plain_ms[name]:.3f} ms ({card})")
+    # the forward at the line search's candidates, for the record only
+    p_ls, c_ls = soft_inputs(dev, problem, 3 * SQP_C, seed=1)
+    kernel_fn = lambda: soft_cuda.rollout(p_ls, c_ls, tau)  # noqa: E731
+    call, plain = paired_ms(kernel_fn, lambda: soft_cuda.rollout_plain(p_ls, c_ls, tau), reps=10)
+    d, mhz = device_ms_at(kernel_fn, SOFT_KERNELS["soft_rollout"], "soft_rollout")
+    by_bytes = SOFT_BOARDS_MOVED["soft_rollout"] * 3 * cells * 4 / HBM_BYTES_PER_S * 1e3
+    print(f"[soft] soft_rollout ({SOFT_KERNELS['soft_rollout']}), {3 * SQP_C} candidates x "
+          f"horizon {SQP_HORIZON}: call {call:.4f} ms, on the device {d:.4f} ms (SM clock "
+          f"{mhz} MHz), bound {by_bytes:.4f} ms by bytes, so {d / by_bytes:.3g}x its bound; "
+          f"plain twin {plain:.3f} ms ({card})")
     return err, bounds
 
 
 def soft_sweeps_report(card):
-    """The adjoint sweeps' launch shapes on this card: ptxas's registers and
+    """The three sweeps' launch shapes on this card: ptxas's registers and
     spill bytes of each, and the threads, dynamic shared memory and
-    residency of its clusters of two CTAs.  Fails if either sweep spills."""
+    residency of its clusters of two CTAs.  Fails if a sweep spills."""
     from lifeapi_tpu_torch.ops import _build, soft_cuda
 
     rows = [(name, regs, spill) for name, regs, spill in
             ptxas_report(_build.library_path().with_suffix(".log").read_text())
-            if name in ("soft_vjp_kernel", "soft_hvp_kernel")]
+            if name in SOFT_KERNELS.values()]
     for name, regs, spill in rows:
         print(f"[soft] ptxas: {name}: {regs} registers, {spill} bytes spill stores")
-    check(len(rows) == 2, f"[soft] expected the two adjoint sweeps, got {rows}")
-    check(all(spill == 0 for _, _, spill in rows), f"[soft] an adjoint sweep spills: {rows}")
+    check(len(rows) == 3, f"[soft] expected the three sweeps, got {rows}")
+    check(all(spill == 0 for _, _, spill in rows), f"[soft] a sweep spills: {rows}")
     for name in soft_cuda.SWEEP_KERNELS:
         info = soft_cuda.sweep_info(name)
         print(f"[soft] {name}: clusters of 2 CTAs a candidate, {info['threads']} threads and "

@@ -30,9 +30,9 @@ time has the SM clock read under it.  Prints one JSON line a
 tree; then, in one more process that loads every tree's package under a
 name of its own, the call times of that union and of
 ``interaction_offsets(method="sparse")`` on the same pairs, the trees timed
-in turns, and whether each tree's VJP and HVP sweeps give the first tree's
-outputs bit for bit on the same seeded inputs (with the largest absolute
-difference); then the card's name and power limit.
+in turns, and whether each tree's three soft-Life sweeps give the first
+tree's outputs bit for bit on the same seeded inputs (with the largest
+absolute difference); then the card's name and power limit.
 """
 
 import importlib.util
@@ -258,10 +258,10 @@ def load_tree(tree, k, module="core.convolve"):
 
 
 def soft_outputs_agree(trees):
-    """Each tree's VJP and HVP sweeps on the same seeded inputs at each of
-    SOFT_C candidates, against the first tree's: whether every output is
-    equal bit for bit, the largest absolute difference, and that over the
-    first tree's largest magnitude."""
+    """Each tree's three sweeps on the same seeded inputs at each of SOFT_C
+    candidates, against the first tree's: whether every output is equal bit
+    for bit, the largest absolute difference, and that over the first
+    tree's largest magnitude."""
     dev = torch.device("cuda")
     sweeps = [load_tree(tree, k, "ops.soft_cuda") for k, tree in enumerate(trees)]
     out = {}
@@ -270,11 +270,12 @@ def soft_outputs_agree(trees):
         results = []
         for soft_cuda in sweeps:
             g_u, _, lam_k = soft_cuda.rollout_vjp(p0, controls, traj, g_traj, SOFT_TAU)
-            results.append((g_u, lam_k, *soft_cuda.rollout_hvp(p0, controls, traj, lam, w, None,
-                                                               SOFT_TAU)[:3]))
+            results.append((soft_cuda.rollout(p0, controls, SOFT_TAU), g_u, lam_k,
+                            *soft_cuda.rollout_hvp(p0, controls, traj, lam, w, None,
+                                                   SOFT_TAU)[:3]))
         torch.cuda.synchronize()
         for k, got in enumerate(results[1:], start=1):
-            pairs = list(zip(("g_u", "lam", "jw", "pu", "px"), got, results[0]))
+            pairs = list(zip(("traj", "g_u", "lam", "jw", "pu", "px"), got, results[0]))
             out[f"{cands} tree{k} vs tree0"] = {
                 "bit_equal": {what: bool(torch.equal(a, b)) for what, a, b in pairs},
                 "max_abs_diff": {what: float((a.double() - b.double()).abs().max())

@@ -37,11 +37,10 @@ derivatives in q and c.  The three sweeps:
 
 On a CUDA tensor each entry point launches its kernel in
 ``csrc/soft_life.cu`` on the current stream, the horizon looped inside
-the kernel, the stencil's rows exchanged through shared memory.  The
-forward is one block of 1024 threads a candidate, 4 cells a thread.  The VJP
-and HVP sweeps take their inputs by TMA copies into a ring of stages in
-shared memory, and split a candidate over a thread-block cluster of two
-CTAs of 1024 threads, 2 cells a thread, which store the rows at their
+the kernel, the stencil's rows exchanged through shared memory.  The three
+sweeps share one design: their inputs arrive by TMA copies into a ring of
+stages in shared memory, and a candidate splits over a thread-block cluster
+of two CTAs of 1024 threads, 2 cells a thread, which store the rows at their
 edges into each other's shared memory.  The forward kernel computes
 in the eager ops' order with their roundings, so it equals
 :func:`rollout_plain` bit for bit on the card.  On a CPU tensor each entry
@@ -311,14 +310,15 @@ def _grid(batch):
     return c
 
 
-SWEEP_KERNELS = {"rollout_vjp": 0, "rollout_hvp": 1}
+SWEEP_KERNELS = {"rollout": 0, "rollout_vjp": 1, "rollout_hvp": 2}
 
 
 def sweep_info(name):
-    """How the current CUDA device runs the ``name`` sweep (``rollout_vjp``
-    or ``rollout_hvp``), two CTAs a candidate: {threads and shared (dynamic
-    bytes) a CTA, as launched; ctas_per_sm and clusters (resident at once
-    over the card), from the runtime's occupancy calculator}."""
+    """How the current CUDA device runs the ``name`` sweep (``rollout``,
+    ``rollout_vjp`` or ``rollout_hvp``), two CTAs a candidate: {threads and
+    shared (dynamic bytes) a CTA, as launched; ctas_per_sm and clusters
+    (resident at once over the card), from the runtime's occupancy
+    calculator}."""
     info = (ctypes.c_int * 4)()
     _launch(_build.library().life_soft_sweep_info, SWEEP_KERNELS[name], info)
     return dict(zip(("threads", "shared", "ctas_per_sm", "clusters"), info))

@@ -920,10 +920,15 @@ def _soft_pair(name, args):
     return got, getattr(soft_cuda, f"{name}_plain")(*args)
 
 
-@pytest.mark.parametrize("cands", [1, 64, 192])
-def test_soft_rollout_kernel_equals_twin_bit_for_bit(device, cands):
-    p0, controls = _soft_inputs(device, cands)
-    assert controls.stride(1) == 32 * 4096  # read in place through its strides
+@pytest.mark.parametrize("horizon", [1, 2, 3, 5, 32])
+@pytest.mark.parametrize("cands", [1, 8, 64, 132, 192])
+def test_soft_rollout_kernel_equals_twin_bit_for_bit(device, cands, horizon):
+    """Clusters of two CTAs a candidate in under one wave of the SMs (1, 8,
+    64 candidates) and in several (132, 192), rings that wrap at horizons
+    1-3, 5 and 32, the controls through the movedim view: one launch, equal
+    to the twin bit for bit."""
+    p0, controls = _soft_inputs(device, cands, horizon)
+    assert controls.stride(1) == horizon * 4096  # read in place through its strides
     got, want = _soft_pair("rollout", (p0, controls, SOFT_TAU))
     assert got.shape == want.shape and torch.equal(got, want)
 
@@ -1000,18 +1005,18 @@ def test_soft_adjoint_sweeps_off_the_ring_stages(device, cands):
 
 
 def test_soft_sweeps_never_spill(device):
-    """ptxas gives both adjoint sweeps their registers without spills, at
-    most 64 a thread of 1024; the runtime finds room for a CTA an SM and
-    for the 64 candidates' clusters of two in one wave."""
+    """ptxas gives the three sweeps their registers without spills, at most
+    64 a thread of 1024; the runtime finds room for a CTA an SM and for the
+    64 candidates' clusters of two in one wave."""
     import chip_smoke
     from lifeapi_tpu_torch.ops import _build
 
     report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
     sweeps = {name: (regs, spill) for name, regs, spill in report
-              if name in ("soft_vjp_kernel", "soft_hvp_kernel")}
-    assert sorted(sweeps) == ["soft_hvp_kernel", "soft_vjp_kernel"]
+              if name in ("soft_rollout_kernel", "soft_vjp_kernel", "soft_hvp_kernel")}
+    assert sorted(sweeps) == ["soft_hvp_kernel", "soft_rollout_kernel", "soft_vjp_kernel"]
     assert all(regs <= 64 and spill == 0 for regs, spill in sweeps.values()), sweeps
-    for name in ("rollout_vjp", "rollout_hvp"):
+    for name in ("rollout", "rollout_vjp", "rollout_hvp"):
         info = soft_cuda.sweep_info(name)
         assert info["threads"] == 1024 and info["ctas_per_sm"] >= 1, (name, info)
         assert info["clusters"] >= 64, (name, info)
@@ -1063,14 +1068,16 @@ def test_soft_kernels_read_nothing_back_and_refuse_float64(device):
 
 
 def test_soft_kernels_take_unaligned_inputs(device):
-    """Controls and cotangents 4 bytes off 16 are copied, not refused, by
-    every sweep."""
+    """Start boards, controls and cotangents 4 bytes off 16 are copied, not
+    refused, by every sweep."""
     p0, controls = _soft_inputs(device, 5, horizon=4)
     store = torch.empty(controls.numel() + 1, device=device)
     odd = store[1:].view(controls.shape)
     odd.copy_(controls)
     got, want = _soft_pair("rollout", (p0, odd, SOFT_TAU))
     assert torch.equal(got, want)
+    odd_p0 = torch.empty(p0.numel() + 1, device=device)[1:].view(p0.shape).copy_(p0)
+    assert torch.equal(_soft_pair("rollout", (odd_p0, odd, SOFT_TAU))[0], want)
     g = torch.empty(got.numel() + 1, device=device)[1:].view(got.shape).copy_(got)
     (g_u, _, lam), (g_u_p, _, lam_p) = _soft_pair("rollout_vjp",
                                                   (p0, odd, got, g, SOFT_TAU, False))
