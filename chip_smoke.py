@@ -138,6 +138,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 ROLLOUT_SOURCE = "lifeapi_tpu_torch/csrc/life_rollout.cu"
 STABLE_SOURCE = "lifeapi_tpu_torch/csrc/life_stable.cu"
@@ -201,6 +202,37 @@ SOFT_TWIN_TOL, SOFT_F64_RATIO = 1e-4, 2.0
 # [soft] holds the adjoint sweeps to their twins at these candidates besides
 # [sqp]'s SQP_C and the line search's 3 * SQP_C
 SOFT_FEW_C = 8
+# The MPC objective's sweeps in their objective mode and the solver's
+# updates.  None replaces a TPU kernel: JAX's soft_objective, conjugate
+# gradients and optax.adam are left to XLA; each line is where JAX defines
+# what the kernel computes.
+SOLVER_SOURCE = "lifeapi_tpu_torch/csrc/solver_update.cu"
+OBJECTIVE_KERNELS = {"soft_objective": "soft_objective_kernel",
+                     "soft_objective_vjp": "soft_objective_vjp_kernel",
+                     "soft_objective_hvp": "soft_objective_hvp_kernel"}
+UPDATE_KERNELS = {"cg_update": "cg_update_kernel", "adam_update": "adam_kernel"}
+OBJECTIVE_REPLACES = dict.fromkeys(OBJECTIVE_KERNELS, "lifeapi_tpu/mpc/solver.py:61")
+UPDATE_REPLACES = {"cg_update": "lifeapi_tpu/mpc/solver.py:177",
+                   "adam_update": "lifeapi_tpu/mpc/solver.py:136"}
+# Their boards [C, T, 64, 64] of float32 moved, each read or written once:
+# the forward reads the logits and writes traj; the adjoint, as a gradient
+# runs it, reads the logits and traj and writes the gradient and the
+# adjoints; the HVP sweep reads the logits, traj, the adjoints, the gradient
+# and the direction and writes two partials; the CG update reads x, r, p and
+# A p and writes x, r and p; adam reads the logits, the gradient and the two
+# moments and writes three.  Their float32 operations a cell and generation,
+# counted from the sources as for the plain sweeps: the sweep's own, the
+# controls (a sigmoid 4, its mask 1, du/dl 3) and the cost's terms (the
+# forward 9, the adjoint's cotangent and chain rule 12, the HVP's 2
+# sigmoids and the chain rule's terms 16); the CG update 8, adam 13.
+UPDATE_BOARDS_MOVED = {"soft_objective": 2, "soft_objective_vjp": 4, "soft_objective_hvp": 7,
+                       "cg_update": 7, "adam_update": 7}
+UPDATE_FLOP_PER_CELL = {"soft_objective": 48, "soft_objective_vjp": 73,
+                        "soft_objective_hvp": 130, "cg_update": 8, "adam_update": 13}
+# launches an adam iteration's gradient, an HVP and a CG iteration's update
+# (its damping's add and the update) may take on the card, counted on the
+# host (launches_of)
+GRADIENT_LAUNCHES, HVP_LAUNCHES, CG_UPDATE_LAUNCHES = 8, 6, 3
 # the convolution layer's bench shapes (bench.py:366-460, 571-618;
 # benches/extra.py:764-809) and the calibration's
 CONV_B, IO_B = 4096, 1024
@@ -771,10 +803,17 @@ def check_still_lifes(res, known, unknown, what):
 
 def launch_count(counter):
     """The launches counted so far under ``counter`` in the wrappers'
-    ``LAUNCHES``."""
+    ``LAUNCHES``.  ``solver_cuda`` is imported for its own counters only:
+    ``device_times.py`` reads this with an older tree's package, which may
+    not have it."""
     from lifeapi_tpu_torch.ops import calibrate_cuda, conv_cuda, soft_cuda, stable_cuda, step_cuda
 
-    for module in (step_cuda, stable_cuda, conv_cuda, calibrate_cuda, soft_cuda):
+    modules = [step_cuda, stable_cuda, conv_cuda, calibrate_cuda, soft_cuda]
+    if counter in UPDATE_KERNELS:
+        from lifeapi_tpu_torch.ops import solver_cuda
+
+        modules.append(solver_cuda)
+    for module in modules:
         if counter in module.LAUNCHES:
             return module.LAUNCHES[counter]
     raise KeyError(counter)
@@ -918,14 +957,18 @@ def wall(fn, n):
     return statistics.median(samples)
 
 
-def paired_ms(kernel_fn, plain_fn, reps):
+def paired_ms(kernel_fn, plain_fn, reps, setup=None):
     """Median milliseconds of kernel_fn and plain_fn on the card, timed with
-    CUDA events in alternating turns after one warm-up call of each."""
-    kernel_fn()
-    plain_fn()
+    CUDA events in alternating turns after one warm-up call of each; with
+    ``setup``, it runs before each call, outside the timing."""
+    setup = setup or (lambda: None)
+    for fn in (kernel_fn, plain_fn):
+        setup()
+        fn()
     times = {kernel_fn: [], plain_fn: []}
     for _ in range(reps):
         for fn in (kernel_fn, plain_fn):
+            setup()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -973,21 +1016,23 @@ def replaced(module, name, value):
 
 
 def reset_counters():
-    from lifeapi_tpu_torch.ops import soft_cuda, stable_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import soft_cuda, solver_cuda, stable_cuda, step_cuda
 
     torch.cuda.synchronize()
     step_cuda.reset_launches()
     stable_cuda.reset_launches()
     soft_cuda.reset_launches()
+    solver_cuda.reset_launches()
 
 
 def read_counters(path, kernels):
     """The launch counters after a path's run; fails unless every kernel
     named was launched."""
-    from lifeapi_tpu_torch.ops import soft_cuda, stable_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import soft_cuda, solver_cuda, stable_cuda, step_cuda
 
     torch.cuda.synchronize()
-    counts = {**step_cuda.LAUNCHES, **stable_cuda.LAUNCHES, **soft_cuda.LAUNCHES}
+    counts = {**step_cuda.LAUNCHES, **stable_cuda.LAUNCHES, **soft_cuda.LAUNCHES,
+              **solver_cuda.LAUNCHES}
     counts = {name: n for name, n in counts.items() if n}
     print(f"[{path}] launches {counts}")
     check(all(counts.get(name, 0) > 0 for name in kernels),
@@ -1005,6 +1050,38 @@ def device_share(fn, n=3):
     events = _trace(fn, n)
     return (host_ms, sum(e.device_time_total for e in events) / n / 1e3,
             sum(e.count for e in events) / n)
+
+
+class AtenKernels(TorchDispatchMode):
+    """The aten operators a block dispatches that launch a kernel: every one
+    but views and allocations."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        name = func.__name__.split(".")[0]
+        if not func.is_view and not name.startswith("empty") and name != "lift_fresh":
+            self.ops.append(func.__name__)
+        return func(*args, **(kwargs or {}))
+
+
+def launches_of(fn):
+    """(launches, aten operators) of one call of fn: the kernel wrappers'
+    counters and the aten operators that launch a kernel, counted on the
+    host, so no trace can drop any."""
+    from lifeapi_tpu_torch.ops import (calibrate_cuda, conv_cuda, soft_cuda, solver_cuda,
+                                       stable_cuda, step_cuda)
+
+    counters = [m.LAUNCHES for m in (step_cuda, stable_cuda, conv_cuda, calibrate_cuda,
+                                     soft_cuda, solver_cuda)]
+    before = [dict(c) for c in counters]
+    with AtenKernels() as mode:
+        fn()
+        torch.cuda.synchronize()
+    ours = sum(c[k] - b[k] for c, b in zip(counters, before) for k in c)
+    return ours + len(mode.ops), mode.ops
 
 
 def print_share(path, what, share):
@@ -1580,7 +1657,8 @@ def sqp_phase(dev, card):
                            method="sqp", iters=SQP_ITERS)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-    sqp_counts = read_counters("sqp", ("controlled_rollout", *SOFT_KERNELS))
+    sqp_counts = read_counters("sqp", ("controlled_rollout", *OBJECTIVE_KERNELS,
+                                       *UPDATE_KERNELS))
     print(f"[sqp] card: {card}")
     print(f"[sqp] config 3 ({SQP_C} candidates, horizon {SQP_HORIZON}, warm-up "
           f"{max(SQP_ITERS // 3, 10)} adam iterations, 8 Newton steps of 12 CG iterations): "
@@ -1616,17 +1694,13 @@ def sqp_phase(dev, card):
           f"{int(hamming_cost(sol.final_board, problem.target))}; "
           f"{int(kept.sum())}/{SQP_C} final boards keep the background block")
 
-    # where a Newton step's time goes: one HVP, and one gradient of the
-    # objective, at the solve's final logits
-    final = sqp[0].out
-    _, _, hvp = solver.grad_and_hvp(lambda x: solver.soft_objective(x, problem), final)
-    direction = torch.randn(final.shape, generator=torch.Generator(device=dev).manual_seed(1),
-                            device=dev)
-    print_share("sqp", f"one HVP of the {SQP_C} candidates", device_share(lambda: hvp(direction)))
-    print_share("sqp", "one gradient of the objective (an adam iteration's autograd)",
-                device_share(lambda: solver.value_and_grad(
-                    lambda x: solver.soft_objective(x, problem), final)))
-    del hvp
+    # where a Newton step's time goes: one HVP, one gradient of the
+    # objective, one CG iteration and its update, at the solve's final logits
+    launches = sqp_launches(problem, sqp[0].out, "sqp")
+    check(launches["gradient"] <= GRADIENT_LAUNCHES and launches["hvp"] <= HVP_LAUNCHES
+          and launches["cg_iteration"] - launches["hvp"] <= CG_UPDATE_LAUNCHES,
+          f"[sqp] launches {launches} over ({GRADIENT_LAUNCHES}, {HVP_LAUNCHES}, "
+          f"{CG_UPDATE_LAUNCHES}) a gradient, an HVP and a CG iteration's update")
 
     # known answer: tests/test_mpc.py test_sqp_solver_improves
     toy = mpc_demo.problem(dev, horizon=6)
@@ -1639,6 +1713,46 @@ def sqp_phase(dev, card):
     print(f"[sqp] toy problem: best soft objective {float(start.min()):.4f} -> "
           f"{float(end.min()):.4f}")
     return total, sqp_counts
+
+
+def sqp_launches(problem, logits, path):
+    """Print the host and device milliseconds and the kernels (torch.profiler)
+    of one gradient of ``solver.soft_objective`` as an adam iteration takes
+    it, one HVP, one CG update and one CG iteration (its matvec, the damping
+    and the update, from a 12-iteration solve) at ``logits``; return the
+    kernels of each."""
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    def objective(x):
+        return solver.soft_objective(x, problem)
+
+    _, g, hvp = solver.grad_and_hvp(objective, logits)
+    direction = torch.randn(logits.shape, generator=torch.Generator(device=logits.device)
+                            .manual_seed(1), device=logits.device)
+    x = torch.zeros(g.shape, device=g.device)
+    r, p = (-g).contiguous(), (-g).contiguous()
+    gamma = solver_cuda.batch_dot(r, r)
+    stop = solver.CG_TOL ** 2 * gamma
+    calls = {"gradient": (lambda: solver.value_and_grad(objective, logits), 1,
+                          "one gradient of the objective (an adam iteration's autograd)"),
+             "hvp": (lambda: hvp(direction), 1, f"one HVP of the {logits.shape[0]} candidates"),
+             "cg_update": (lambda: solver_cuda.cg_update(x, r, p, direction, gamma, stop), 1,
+                           "one CG iteration's update"),
+             "cg_iteration": (lambda: solver.conjugate_gradients(
+                 lambda v: torch.add(hvp(v), v, alpha=0.5), -g, 12), 12,
+                 "one CG iteration, its matvec with the damping's add (a solve of 12)")}
+    launches = {}
+    for name, (fn, per, what) in calls.items():
+        n, ops = launches_of(fn)
+        launches[name] = n / per
+        host_ms, dev_ms, kernels = device_share(fn, n=3 if per == 1 else 1)
+        print(f"[{path}] {what}: {n / per:.2f} launches (aten {ops[:8]}{'...' if len(ops) > 8 else ''}); "
+              f"{host_ms / per:.3f} ms on the host clock, at least {dev_ms / per:.3f} ms on the "
+              f"device in the {kernels / per:.2f} kernels a trace kept "
+              f"({dev_ms / host_ms:.1%} busy)")
+    del hvp
+    return launches
 
 
 def candidate_errs(got, want):
@@ -1739,17 +1853,18 @@ def soft_phase(dev, card, ms, plain_ms, dev_ms):
 
 
 def soft_sweeps_report(card):
-    """The three sweeps' launch shapes on this card: ptxas's registers and
-    spill bytes of each, and the threads, dynamic shared memory and
-    residency of its clusters of two CTAs.  Fails if a sweep spills."""
+    """The sweeps' launch shapes on this card, in both modes: ptxas's
+    registers and spill bytes of each, and the threads, dynamic shared memory
+    and residency of its clusters of two CTAs.  Fails if a sweep spills."""
     from lifeapi_tpu_torch.ops import _build, soft_cuda
 
+    sweeps = {*SOFT_KERNELS.values(), *OBJECTIVE_KERNELS.values()}
     rows = [(name, regs, spill) for name, regs, spill in
             ptxas_report(_build.library_path().with_suffix(".log").read_text())
-            if name in SOFT_KERNELS.values()]
+            if name in sweeps]
     for name, regs, spill in rows:
         print(f"[soft] ptxas: {name}: {regs} registers, {spill} bytes spill stores")
-    check(len(rows) == 3, f"[soft] expected the three sweeps, got {rows}")
+    check(len(rows) == len(sweeps), f"[soft] expected the six sweeps, got {rows}")
     check(all(spill == 0 for _, _, spill in rows), f"[soft] a sweep spills: {rows}")
     for name in soft_cuda.SWEEP_KERNELS:
         info = soft_cuda.sweep_info(name)
@@ -1815,6 +1930,235 @@ def soft_adjoint_checks(problem, p0, controls, card):
                   f"[soft] {name} {what} at {cands}: kernel further from float64 than "
                   f"{SOFT_F64_RATIO}x the float32 twin")
     return (traj, g_traj, w, vjp), err
+
+
+def objective_inputs(dev, problem, cands, seed=0):
+    """The objective's inputs at [sqp]'s shapes: ``init_logits``' draw and
+    the problem as the objective's sweeps read it."""
+    from lifeapi_tpu_torch.mpc import solver
+
+    logits = solver.init_logits(torch.Generator().manual_seed(seed), problem, cands)
+    return logits, solver.objective_inputs(problem)
+
+
+def by_candidate_errs(got, want):
+    """``candidate_errs`` of ``[C, T, 64, 64]`` arrays."""
+    return candidate_errs(got.movedim(0, 1), want.movedim(0, 1))
+
+
+def check_as_accurate(name, got, want32, want64):
+    """Each candidate's relative error within SOFT_TWIN_TOL of the float32
+    twin, and no further from the float64 twin than SOFT_F64_RATIO times the
+    float32 twin is (plus 1e-6); prints both.  Returns max_abs_err against
+    the float32 twin."""
+    errs, own, twin = (by_candidate_errs(a, b) for a, b in
+                       ((got, want32), (got.double(), want64), (want32.double(), want64)))
+    print(f"[update] {name}: a candidate's relative error against the float32 twin median "
+          f"{float(errs.median()):.3g} largest {float(errs.max()):.3g}; against the float64 "
+          f"twin, kernel median {float(own.median()):.3g} largest {float(own.max()):.3g}, "
+          f"float32 twin median {float(twin.median()):.3g} largest {float(twin.max()):.3g}")
+    check(float(errs.max()) <= SOFT_TWIN_TOL,
+          f"[update] {name}: kernel != float32 twin within {SOFT_TWIN_TOL}")
+    check(all(float(f(own)) <= SOFT_F64_RATIO * float(f(twin)) + 1e-6
+              for f in (torch.median, torch.max)),
+          f"[update] {name}: kernel further from float64 than {SOFT_F64_RATIO}x the twin")
+    return max_err(got, want32)
+
+
+def one_launch(counter, fn):
+    """fn's result; fails unless it launched ``counter``'s kernel once."""
+    before = launch_count(counter)
+    out = fn()
+    torch.cuda.synchronize()
+    check(launch_count(counter) == before + 1, f"[update] {counter}: not one launch")
+    return out
+
+
+def objective_checks(dev, problem, cands, seed):
+    """The objective's three sweeps at ``cands`` candidates against their
+    twins, each one launch: the forward's trajectory bit for bit and its
+    values, the adjoint on a values' cotangent other than 1, the HVP sweep
+    and the adjoint on its state partials.  Returns (the inputs and
+    outputs at these candidates, max_abs_err by kernel)."""
+    from lifeapi_tpu_torch.ops import soft_cuda
+
+    logits, ob = objective_inputs(dev, problem, cands, seed)
+    tau = problem.tau
+    value, traj = one_launch("soft_objective", lambda: soft_cuda.objective(logits, ob, tau))
+    value32, traj32 = soft_cuda.objective_plain(logits, ob, tau)
+    value64, _ = soft_cuda.objective_plain(logits.double(), ob, tau)
+    check(torch.equal(traj, traj32), f"[update] objective's trajectory != twin at {cands}")
+    err = {"soft_objective": max_err(value, value32)}
+    rel = float(((value - value32).abs() / value32.abs()).max())
+    own = float(((value.double() - value64).abs() / value64.abs()).max())
+    twin = float(((value32.double() - value64).abs() / value64.abs()).max())
+    print(f"[update] soft_objective at {cands}: trajectory == twin bit for bit; values' "
+          f"largest relative error {rel:.3g} against the float32 twin, {own:.3g} against the "
+          f"float64 twin (the float32 twin {twin:.3g})")
+    check(rel <= SOFT_TWIN_TOL and own <= SOFT_F64_RATIO * twin + 1e-6,
+          f"[update] objective's values at {cands}: {rel}, {own} against {twin}")
+    gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    g_vals = torch.rand(cands, generator=gen, device=dev) + 0.5
+    args = (logits, traj, None, g_vals, None, ob, tau, True)
+    grad, lam = one_launch("soft_objective_vjp", lambda: soft_cuda.objective_vjp(*args))
+    want32 = soft_cuda.objective_vjp_plain(*args)
+    want64 = soft_cuda.objective_vjp_plain(logits.double(), traj.double(), None,
+                                           g_vals.double(), None, ob, tau, True)
+    err["soft_objective_vjp"] = max(
+        check_as_accurate(f"soft_objective_vjp {what} at {cands}", got, w32, w64)
+        for what, got, w32, w64 in zip(("gradient", "adjoints"), (grad, lam), want32, want64))
+    v = torch.randn(logits.shape, generator=gen, device=dev) * problem.control_mask
+    args = (logits, traj, want32[1], want32[0], v, ob, tau)
+    pu, px = one_launch("soft_objective_hvp", lambda: soft_cuda.objective_hvp(*args))
+    hvp32 = soft_cuda.objective_hvp_plain(*args)
+    hvp64 = soft_cuda.objective_hvp_plain(*(t.double() for t in args[:5]), ob, tau)
+    err["soft_objective_hvp"] = max(
+        check_as_accurate(f"soft_objective_hvp {what} at {cands}", got, w32, w64)
+        for what, got, w32, w64 in zip(("pu", "px"), (pu, px), hvp32, hvp64))
+    args = (logits, traj, hvp32[1], None, hvp32[0], ob, tau, False)
+    hv, _ = one_launch("soft_objective_vjp", lambda: soft_cuda.objective_vjp(*args))
+    hv32, _ = soft_cuda.objective_vjp_plain(*args)
+    hv64, _ = soft_cuda.objective_vjp_plain(logits.double(), traj.double(), hvp32[1].double(),
+                                            None, hvp32[0].double(), ob, tau, False)
+    err["soft_objective_vjp"] = max(err["soft_objective_vjp"], check_as_accurate(
+        f"soft_objective_vjp on the HVP's partials at {cands}", hv, hv32, hv64))
+    return (logits, ob, traj, want32, v), err
+
+
+def update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms):
+    """The objective's sweeps (``objective_checks``: [sqp]'s 64 candidates,
+    8 and the line search's 192), the CG update (in place, a frozen
+    system kept bit for bit, ``ap`` the direction itself too) and the adam
+    step (bit for bit) at [sqp]'s shapes against their twins, then each
+    one's call and device time beside its bound, the twin's time and, for
+    adam, ``torch._fused_adam_``'s.  Fills ``ms``, ``plain_ms``, ``lib_ms``
+    and ``dev_ms``; returns (max_abs_err, bounds) by kernel."""
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import soft_cuda, solver_cuda
+
+    problem = sqp_problem(dev, SQP_HORIZON)
+    tau = problem.tau
+    err = dict.fromkeys((*OBJECTIVE_KERNELS, *UPDATE_KERNELS), 0.0)
+    for seed, cands in enumerate((SOFT_FEW_C, SQP_C, 3 * SQP_C)):
+        inputs, errs = objective_checks(dev, problem, cands, seed)
+        err.update({k: max(err[k], e) for k, e in errs.items()})
+        if cands == SQP_C:
+            logits, ob, traj, (grad, lam), v = inputs
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    shape = logits.shape
+    x0, r0, p0 = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+    ap = 2 * p0 + 0.1 * torch.randn(shape, generator=gen, device=dev)
+    gamma0 = solver_cuda.batch_dot(r0, r0)
+    stop = torch.zeros_like(gamma0)
+    stop[0] = 2 * gamma0[0]  # frozen
+    for alias in (False, True):
+        state = [t.clone() for t in (x0, r0, p0, gamma0)]
+        twin = [t.clone() for t in (x0, r0, p0, gamma0)]
+        twin64 = [t.double() for t in (x0, r0, p0, gamma0)]
+        one_launch("cg_update", lambda: solver_cuda.cg_update(
+            *state[:3], state[2] if alias else ap, state[3], stop))
+        solver_cuda.cg_update_plain(*twin[:3], twin[2] if alias else ap, twin[3], stop)
+        solver_cuda.cg_update_plain(*twin64[:3], twin64[2] if alias else ap.double(), twin64[3],
+                                    stop.double())
+        for what, got, w32, w64 in zip("xrpg", state, twin, twin64):
+            check(torch.equal(got[0], w32[0]), f"[update] cg_update moved a frozen system's {what}")
+            if what != "g":
+                err["cg_update"] = max(err["cg_update"], check_as_accurate(
+                    f"cg_update {what}{' (ap = p)' if alias else ''}", got[1:], w32[1:], w64[1:]))
+        rel = float(((state[3] - twin[3]).abs() / twin[3].abs()).max())
+        check(rel <= SOFT_TWIN_TOL, f"[update] cg_update gamma off its twin by {rel}")
+
+    count, lr = 3, 0.15
+    grads = 1e-2 * torch.randn(shape, generator=gen, device=dev)
+    mu, nu = 0.1 * grads, grads * grads
+    adam = (logits, grads, mu, nu, count, lr, solver.ADAM_B1, solver.ADAM_B2, solver.ADAM_EPS)
+    got = one_launch("adam_update", lambda: solver_cuda.adam_update(*adam))
+    want = solver_cuda.adam_update_plain(*adam)
+    check(all(torch.equal(a, b) for a, b in zip(got, want)), "[update] adam kernel != its twin")
+    print(f"[update] cg_update == twin within {SOFT_TWIN_TOL} (frozen systems bit for bit, ap "
+          f"apart and ap = p); adam_update == twin bit for bit at {tuple(shape)}")
+
+    state = [t.clone() for t in (x0, r0, p0, gamma0)]
+
+    def restore():
+        for t, t0 in zip(state, (x0, r0, p0, gamma0)):
+            t.copy_(t0)
+
+    fused = [torch.empty_like(t) for t in (logits, grads, mu, nu)]
+    step = [torch.tensor(float(count), device=dev)]
+
+    def restore_adam():
+        for t, t0 in zip(fused, (logits, grads, mu, nu)):
+            t.copy_(t0)
+
+    def fused_adam():
+        torch._fused_adam_([fused[0]], [fused[1]], [fused[2]], [fused[3]], [], step, lr=lr,
+                           beta1=solver.ADAM_B1, beta2=solver.ADAM_B2, weight_decay=0.0,
+                           eps=solver.ADAM_EPS, amsgrad=False, maximize=False)
+
+    ones = torch.ones(SQP_C, device=dev)
+    calls = {
+        "soft_objective": (lambda: soft_cuda.objective(logits, ob, tau),
+                           lambda: soft_cuda.objective_plain(logits, ob, tau), None),
+        "soft_objective_vjp": (
+            lambda: soft_cuda.objective_vjp(logits, traj, None, ones, None, ob, tau, True),
+            lambda: soft_cuda.objective_vjp_plain(logits, traj, None, ones, None, ob, tau, True),
+            None),
+        "soft_objective_hvp": (
+            lambda: soft_cuda.objective_hvp(logits, traj, lam, grad, v, ob, tau),
+            lambda: soft_cuda.objective_hvp_plain(logits, traj, lam, grad, v, ob, tau), None),
+        "cg_update": (lambda: solver_cuda.cg_update(*state[:3], ap, state[3], stop),
+                      lambda: solver_cuda.cg_update_plain(*state[:3], ap, state[3], stop),
+                      restore),
+        "adam_update": (lambda: solver_cuda.adam_update(*adam),
+                        lambda: solver_cuda.adam_update_plain(*adam), None)}
+    cells = shape[0] * shape[1] * 4096
+    bounds = {}
+    for name, (kernel_fn, plain_fn, setup) in calls.items():
+        ms[name], plain_ms[name] = paired_ms(kernel_fn, plain_fn, reps=10, setup=setup)
+        kernel = OBJECTIVE_KERNELS.get(name) or UPDATE_KERNELS[name]
+        timed = kernel_fn if setup is None else (lambda f=kernel_fn, s=setup: (s(), f()))
+        dev_ms[name] = device_ms_at(timed, kernel, name)
+        # the frozen system moves nothing
+        active = cells - (shape[1] * 4096 if name == "cg_update" else 0)
+        by_bytes = UPDATE_BOARDS_MOVED[name] * active * 4 / HBM_BYTES_PER_S * 1e3
+        by_ops = UPDATE_FLOP_PER_CELL[name] * active / FP32_FLOP_PER_S * 1e3
+        bounds[name] = (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+        d, mhz = dev_ms[name]
+        print(f"[update] {name} ({kernel}), {SQP_C} candidates x horizon {SQP_HORIZON}: call "
+              f"{ms[name]:.4f} ms, on the device {d:.4f} ms (SM clock {mhz} MHz), bound "
+              f"{by_bytes:.4f} ms by bytes ({UPDATE_BOARDS_MOVED[name]} boards a cell-generation)"
+              f" and {by_ops:.4f} ms by float32 operations, so {d / bounds[name][0]:.3g}x its "
+              f"bound; plain twin {plain_ms[name]:.3f} ms ({card})")
+    lib_ms["adam_update"] = paired_ms(fused_adam, lambda: None, reps=10, setup=restore_adam)[0]
+    print(f"[update] adam_update beside torch._fused_adam_ on the same tensors, in place on "
+          f"copies made before each call: {lib_ms['adam_update']:.4f} ms ({card})")
+    return err, bounds
+
+
+def composed_phase(dev, card):
+    """The public ``soft.soft_rollout``'s autograd Functions, the plain sweeps,
+    as ``solver.composed_objective`` drives them (on the CPU and under a
+    replaced map it is the objective): three adam iterations and a Newton
+    step of [sqp]'s width with ``solver.soft_objective`` replaced by it, the
+    counters at 0 just before; then its launches and times a gradient and an
+    HVP beside the fused objective's, on the same logits.  Returns the
+    counters."""
+    from lifeapi_tpu_torch.mpc import solver
+
+    problem = sqp_problem(dev, SQP_HORIZON)
+    logits = solver.init_logits(torch.Generator().manual_seed(4), problem, SQP_C)
+    with replaced(solver, "soft_objective", solver.composed_objective):
+        reset_counters()
+        logits, _ = solver.solve_gradient(logits, problem, iters=3)
+        logits = solver.solve_sqp(logits, problem, iters=1)
+        counts = read_counters("composed", SOFT_KERNELS)
+        sqp_launches(problem, logits, "composed")
+    sqp_launches(problem, logits, "fused")
+    print(f"[composed] the plain sweeps through the composed objective, and the fused "
+          f"objective on the same logits ({card})")
+    return counts
 
 
 def receding_phase(dev, card):
@@ -3227,7 +3571,7 @@ def main():
     from lifeapi_tpu_torch.core import board as B
     from lifeapi_tpu_torch.core import rle
     from lifeapi_tpu_torch.mpc import CostWeights, MPCProblem, solver
-    from lifeapi_tpu_torch.ops import _build, soft_cuda, step_cuda
+    from lifeapi_tpu_torch.ops import _build, soft_cuda, solver_cuda, step_cuda
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.target import LifeTarget, hamming_cost
 
@@ -3270,8 +3614,7 @@ def main():
 
     # -- 2. the main path -----------------------------------------------------
     torch.cuda.synchronize()
-    step_cuda.reset_launches()
-    soft_cuda.reset_launches()
+    reset_counters()
     t0 = time.perf_counter()
     rolled = step_cuda.rollout(boards, HEADLINE_T)
     demo_sol = solver.solve(demo, torch.Generator().manual_seed(0),
@@ -3287,9 +3630,12 @@ def main():
           f"launches {launches}")
     check(all(launches[name] > 0 for name in MAIN_PATH_KERNELS),
           f"a kernel of the main path was never launched: {launches}")
-    print(f"[path] soft-Life sweeps of the main path's gradient solves: {soft_cuda.LAUNCHES}")
-    check(soft_cuda.LAUNCHES["soft_rollout"] > 0 and soft_cuda.LAUNCHES["soft_rollout_vjp"] > 0,
-          f"the main path's solves never launched the soft-Life sweeps: {soft_cuda.LAUNCHES}")
+    print(f"[path] soft-Life sweeps of the main path's gradient solves: {soft_cuda.LAUNCHES}, "
+          f"their updates {solver_cuda.LAUNCHES}")
+    check(soft_cuda.LAUNCHES["soft_objective"] > 0 and soft_cuda.LAUNCHES["soft_objective_vjp"] > 0
+          and solver_cuda.LAUNCHES["adam_update"] > 0,
+          f"the main path's solves never launched the objective's sweeps or adam's kernel: "
+          f"{soft_cuda.LAUNCHES} {solver_cuda.LAUNCHES}")
     err = dict.fromkeys(MAIN_PATH_KERNELS, 0.0)
 
     # -- 3a. rollout ----------------------------------------------------------
@@ -3434,6 +3780,9 @@ def main():
     sqp_s, sqp_counts = sqp_phase(dev, card)
     soft_err, soft_bounds = soft_phase(dev, card, ms, plain_ms, dev_ms)
     bounds.update(soft_bounds)
+    update_err, update_bounds = update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms)
+    bounds.update(update_bounds)
+    composed_counts = composed_phase(dev, card)
     mpc_times = {"sqp": sqp_s, "receding": receding_phase(dev, card),
                  "symmetric": symmetric_phase(dev, card), "reach": reach_phase(dev, card)}
     print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, run_fused {mpc_times['receding']:.3f} s "
@@ -3456,7 +3805,9 @@ def main():
             (STABLE_SOURCE, STABLE_REPLACES, stable_launches, stable_err),
             (CONV_SOURCE, CONV_REPLACES, conv_launches, conv_err),
             (CALIBRATE_SOURCE, CALIBRATE_REPLACES, conv_launches, conv_err),
-            (SOFT_SOURCE, SOFT_REPLACES, sqp_counts, soft_err))
+            (SOFT_SOURCE, SOFT_REPLACES, composed_counts, soft_err),
+            (SOFT_SOURCE, OBJECTIVE_REPLACES, sqp_counts, update_err),
+            (SOLVER_SOURCE, UPDATE_REPLACES, sqp_counts, update_err))
         for name in replaces
     ]
     print(card)

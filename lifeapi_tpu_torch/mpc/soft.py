@@ -22,6 +22,13 @@ twice: a third derivative raises.  Memory: the
 rollout keeps its trajectory for the backward, and a VJP kept for a double
 backward its adjoints, one ``[T, C, 64, 64]`` float32 array each; the JAX
 rollout rematerialises each step instead.
+
+:func:`fused_objective` is the MPC objective (``mpc/solver.py``
+``soft_objective``) on the card: one Function from the logits to each
+candidate's cost, whose forward, gradient and Hessian-vector product are
+the sweeps in their objective mode (``ops/soft_cuda.py``): one launch for
+the values, one for a gradient, two for an HVP.  Its gradient, too, raises
+on a third derivative.
 """
 
 from __future__ import annotations
@@ -118,6 +125,78 @@ def _differentiable_no_further(grads, inputs):
     return tuple(None if g is None else next(raising) for g in grads)
 
 
+class SoftObjective(torch.autograd.Function):
+    """Each candidate's soft cost from logits ``[C, T, 64, 64]`` (the
+    objective's forward sweep).  Its backward is :class:`SoftObjectiveGrad`,
+    so a gradient taken with ``create_graph=True`` differentiates again."""
+
+    @staticmethod
+    def forward(ctx, logits, objective, tau):
+        vals, traj = soft_cuda.objective(logits, objective, tau)
+        ctx.save_for_backward(logits, traj)
+        ctx.objective, ctx.tau = objective, tau
+        return vals
+
+    @staticmethod
+    def backward(ctx, g_vals):
+        logits, traj = ctx.saved_tensors
+        # the adjoints are kept only where the gradient will be differentiated
+        grad = SoftObjectiveGrad.apply(logits, traj, g_vals, ctx.objective, ctx.tau,
+                                       torch.is_grad_enabled())
+        return grad, None, None
+
+
+class SoftObjectiveGrad(torch.autograd.Function):
+    """The logits' gradient for the values' cotangent ``g_vals`` (the
+    objective's adjoint sweep, the cost's cotangent made in the kernel).
+    Its backward is the Hessian of the summed cost times the direction: the
+    HVP sweep, then the adjoint sweep on its state partials, the cost's own
+    curvature being 0 wherever it is differentiable.  It differentiates no
+    further: a third derivative raises."""
+
+    @staticmethod
+    def forward(ctx, logits, traj, g_vals, objective, tau, keep_lam):
+        grad, lam = soft_cuda.objective_vjp(logits, traj, None, g_vals, None, objective, tau,
+                                            keep_lam)
+        ctx.save_for_backward(logits, traj, lam, grad)
+        ctx.objective, ctx.tau = objective, tau
+        return grad
+
+    @staticmethod
+    def backward(ctx, v):
+        if ctx.needs_input_grad[2]:
+            raise RuntimeError("the soft objective's gradient takes no derivative in the "
+                               "cotangent of its values")
+        logits, traj, lam, grad = ctx.saved_tensors
+        with torch.no_grad():
+            pu, px = soft_cuda.objective_hvp(logits, traj, lam, grad, v, ctx.objective, ctx.tau)
+            hv, _ = soft_cuda.objective_vjp(logits, traj, px, None, pu, ctx.objective, ctx.tau,
+                                            False)
+        (hv,) = _differentiable_no_further((hv,), (logits, v))
+        return hv, None, None, None, None, None
+
+
+def fused_objective(logits, objective, tau):
+    """Each candidate's soft cost of logits ``[..., T, 64, 64]`` for the
+    problem ``objective`` (``ops.soft_cuda.Objective``), through
+    :class:`SoftObjective` where a gradient will be taken, else the forward
+    sweep alone, which keeps no trajectory."""
+    lead = logits.shape[:-3]
+    flat = logits.reshape(-1, *logits.shape[-3:])
+    if torch.is_grad_enabled() and flat.requires_grad:
+        vals = SoftObjective.apply(flat, objective, tau)
+    else:
+        vals, _ = soft_cuda.objective(flat, objective, tau, keep_traj=False)
+    return vals.reshape(lead)
+
+
+def map_replaced():
+    """Whether ``soft_step`` or ``soft_toggle`` of this module has been
+    replaced, so that the fused sweeps, which implement the originals, may
+    not run."""
+    return soft_step is not soft_cuda.soft_step or soft_toggle is not soft_cuda.soft_toggle
+
+
 def soft_rollout(p0, controls, tau=0.2):
     """Roll the horizon: at each step apply the control toggles, then the
     soft dynamics.  controls: [T, ..., 64, 64] toggle probabilities.
@@ -127,7 +206,7 @@ def soft_rollout(p0, controls, tau=0.2):
     and ``soft_step``.  Where either has been replaced (``bench_torch/
     control.py`` rounds every generation to bfloat16 that way), the
     replacement is looped eagerly instead, under plain autograd."""
-    if soft_step is not soft_cuda.soft_step or soft_toggle is not soft_cuda.soft_toggle:
+    if map_replaced():
         p, traj = p0, []
         for u in controls:
             p = soft_step(soft_toggle(p, u), tau)

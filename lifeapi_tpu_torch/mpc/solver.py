@@ -27,7 +27,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..core import board as B
-from ..ops import step_cuda
+from ..ops import soft_cuda, solver_cuda, step_cuda
 from ..target import LifeTarget
 from . import cost as cost_mod
 from . import soft as soft_mod
@@ -59,7 +59,35 @@ class MPCSolution(NamedTuple):
 
 def soft_objective(logits, problem: MPCProblem, tau=None):
     """Relaxed cost of control logits [..., T, 64, 64], one per leading
-    index (each candidate's cost depends on its own logits only)."""
+    index (each candidate's cost depends on its own logits only).
+
+    On the card this is :func:`soft.fused_objective`: the values, a gradient
+    and a Hessian-vector product are one, one and two launches of the
+    soft-Life sweeps in their objective mode.  On the CPU, and wherever
+    ``soft.soft_step`` or ``soft.soft_toggle`` has been replaced, it is
+    :func:`composed_objective`."""
+    tau = problem.tau if tau is None else tau
+    if logits.is_cuda and not soft_mod.map_replaced():
+        return soft_mod.fused_objective(logits, objective_inputs(problem), tau)
+    return composed_objective(logits, problem, tau)
+
+
+def objective_inputs(problem: MPCProblem):
+    """The problem as the objective's sweeps read it
+    (``ops.soft_cuda.Objective``)."""
+    protected = problem.protected
+    if protected is not None and protected.dtype == B.WORD:
+        protected = B.to_dense(protected)
+    w = problem.weights
+    return soft_cuda.Objective(problem.initial, problem.target.wanted, problem.target.unwanted,
+                               problem.control_mask, protected, w.target, w.control,
+                               w.stable, w.path)
+
+
+def composed_objective(logits, problem: MPCProblem, tau=None):
+    """:func:`soft_objective` as the composition of the controls, the
+    rollout's autograd Functions (:func:`soft.soft_rollout`) and the cost's
+    eager terms (:func:`cost.soft_total`), in that order."""
     tau = problem.tau if tau is None else tau
     controls = torch.sigmoid(logits) * problem.control_mask
     controls = controls.movedim(-3, 0)  # generation-major for the rollout
@@ -125,14 +153,12 @@ def adam_init(logits):
 
 def adam_update(logits, grads, state, lr):
     """One adam step with optax's numerics (``optax.adam``: bias-corrected
-    moments, eps outside the square root).  Returns (logits, state)."""
+    moments, eps outside the square root).  Returns (logits, state).  On the
+    card one launch (``ops.solver_cuda.adam_update``)."""
     count, mu, nu = state
     count += 1
-    mu = (1 - ADAM_B1) * grads + ADAM_B1 * mu
-    nu = (1 - ADAM_B2) * grads * grads + ADAM_B2 * nu
-    mu_hat = mu / (1 - ADAM_B1 ** count)
-    nu_hat = nu / (1 - ADAM_B2 ** count)
-    logits = logits - lr * (mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS))
+    logits, mu, nu = solver_cuda.adam_update(logits, grads, mu, nu, count, lr, ADAM_B1,
+                                             ADAM_B2, ADAM_EPS)
     return logits, (count, mu, nu)
 
 
@@ -176,11 +202,6 @@ def solve_gradient(logits0, problem: MPCProblem, iters=150, lr=0.15,
     return logits, torch.stack(history)
 
 
-def _dot(a, b):
-    """Per-candidate dot product over every dimension but the first."""
-    return (a * b).flatten(1).sum(dim=1)
-
-
 def conjugate_gradients(matvec, b, maxiter):
     """Solve ``matvec(x) = b`` for a batch of independent symmetric
     positive-definite systems, one per leading index, as
@@ -190,29 +211,19 @@ def conjugate_gradients(matvec, b, maxiter):
     system's product depending on its own slice only.
 
     Under ``vmap`` JAX loops while any system is active and freezes the
-    converged ones.  Here every one of the ``maxiter`` iterations runs and
-    ``torch.where`` keeps a converged system's state: a mask multiplied in
-    would carry a converged system's 0/0 into its result, and the loop
-    reads nothing back to the host."""
-    stop = CG_TOL ** 2 * _dot(b, b)
-    x = torch.zeros_like(b)
-    r = b  # b - matvec(x0), and matvec(0) = 0
-    p = r
-    gamma = _dot(r, r)
-    view = (-1,) + (1,) * (b.dim() - 1)
+    converged ones.  Here every one of the ``maxiter`` iterations runs, one
+    ``matvec`` each, and a converged system keeps its state
+    (``ops.solver_cuda.cg_update``: one launch an iteration on the card,
+    ``torch.where`` in its twin); the loop reads nothing back to the host.
+    ``matvec`` is handed the direction, which the update then changes in
+    place, so it must not keep it."""
+    stop = CG_TOL ** 2 * solver_cuda.batch_dot(b, b)
+    x = torch.zeros_like(b, memory_format=torch.contiguous_format)
+    # b - matvec(x0), and matvec(0) = 0
+    r, p = (b.clone(memory_format=torch.contiguous_format) for _ in range(2))
+    gamma = solver_cuda.batch_dot(r, r)
     for _ in range(maxiter):
-        active = gamma > stop
-        ap = matvec(p)
-        alpha = (gamma / _dot(p, ap)).view(view)
-        x_new = x + alpha * p
-        r_new = r - alpha * ap
-        gamma_new = _dot(r_new, r_new)
-        p_new = r_new + (gamma_new / gamma).view(view) * p
-        a = active.view(view)
-        x = torch.where(a, x_new, x)
-        r = torch.where(a, r_new, r)
-        p = torch.where(a, p_new, p)
-        gamma = torch.where(active, gamma_new, gamma)
+        solver_cuda.cg_update(x, r, p, matvec(p), gamma, stop)
     return x
 
 
@@ -237,7 +248,7 @@ def solve_sqp(logits0, problem: MPCProblem, iters=8, cg_iters=12, damping=1.0):
     for i in range(iters):
         lam = damping * 0.5 ** i
         f0, g, hvp = grad_and_hvp(f, lg)
-        d = conjugate_gradients(lambda v: hvp(v) + lam * v, -g, cg_iters)
+        d = conjugate_gradients(lambda v: torch.add(hvp(v), v, alpha=lam), -g, cg_iters)
         del hvp  # frees the double-backward graph
         with torch.no_grad():
             cands = torch.stack([lg + a * d for a in STEP_SIZES])

@@ -55,6 +55,13 @@ SIGNATURES = {
     "life_soft_rollout_hvp": (_P, _L, _P, _L, _L, _P, _P, _P, _P, _L, _P, _P, _P, _P,
                               _I, _I, _F, _P),
     "life_soft_sweep_info": (_I, _P),
+    "life_soft_objective": (_P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _L, _L, _P, _P, _I, _I, _F,
+                            _P),
+    "life_soft_objective_vjp": (_P, _P, _P, _P, _P, _F, _F, _F, _F, _P, _L, _L, _P, _P, _P, _L,
+                                _P, _P, _P, _I, _I, _F, _P),
+    "life_soft_objective_hvp": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
+    "life_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P),
+    "life_adam_update": (_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 
 _library = None

@@ -53,20 +53,42 @@ Shapes: ``p0`` is ``[*pb, 64, 64]`` and the controls ``[T, *ub, 64, 64]``;
 the candidates' shape is ``broadcast(pb, ub)``, and every result carries it
 in full (the caller sums a broadcast input's gradient).  ``LAUNCHES``
 counts the kernel launches of each entry point.
+
+The MPC objective (``mpc/solver.py`` ``soft_objective``) runs the same
+sweeps in an objective mode, on logits ``[C, T, 64, 64]`` and an
+:class:`Objective`, and every state-shaped array in the logits' order
+``[C, T, 64, 64]``:
+
+- :func:`objective`: each candidate's ``soft_total`` and ``traj``, the
+  controls ``u = sigmoid(l) * mask`` made where the sweep reads the logits
+  and the cost's terms summed in the kernel, in a fixed order;
+- :func:`objective_vjp`: the logits' gradient ``du/dl (g_u + g w.control)``
+  for the cotangent ``g`` of the values, the cost's cotangent of ``traj``
+  made in the kernel (the cost is piecewise linear in ``traj``), plus an
+  external cotangent of ``traj`` and an extra term where given;
+- :func:`objective_hvp`: along the logits' direction ``v``, the HVP sweep
+  on ``w = du/dl v``, its partials in the controls carried to the logits
+  with the chain rule's second-order term ``(1 - 2 sigmoid(l)) grad v``
+  (``mask sigmoid'' = (1 - 2 sigmoid) du/dl``), and the partials in the
+  states, which :func:`objective_vjp` then takes as its cotangent: a
+  Hessian-vector product is these two launches.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core import board as B
 from . import _build
 from .step_cuda import _launch, _stream
 
-LAUNCHES = {"soft_rollout": 0, "soft_rollout_vjp": 0, "soft_rollout_hvp": 0}
+LAUNCHES = {"soft_rollout": 0, "soft_rollout_vjp": 0, "soft_rollout_hvp": 0,
+            "soft_objective": 0, "soft_objective_vjp": 0, "soft_objective_hvp": 0}
 
 BOARD = 4096  # cells of a 64 x 64 board
 
@@ -208,6 +230,106 @@ def rollout_hvp_plain(p0, controls, traj, lam, w_u, w_p0, tau, want_p0):
 
 
 # ---------------------------------------------------------------------------
+# the MPC objective's plain twins
+# ---------------------------------------------------------------------------
+
+
+class Objective(NamedTuple):
+    """The MPC problem as the objective's sweeps read it: the start board and
+    the target's boards (``int64[64]``), the control mask and the protected
+    region (``bool[64, 64]``, the latter None for no stable term), and the
+    weights of ``mpc/cost.py`` ``soft_total``; ``w_path`` is the weight of
+    the mean over the horizon."""
+    initial: torch.Tensor
+    wanted: torch.Tensor
+    unwanted: torch.Tensor
+    mask: torch.Tensor
+    protected: Optional[torch.Tensor]
+    w_target: float
+    w_control: float
+    w_stable: float
+    w_path: float
+
+
+def _dense_problem(ob, dtype):
+    """(p0, wanted, unwanted, mask, protected or None) as dense ``[64, 64]``
+    boards of ``dtype``."""
+    boards = (B.to_dense(b).to(dtype) for b in (ob.initial, ob.wanted, ob.unwanted))
+    masks = (None if m is None else m.to(dtype) for m in (ob.mask, ob.protected))
+    return (*boards, *masks)
+
+
+def _cost_cotangent(traj, g_vals, ob):
+    """The cotangent of ``traj`` ``[T, C, 64, 64]`` of the values' cotangent
+    ``g_vals`` ``[C]`` through the cost: each generation's mean target
+    violation, the last one's, and the stable term's ``|traj[t] - traj[0]|``,
+    whose derivative in ``traj[0]`` is minus the sum of the others (torch's
+    ``abs``' derivative is 0 at 0)."""
+    _, wanted, unwanted, _, prot = _dense_problem(ob, traj.dtype)
+    d = unwanted - wanted
+    cot = (ob.w_path / traj.shape[0] * d).expand_as(traj).clone()
+    cot[-1] += ob.w_target * d
+    if prot is not None:
+        sgn = torch.sign(traj - traj[:1]) * prot * ob.w_stable
+        cot += sgn
+        cot[0] -= sgn[1:].sum(dim=0)
+    return cot * g_vals.view(1, -1, 1, 1)
+
+
+def objective_plain(logits, ob, tau):
+    """(values ``[C]``, traj ``[C, T, 64, 64]``) of logits ``[C, T, 64, 64]``:
+    the controls ``sigmoid(logits) * mask``, their rollout and the cost's
+    five terms (target at the horizon, control effort, the mean target
+    violation over the horizon, the protected cells' deviation from
+    ``traj[0]``)."""
+    p0, wanted, unwanted, mask, prot = _dense_problem(ob, logits.dtype)
+    u = torch.sigmoid(logits) * mask
+    traj = rollout_plain(p0, u.movedim(1, 0), tau)
+    violation = (wanted * (1 - traj) + unwanted * traj).sum(dim=(-2, -1))
+    value = (ob.w_target * violation[-1] + ob.w_control * u.sum(dim=(1, 2, 3))
+             + ob.w_path * violation.mean(dim=0))
+    if prot is not None:
+        value = value + ob.w_stable * (torch.abs(traj - traj[:1]) * prot).sum(dim=(0, -2, -1))
+    return value, traj.movedim(0, 1).contiguous()
+
+
+def objective_vjp_plain(logits, traj, g_traj, g_vals, extra, ob, tau, keep_lam):
+    """(out, lam or None): the logits' gradient, each ``[C, T, 64, 64]``, of
+    the cotangent ``g_traj`` of ``traj`` (None: 0) plus, where ``g_vals`` is
+    given, the cost's for the values' cotangent ``g_vals``; plus ``extra``
+    where given.  ``lam`` are the adjoints of the rollout's VJP."""
+    p0, _, _, mask, _ = _dense_problem(ob, logits.dtype)
+    s = torch.sigmoid(logits)
+    traj_t = traj.movedim(1, 0)
+    cot = torch.zeros_like(traj_t) if g_traj is None else g_traj.movedim(1, 0)
+    if g_vals is not None:
+        cot = cot + _cost_cotangent(traj_t, g_vals, ob)
+    g_u, _, lam = rollout_vjp_plain(p0, (s * mask).movedim(1, 0), traj_t, cot, tau, False)
+    g_u = g_u.movedim(0, 1)
+    if g_vals is not None:
+        g_u = g_u + (g_vals * ob.w_control).view(-1, 1, 1, 1)
+    out = g_u * (mask * (1 - s) * s)
+    if extra is not None:
+        out = out + extra
+    return out.contiguous(), (lam.movedim(0, 1).contiguous() if keep_lam else None)
+
+
+def objective_hvp_plain(logits, traj, lam, grad, v, ob, tau):
+    """(pu, px), each ``[C, T, 64, 64]``: the HVP sweep along the logits'
+    direction ``v`` at the adjoints ``lam`` of the gradient ``grad``, its
+    partials in the controls carried to the logits, ``du/dl pu + (1 - 2
+    sigmoid(logits)) grad v``, and its partials in the states."""
+    p0, _, _, mask, _ = _dense_problem(ob, logits.dtype)
+    s = torch.sigmoid(logits)
+    du = mask * (1 - s) * s
+    _, pu, px, _ = rollout_hvp_plain(p0, (s * mask).movedim(1, 0), traj.movedim(1, 0),
+                                     lam.movedim(1, 0), (du * v).movedim(1, 0), None, tau,
+                                     False)
+    pu = du * pu.movedim(0, 1) + (1 - 2 * s) * grad * v
+    return pu.contiguous(), px.movedim(0, 1).contiguous()
+
+
+# ---------------------------------------------------------------------------
 # the kernels
 # ---------------------------------------------------------------------------
 
@@ -286,12 +408,14 @@ def _controls(u, batch):
 
 
 def _inv_tau(tau):
-    """1 / tau in float32, as aten scales by a Python scalar divisor: it
-    multiplies by the float reciprocal of the float divisor."""
+    """1 / tau in float32, as aten scales by a Python scalar divisor on the
+    card: it multiplies by the divisor's reciprocal, taken in double and
+    rounded to float32 (which differs from the float32 reciprocal of the
+    float32 divisor at some taus, 0.55 among them)."""
     tau = float(tau)
     if not tau > 0 or math.isinf(tau):
         raise ValueError(f"tau {tau} must be positive and finite")
-    return ctypes.c_float(float(np.float32(1.0) / np.float32(tau)))
+    return ctypes.c_float(float(np.float32(1.0 / tau)))
 
 
 def _dense(t):
@@ -310,12 +434,14 @@ def _grid(batch):
     return c
 
 
-SWEEP_KERNELS = {"rollout": 0, "rollout_vjp": 1, "rollout_hvp": 2}
+SWEEP_KERNELS = {"rollout": 0, "rollout_vjp": 1, "rollout_hvp": 2, "objective": 3,
+                 "objective_vjp": 4, "objective_hvp": 5}
 
 
 def sweep_info(name):
     """How the current CUDA device runs the ``name`` sweep (``rollout``,
-    ``rollout_vjp`` or ``rollout_hvp``), two CTAs a candidate: {threads and
+    ``rollout_vjp``, ``rollout_hvp`` or their objective modes ``objective``,
+    ``objective_vjp``, ``objective_hvp``), two CTAs a candidate: {threads and
     shared (dynamic bytes) a CTA, as launched; ctas_per_sm and clusters
     (resident at once over the card), from the runtime's occupancy
     calculator}."""
@@ -404,3 +530,141 @@ def rollout_hvp(p0, controls, traj, lam, w_u, w_p0, tau, want_p0=False):
                 _ptr(px0), c, steps, _inv_tau(tau), _stream(controls.device))
     LAUNCHES["soft_rollout_hvp"] += 1
     return jw, pu, px, px0
+
+
+# ---------------------------------------------------------------------------
+# the MPC objective's kernels
+# ---------------------------------------------------------------------------
+
+
+def _logits_shape(logits):
+    if not isinstance(logits, torch.Tensor):
+        raise TypeError(f"logits: expected a tensor, got {type(logits).__name__}")
+    if logits.dim() != 4 or tuple(logits.shape[-2:]) != (64, 64):
+        raise ValueError(f"logits: expected [C, T, 64, 64], got {tuple(logits.shape)}")
+    if logits.shape[1] == 0:
+        raise ValueError("the objective of an empty horizon is not defined here")
+    return tuple(logits.shape)
+
+
+def _problem_args(ob, steps, like, full=True):
+    """The launcher's problem arguments: the boards' and masks' pointers and,
+    where ``full``, the four weights (``w_path`` over the horizon)."""
+    def board(name, t):
+        if t.dtype != torch.int64 or tuple(t.shape) != (64,):
+            raise ValueError(f"{name}: the objective's sweeps take a board int64[64], got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        return _checked(name, t)
+
+    def mask(name, t):
+        if t.dtype != torch.bool or tuple(t.shape) != (64, 64):
+            raise ValueError(f"{name}: the objective's sweeps take a bool[64, 64] mask, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+        return _checked(name, t)
+
+    def _checked(name, t):
+        if t.device != like.device:
+            raise ValueError(f"{name}: on {t.device}, the logits on {like.device}")
+        return t.contiguous().data_ptr()
+
+    initial, control = board("initial", ob.initial), mask("mask", ob.mask)
+    if not full:
+        return initial, control
+    return (initial, board("wanted", ob.wanted), board("unwanted", ob.unwanted), control,
+            None if ob.protected is None else mask("protected", ob.protected),
+            *(ctypes.c_float(float(w)) for w in (ob.w_target, ob.w_control, ob.w_stable,
+                                                 ob.w_path / steps)))
+
+
+def _logits(logits):
+    """The logits ``[C, T, 64, 64]`` as a view ``[T, C, 4096]`` that the
+    sweeps read through its two outer strides, and those strides."""
+    c, steps = logits.shape[:2]
+    flat = _readable(logits.reshape(c, steps, BOARD).transpose(0, 1))
+    return flat, flat.stride(0), flat.stride(1)
+
+
+def _states(name, t, shape, like):
+    """A ``[C, T, 64, 64]`` array as the objective's sweeps read it: float32,
+    contiguous, on 16 bytes."""
+    _check(name, t, shape, like)
+    _kernel_dtype(t)
+    return _dense(t)
+
+
+def objective(logits, ob, tau, keep_traj=True):
+    """(values ``[C]``, traj ``[C, T, 64, 64]`` or None unless
+    ``keep_traj``) of :func:`objective_plain`; on the card one launch, traj
+    equal to the twin's bit for bit, the values summed in the kernel's
+    fixed order."""
+    c, steps = _logits_shape(logits)[:2]
+    if not logits.is_cuda:
+        value, traj = objective_plain(logits, ob, tau)
+        return value, (traj if keep_traj else None)
+    _kernel_dtype(logits)
+    _grid((c,))
+    args = _problem_args(ob, steps, logits)
+    u, u_st, u_sc = _logits(logits)
+    value = torch.empty(c, dtype=torch.float32, device=logits.device)
+    traj = torch.empty(logits.shape, dtype=torch.float32, device=logits.device) \
+        if keep_traj else None
+    with torch.cuda.device(logits.device):
+        _launch(_build.library().life_soft_objective, *args, u.data_ptr(), u_st, u_sc,
+                _ptr(traj), value.data_ptr(), c, steps, _inv_tau(tau), _stream(logits.device))
+    LAUNCHES["soft_objective"] += 1
+    return value, traj
+
+
+def objective_vjp(logits, traj, g_traj, g_vals, extra, ob, tau, keep_lam):
+    """(out, lam or None) of :func:`objective_vjp_plain`; ``g_vals`` is
+    ``[C]`` in any stride (an expanded cotangent is read in place).  On the
+    card one launch."""
+    shape = _logits_shape(logits)
+    c, steps = shape[:2]
+    _check("traj", traj, shape, logits)
+    for name, t in (("g_traj", g_traj), ("extra", extra)):
+        if t is not None:
+            _check(name, t, shape, logits)
+    if g_vals is not None:
+        _check("g_vals", g_vals, (c,), logits)
+    if not logits.is_cuda:
+        return objective_vjp_plain(logits, traj, g_traj, g_vals, extra, ob, tau, keep_lam)
+    _kernel_dtype(logits, *(t for t in (g_vals,) if t is not None))
+    _grid((c,))
+    args = _problem_args(ob, steps, logits)
+    u, u_st, u_sc = _logits(logits)
+    traj = _states("traj", traj, shape, logits)
+    g_traj, extra = (None if t is None else _states(name, t, shape, logits)
+                     for name, t in (("g_traj", g_traj), ("extra", extra)))
+    out = torch.empty(shape, dtype=torch.float32, device=logits.device)
+    lam = torch.empty(shape, dtype=torch.float32, device=logits.device) if keep_lam else None
+    with torch.cuda.device(logits.device):
+        _launch(_build.library().life_soft_objective_vjp, *args, u.data_ptr(), u_st, u_sc,
+                traj.data_ptr(), _ptr(g_traj), _ptr(g_vals),
+                0 if g_vals is None else g_vals.stride(0), _ptr(extra), _ptr(lam),
+                out.data_ptr(), c, steps, _inv_tau(tau), _stream(logits.device))
+    LAUNCHES["soft_objective_vjp"] += 1
+    return out, lam
+
+
+def objective_hvp(logits, traj, lam, grad, v, ob, tau):
+    """(pu, px) of :func:`objective_hvp_plain`.  On the card one launch."""
+    shape = _logits_shape(logits)
+    c, steps = shape[:2]
+    for name, t in (("traj", traj), ("lam", lam), ("grad", grad), ("v", v)):
+        _check(name, t, shape, logits)
+    if not logits.is_cuda:
+        return objective_hvp_plain(logits, traj, lam, grad, v, ob, tau)
+    _kernel_dtype(logits)
+    _grid((c,))
+    args = _problem_args(ob, steps, logits, full=False)
+    u, u_st, u_sc = _logits(logits)
+    traj, lam, grad, v = (_states(name, t, shape, logits) for name, t in
+                          (("traj", traj), ("lam", lam), ("grad", grad), ("v", v)))
+    pu, px = (torch.empty(shape, dtype=torch.float32, device=logits.device) for _ in range(2))
+    with torch.cuda.device(logits.device):
+        _launch(_build.library().life_soft_objective_hvp, *args, u.data_ptr(), u_st, u_sc,
+                traj.data_ptr(), lam.data_ptr(), v.data_ptr(), grad.data_ptr(), pu.data_ptr(),
+                px.data_ptr(), c, steps, _inv_tau(tau), _stream(logits.device))
+    LAUNCHES["soft_objective_hvp"] += 1
+    return pu, px

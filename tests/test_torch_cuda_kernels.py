@@ -933,6 +933,25 @@ def test_soft_rollout_kernel_equals_twin_bit_for_bit(device, cands, horizon):
     assert got.shape == want.shape and torch.equal(got, want)
 
 
+# taus at which the double reciprocal aten scales by, rounded to float32,
+# differs from the float32 reciprocal of the float32 tau (0.5268... and
+# 0.2415... are steps of solve_gradient's annealing at 33 iterations)
+ODD_TAUS = (0.55, 0.5268756481119898, 0.24157354979238813)
+
+
+@pytest.mark.parametrize("tau", ODD_TAUS)
+def test_soft_forward_sweeps_equal_twins_at_every_tau(device, tau):
+    """The plain forward sweep and the objective's equal their twins bit for
+    bit at taus whose two float32 reciprocals differ."""
+    p0, controls = _soft_inputs(device, 8, 5)
+    got, want = _soft_pair("rollout", (p0, controls, tau))
+    assert torch.equal(got, want)
+    ob = _objective_problem(device)
+    logits = _objective_logits(device, 8, 5)
+    _, traj = soft_cuda.objective(logits, ob, tau)
+    assert torch.equal(traj, soft_cuda.objective_plain(logits, ob, tau)[1])
+
+
 def _as_accurate(got, want32, want64):
     """The kernel within a relative 1e-4 of the float32 twin on every
     candidate, and no further from the float64 twin than twice the float32
@@ -1086,3 +1105,257 @@ def test_soft_kernels_take_unaligned_inputs(device):
     hvp, hvp_p = _soft_pair("rollout_hvp", (p0, odd, got, lam_p, w, None, SOFT_TAU, False))
     for k in range(3):
         assert _candidate_errs(hvp[k], hvp_p[k]).max() <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# The MPC objective's sweeps and the solver's updates (csrc/soft_life.cu in
+# objective mode, csrc/solver_update.cu)
+# ---------------------------------------------------------------------------
+
+
+def _objective_problem(device):
+    """The SQP cell's problem (a block at (40, 40) to reach, a protected block
+    at (10, 10)) with every cost term weighted, path too."""
+    block = B.move(rle.parse("2o$2o!", device=device), 10, 10)
+    goal = B.move(rle.parse("2o$2o!", device=device), 40, 40)
+    mask = torch.zeros((64, 64), dtype=torch.bool, device=device)
+    mask[36:46, 36:46] = True
+    return soft_cuda.Objective(block, goal, B.zoi(goal) & ~goal, mask, B.to_dense(B.zoi(block)),
+                               1.0, 0.01, 5.0, 0.5)
+
+
+def _objective_logits(device, cands, horizon, seed=0):
+    """init_logits' draw (-3 + 0.5 N(0, 1)) at the solver's horizon; a wider
+    one (-1.5 + 1.5 N(0, 1)) at short horizons, where more cells toggle."""
+    gen = torch.Generator().manual_seed(seed)
+    spread = (-3.0, 0.5) if horizon >= 16 else (-1.5, 1.5)
+    return (spread[0] + spread[1] * torch.randn((cands, horizon, 64, 64), generator=gen)).to(device)
+
+
+def _by_candidate(t):
+    """A ``[C, T, 64, 64]`` array with its candidates on dim 1, as
+    ``_candidate_errs`` takes them."""
+    return t.movedim(0, 1)
+
+
+def _objective_pair(name, args):
+    before = soft_cuda.LAUNCHES[f"soft_{name}"]
+    got = getattr(soft_cuda, name)(*args)
+    torch.cuda.synchronize()
+    assert soft_cuda.LAUNCHES[f"soft_{name}"] == before + 1
+    return got
+
+
+def _as_accurate_by_candidate(got, want32, want64):
+    _as_accurate(*(_by_candidate(t) for t in (got, want32, want64)))
+
+
+@pytest.mark.parametrize("cands,horizon", [(1, 1), (8, 3), (64, 32), (192, 32), (132, 5)])
+def test_objective_sweeps_match_twins(device, cands, horizon):
+    """The objective's forward (trajectory bit for bit, each candidate's
+    value within a relative 1e-4 of the float32 twin and no further from the
+    float64 twin than twice it), its adjoint on a values' cotangent other
+    than 1 (gradient and adjoints), and its HVP sweep and the adjoint on the
+    HVP's state partials, each one launch, held as the plain sweeps are."""
+    ob = _objective_problem(device)
+    logits = _objective_logits(device, cands, horizon)
+    tau = SOFT_TAU
+    value, traj = _objective_pair("objective", (logits, ob, tau))
+    value32, traj32 = soft_cuda.objective_plain(logits, ob, tau)
+    value64, _ = soft_cuda.objective_plain(logits.double(), ob, tau)
+    assert torch.equal(traj, traj32)
+    errs = ((value - value32).abs() / value32.abs()).max()
+    own = ((value.double() - value64).abs() / value64.abs())
+    twin = ((value32.double() - value64).abs() / value64.abs())
+    assert errs <= 1e-4 and own.max() <= 2 * twin.max() + 1e-6, (errs, own, twin)
+    _, none = _objective_pair("objective", (logits, ob, tau, False))
+    assert none is None
+
+    gen = torch.Generator(device=device).manual_seed(cands)
+    g_vals = torch.rand(cands, generator=gen, device=device) + 0.5
+    args = (logits, traj, None, g_vals, None, ob, tau, True)
+    grad, lam = _objective_pair("objective_vjp", args)
+    want32 = soft_cuda.objective_vjp_plain(*args)
+    want64 = soft_cuda.objective_vjp_plain(logits.double(), traj.double(), None,
+                                           g_vals.double(), None, ob, tau, True)
+    for got, w32, w64 in zip((grad, lam), want32, want64):
+        _as_accurate_by_candidate(got, w32, w64)
+
+    v = torch.randn(logits.shape, generator=gen, device=device)
+    args = (logits, traj, want32[1], want32[0], v, ob, tau)
+    pu, px = _objective_pair("objective_hvp", args)
+    want32 = soft_cuda.objective_hvp_plain(*args)
+    want64 = soft_cuda.objective_hvp_plain(*(t.double() for t in args[:5]), ob, tau)
+    _as_accurate_by_candidate(pu, want32[0], want64[0])
+    _as_accurate_or_zero(*(_by_candidate(t) for t in (px, want32[1], want64[1])))
+    args = (logits, traj, want32[1], None, want32[0], ob, tau, False)
+    hv, none = _objective_pair("objective_vjp", args)
+    assert none is None
+    hv32, _ = soft_cuda.objective_vjp_plain(*args)
+    hv64, _ = soft_cuda.objective_vjp_plain(logits.double(), traj.double(),
+                                            want32[1].double(), None, want32[0].double(), ob,
+                                            tau, False)
+    _as_accurate_by_candidate(hv, hv32, hv64)
+
+
+def test_objective_sweeps_take_views_and_unaligned_logits(device):
+    """Logits 4 bytes off 16 are copied, a candidate slice of a larger batch
+    is read in place; both give the contiguous logits' results."""
+    ob = _objective_problem(device)
+    logits = _objective_logits(device, 6, 4, seed=1)
+    value, traj = soft_cuda.objective(logits, ob, SOFT_TAU)
+    odd = torch.empty(logits.numel() + 1, device=device)[1:].view(logits.shape).copy_(logits)
+    wide = torch.cat([logits, logits]).view(2, 6, 4, 64, 64)[1]
+    for other in (odd, wide):
+        got, got_traj = soft_cuda.objective(other, ob, SOFT_TAU)
+        assert torch.equal(got, value) and torch.equal(got_traj, traj)
+
+
+def test_objective_launches_per_gradient_hvp_and_cg_iteration(device):
+    """An adam iteration's gradient is at most 8 launches (the forward sweep,
+    the sum, its cotangent's fill and the adjoint sweep: 4), an HVP at most 6
+    (the HVP sweep and the adjoint: 2), a Newton step's matvec with its
+    damping 3, a CG iteration's update 1 and an adam step 1."""
+    from chip_smoke import launches_of as _launches_of
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    ob = _objective_problem(device)
+    problem = solver.MPCProblem(ob.initial, solver.LifeTarget(ob.wanted, ob.unwanted), 32,
+                                ob.mask, ob.protected)
+    logits = solver.init_logits(torch.Generator().manual_seed(0), problem, 64)
+
+    def objective(x):
+        return solver.soft_objective(x, problem)
+
+    n, ops = _launches_of(lambda: solver.value_and_grad(objective, logits))
+    assert n <= 8, ops
+    assert n == 4, ops
+    vals, g, hvp = solver.grad_and_hvp(objective, logits)
+    n, ops = _launches_of(lambda: hvp(g))
+    assert n <= 6 and n == 2, ops
+    n, ops = _launches_of(lambda: torch.add(hvp(g), g, alpha=0.5))
+    assert n == 3, ops
+    x, r, p = (torch.zeros_like(g), -g.clone(), -g.clone())
+    gamma, stop = solver_cuda.batch_dot(r, r), torch.zeros(64, device=device)
+    n, ops = _launches_of(lambda: solver_cuda.cg_update(x, r, p, hvp(p), gamma, stop))
+    assert n == 3, ops
+    state = solver.adam_init(logits)
+    n, ops = _launches_of(lambda: solver.adam_update(logits, g, state, 0.15))
+    assert n == 1, ops
+
+
+def test_a_replaced_map_runs_the_objective_eagerly_on_the_card(device, monkeypatch):
+    from lifeapi_tpu_torch.mpc import soft, solver
+
+    ob = _objective_problem(device)
+    problem = solver.MPCProblem(ob.initial, solver.LifeTarget(ob.wanted, ob.unwanted), 3,
+                                ob.mask, ob.protected)
+    logits = _objective_logits(device, 4, 3)
+    fused = solver.soft_objective(logits, problem)
+    monkeypatch.setattr(soft, "soft_step", lambda p, tau=0.2: soft_cuda.soft_step(p, tau))
+    before = dict(soft_cuda.LAUNCHES)
+    eager = solver.soft_objective(logits, problem)
+    assert soft_cuda.LAUNCHES["soft_objective"] == before["soft_objective"]
+    assert torch.equal(eager, solver.composed_objective(logits, problem))
+    assert ((eager - fused).abs() / eager.abs()).max() <= 1e-5
+
+
+def test_objective_sweeps_never_spill(device):
+    import chip_smoke
+    from lifeapi_tpu_torch.ops import _build
+
+    report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    names = ("soft_objective_kernel", "soft_objective_vjp_kernel", "soft_objective_hvp_kernel")
+    sweeps = {name: (regs, spill) for name, regs, spill in report if name in names}
+    assert sorted(sweeps) == sorted(names)
+    assert all(regs <= 64 and spill == 0 for regs, spill in sweeps.values()), sweeps
+    for name in ("objective", "objective_vjp", "objective_hvp"):
+        info = soft_cuda.sweep_info(name)
+        assert info["threads"] == 1024 and info["ctas_per_sm"] >= 1, (name, info)
+        assert info["clusters"] >= 64, (name, info)
+
+
+@pytest.mark.parametrize("systems,horizon", [(5, 3), (64, 32)])
+def test_cg_update_kernel_matches_twin(device, systems, horizon):
+    """One launch updates every active system in place as the twin does, up
+    to the dot products' order (a relative 1e-5 of each array, and no
+    further from the float64 twin than twice the float32 twin plus 1e-6);
+    a frozen system keeps its state bit for bit; ``ap`` may be ``p``."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    gen = torch.Generator(device=device).manual_seed(systems)
+    shape = (systems, horizon, 64, 64)
+    x, r, p = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
+    ap = p * 2 + 0.1 * torch.randn(shape, generator=gen, device=device)
+    gamma = solver_cuda.batch_dot(r, r)
+    stop = torch.zeros_like(gamma)
+    stop[0] = gamma[0] * 2  # frozen
+    for alias in (False, True):
+        a = p if alias else ap
+        state = [t.clone() for t in (x, r, p, gamma)]
+        twin = [t.clone() for t in (x, r, p, gamma)]
+        twin64 = [t.double() for t in (x, r, p, gamma)]
+        before = solver_cuda.LAUNCHES["cg_update"]
+        solver_cuda.cg_update(*state[:3], a.clone() if not alias else state[2], state[3], stop)
+        torch.cuda.synchronize()
+        assert solver_cuda.LAUNCHES["cg_update"] == before + 1
+        solver_cuda.cg_update_plain(*twin[:3], twin[2] if alias else a, twin[3], stop)
+        solver_cuda.cg_update_plain(*twin64[:3], twin64[2] if alias else a.double(), twin64[3],
+                                    stop.double())
+        for got, w32, w64 in zip(state, twin, twin64):
+            assert torch.equal(got[0], w32[0])
+            got, w32, w64 = got[1:], w32[1:], w64[1:]
+            err = float((got - w32).norm() / w32.norm())
+            own, mine = float((got.double() - w64).norm()), float((w32.double() - w64).norm())
+            assert err <= 1e-5 and own <= 2 * mine + 1e-6 * float(w64.norm()), (err, own, mine)
+
+
+@pytest.mark.parametrize("lr,shape,offset", [(0.15, (64, 32, 64, 64), 0), (0.3, (64, 32, 64, 64), 0),
+                                             (0.15, (3, 5, 7), 0), (0.15, (2, 3, 64, 64), 1)])
+def test_adam_kernel_equals_twin_bit_for_bit(device, lr, shape, offset):
+    """[sqp]'s shape at two rates, 105 elements (a tail past the 16-byte
+    pieces), and logits 4 bytes off 16 (copied): five steps, each one launch
+    equal to the twin bit for bit."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+    from lifeapi_tpu_torch.mpc import solver
+
+    gen = torch.Generator(device=device).manual_seed(7)
+    n = int(np.prod(shape))
+    logits = torch.empty(n + offset, device=device)[offset:].view(shape)
+    logits.copy_(-3 + 0.5 * torch.randn(shape, generator=gen, device=device))
+    mu, nu = torch.zeros_like(logits), torch.zeros_like(logits)
+    twin = (logits, mu, nu)
+    for count in range(1, 6):
+        grads = 1e-2 * torch.randn(shape, generator=gen, device=device)
+        args = (grads, count, lr, solver.ADAM_B1, solver.ADAM_B2, solver.ADAM_EPS)
+        before = solver_cuda.LAUNCHES["adam_update"]
+        logits, mu, nu = solver_cuda.adam_update(logits, args[0], mu, nu, *args[1:])
+        assert solver_cuda.LAUNCHES["adam_update"] == before + 1
+        twin = solver_cuda.adam_update_plain(twin[0], args[0], twin[1], twin[2], *args[1:])
+        for got, want in zip((logits, mu, nu), twin):
+            assert torch.equal(got, want)
+
+
+def test_solver_kernels_read_nothing_back_and_refuse_float64(device):
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    ob = _objective_problem(device)
+    logits = _objective_logits(device, 4, 3)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        _, traj = soft_cuda.objective(logits, ob, SOFT_TAU)
+        grad, lam = soft_cuda.objective_vjp(logits, traj, None, torch.ones(4, device=device),
+                                            None, ob, SOFT_TAU, True)
+        soft_cuda.objective_hvp(logits, traj, lam, grad, grad, ob, SOFT_TAU)
+        x, r, p = (grad.clone() for _ in range(3))
+        gamma = solver_cuda.batch_dot(r, r)
+        solver_cuda.cg_update(x, r, p, grad, gamma, torch.zeros_like(gamma))
+        solver_cuda.adam_update(logits, grad, grad, grad * grad, 1, 0.1, 0.9, 0.999, 1e-8)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with pytest.raises(TypeError):
+        soft_cuda.objective(logits.double(), ob, SOFT_TAU)
+    with pytest.raises(TypeError):
+        solver_cuda.adam_update(logits.double(), grad.double(), grad.double(), grad.double(),
+                                1, 0.1, 0.9, 0.999, 1e-8)
