@@ -199,6 +199,11 @@ FP32_FLOP_PER_S = 67e12
 # mostly empty board, both float32 sums sit a relative 4e-5 from float64
 # and 2e-5 from each other
 SOFT_TWIN_TOL, SOFT_F64_RATIO = 1e-4, 2.0
+# the CG update against its twin: each system's relative error within
+# CG_TWIN_TOL of the float32 twin (the update's roundings are the eager
+# ops'; only the dot products' order differs), and SOFT_F64_RATIO from
+# float64 as the sweeps
+CG_TWIN_TOL = 1e-5
 # [soft] holds the adjoint sweeps to their twins at these candidates besides
 # [sqp]'s SQP_C and the line search's 3 * SQP_C
 SOFT_FEW_C = 8
@@ -330,7 +335,8 @@ DEVICE_MS_BEFORE = {"beam_search": 1.3101, "conv_small_packed": 0.5484,
                     "controlled_rollout": 0.0107, "propagate_fused": 0.0396,
                     "propagate_fixpoint": 0.0244, "propagate_fixpoint_priorities": 0.0332,
                     "propagate_fused_beam": 0.0476, "convolve_sparse_fused": 0.0046,
-                    "counts_sparse_fused": 0.0108, "union_sparse_fused": 0.1835}
+                    "counts_sparse_fused": 0.0108, "union_sparse_fused": 0.1835,
+                    "cg_update": 0.1639}
 # profiler traces of one device time taken before a run of traces that each
 # miss half of a kernel's launches fails the run
 PROFILE_TRIES = 5
@@ -396,7 +402,15 @@ SQP_C, SQP_HORIZON, SQP_ITERS = 64, 32, 100
 # [soft] holds the forward to its twin at these candidates: fewer clusters
 # than SMs, [sqp]'s, as many candidates as SMs (264 CTAs), the line search's
 SOFT_ROLLOUT_C = (SOFT_FEW_C, SQP_C, 132, 3 * SQP_C)
+# [update] holds the CG update to its twin at these systems: fewer clusters
+# than the card holds, [sqp]'s, systems of 35 elements (not a multiple of
+# the kernel's 16-byte pieces, so most start off 16 bytes) and shares longer
+# than a CTA's tiles
+CG_SHAPES = ((SOFT_FEW_C, SQP_HORIZON, 64, 64), (SQP_C, SQP_HORIZON, 64, 64), (3, 5, 7),
+             (SOFT_FEW_C, 2 * SQP_HORIZON, 64, 64))
 RECEDING_H32 = SYM_HORIZON = 32
+# [cem]: solve_cem's default population and iterations on [sqp]'s problem
+CEM_POP, CEM_ITERS = 256, 20
 REACH_C, REACH_T, REACH_CPU = 4096, 32, 256
 # the C2even problem's draw of tests/test_symmetric_mpc.py on its control
 # mask's 72 cells (tests/test_torch_symmetric_mpc.py checks it against JAX)
@@ -1946,9 +1960,9 @@ def by_candidate_errs(got, want):
     return candidate_errs(got.movedim(0, 1), want.movedim(0, 1))
 
 
-def check_as_accurate(name, got, want32, want64):
-    """Each candidate's relative error within SOFT_TWIN_TOL of the float32
-    twin, and no further from the float64 twin than SOFT_F64_RATIO times the
+def check_as_accurate(name, got, want32, want64, tol=SOFT_TWIN_TOL):
+    """Each candidate's relative error within ``tol`` of the float32 twin,
+    and no further from the float64 twin than SOFT_F64_RATIO times the
     float32 twin is (plus 1e-6); prints both.  Returns max_abs_err against
     the float32 twin."""
     errs, own, twin = (by_candidate_errs(a, b) for a, b in
@@ -1957,8 +1971,7 @@ def check_as_accurate(name, got, want32, want64):
           f"{float(errs.median()):.3g} largest {float(errs.max()):.3g}; against the float64 "
           f"twin, kernel median {float(own.median()):.3g} largest {float(own.max()):.3g}, "
           f"float32 twin median {float(twin.median()):.3g} largest {float(twin.max()):.3g}")
-    check(float(errs.max()) <= SOFT_TWIN_TOL,
-          f"[update] {name}: kernel != float32 twin within {SOFT_TWIN_TOL}")
+    check(float(errs.max()) <= tol, f"[update] {name}: kernel != float32 twin within {tol}")
     check(all(float(f(own)) <= SOFT_F64_RATIO * float(f(twin)) + 1e-6
               for f in (torch.median, torch.max)),
           f"[update] {name}: kernel further from float64 than {SOFT_F64_RATIO}x the twin")
@@ -2025,13 +2038,83 @@ def objective_checks(dev, problem, cands, seed):
     return (logits, ob, traj, want32, v), err
 
 
+def cg_state(dev, shape, seed, frozen=(0,)):
+    """Seeded x, r, p, an A p near 2 p, gamma = <r, r> and a stopping level
+    that freezes the systems ``frozen`` (twice their gamma)."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    x, r, p = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
+    ap = 2 * p + 0.1 * torch.randn(shape, generator=gen, device=dev)
+    gamma = solver_cuda.batch_dot(r, r)
+    stop = torch.zeros_like(gamma)
+    stop[list(frozen)] = 2 * gamma[list(frozen)]
+    return x, r, p, ap, gamma, stop
+
+
+def cg_checks(dev, shape, seed):
+    """The CG update on seeded systems of ``shape`` against its twins, one
+    launch each with ``ap`` apart and ``ap = p``, systems 0 and
+    ``shape[0] // 2`` frozen (kept bit for bit), then two launches on the
+    same inputs bit-equal.  Returns max_abs_err against the float32 twin."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    frozen = sorted({0, shape[0] // 2})
+    x0, r0, p0, ap, gamma0, stop = cg_state(dev, shape, seed, frozen)
+    active = [k for k in range(shape[0]) if k not in frozen]
+    err = 0.0
+    for alias in (False, True):
+        state, twin = ([t.clone() for t in (x0, r0, p0, gamma0)] for _ in range(2))
+        twin64 = [t.double() for t in (x0, r0, p0, gamma0)]
+        one_launch("cg_update", lambda: solver_cuda.cg_update(
+            *state[:3], state[2] if alias else ap, state[3], stop))
+        solver_cuda.cg_update_plain(*twin[:3], twin[2] if alias else ap, twin[3], stop)
+        solver_cuda.cg_update_plain(*twin64[:3], twin64[2] if alias else ap.double(), twin64[3],
+                                    stop.double())
+        for what, got, w32, w64 in zip("xrpg", state, twin, twin64):
+            check(torch.equal(got[frozen], w32[frozen]),
+                  f"[update] cg_update moved a frozen system's {what} at {shape}")
+            if what != "g":
+                err = max(err, check_as_accurate(
+                    f"cg_update {what} at {shape}{' (ap = p)' if alias else ''}", got[active],
+                    w32[active], w64[active], CG_TWIN_TOL))
+        rel = float(((state[3] - twin[3]).abs() / twin[3].abs()).max())
+        check(rel <= CG_TWIN_TOL, f"[update] cg_update gamma off its twin by {rel} at {shape}")
+    runs = [[t.clone() for t in (x0, r0, p0, gamma0)] for _ in range(2)]
+    for state in runs:
+        solver_cuda.cg_update(*state[:3], ap, state[3], stop)
+    torch.cuda.synchronize()
+    check(all(torch.equal(a, b) for a, b in zip(*runs)),
+          f"[update] two launches of cg_update on the same inputs differ at {shape}")
+    return err
+
+
+def cg_shape_report():
+    """The CG kernel's registers and spills (it fails on a spill) and its
+    launch shape at [sqp]'s systems: a cluster a system, its CTAs' shared
+    memory, the clusters resident at once and the waves of SQP_C systems."""
+    from lifeapi_tpu_torch.ops import _build, solver_cuda
+
+    regs, spill = next((regs, spill) for name, regs, spill in ptxas_report(
+        _build.library_path().with_suffix(".log").read_text()) if name == "cg_update_kernel")
+    info = solver_cuda.cg_update_info(SQP_HORIZON * 4096)
+    sms = info["clusters"] * info["ctas"] // info["ctas_per_sm"]
+    print(f"[update] cg_update_kernel: {regs} registers, {spill} bytes spill stores; a system "
+          f"of {SQP_HORIZON * 4096} elements on a cluster of {info['ctas']} CTAs of "
+          f"{info['threads']} threads, {info['shared']} bytes of shared memory a CTA (tiles of "
+          f"{info['tile']} 16-byte pieces of p and of A p), {info['ctas_per_sm']} CTA(s) an SM, "
+          f"{info['clusters']} clusters resident at once on {sms} SMs, so {SQP_C} systems are "
+          f"{SQP_C / info['clusters']:.3g} waves")
+    check(spill == 0, f"[update] cg_update_kernel spills {spill} bytes")
+
+
 def update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms):
     """The objective's sweeps (``objective_checks``: [sqp]'s 64 candidates,
-    8 and the line search's 192), the CG update (in place, a frozen
-    system kept bit for bit, ``ap`` the direction itself too) and the adam
-    step (bit for bit) at [sqp]'s shapes against their twins, then each
-    one's call and device time beside its bound, the twin's time and, for
-    adam, ``torch._fused_adam_``'s.  Fills ``ms``, ``plain_ms``, ``lib_ms``
+    8 and the line search's 192), the CG update (``cg_checks`` at
+    CG_SHAPES, then its registers and launch shape) and the adam step (bit
+    for bit) at [sqp]'s shapes against their twins, then each one's call and
+    device time beside its bound (the CG update's with system 0 frozen),
+    the twin's time and, for adam, ``torch._fused_adam_``'s.  Fills ``ms``, ``plain_ms``, ``lib_ms``
     and ``dev_ms``; returns (max_abs_err, bounds) by kernel."""
     from lifeapi_tpu_torch.mpc import solver
     from lifeapi_tpu_torch.ops import soft_cuda, solver_cuda
@@ -2045,29 +2128,13 @@ def update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms):
         if cands == SQP_C:
             logits, ob, traj, (grad, lam), v = inputs
 
-    gen = torch.Generator(device=dev).manual_seed(9)
+    for seed, shape in enumerate(CG_SHAPES):
+        err["cg_update"] = max(err["cg_update"], cg_checks(dev, shape, seed))
+    cg_shape_report()
+
     shape = logits.shape
-    x0, r0, p0 = (torch.randn(shape, generator=gen, device=dev) for _ in range(3))
-    ap = 2 * p0 + 0.1 * torch.randn(shape, generator=gen, device=dev)
-    gamma0 = solver_cuda.batch_dot(r0, r0)
-    stop = torch.zeros_like(gamma0)
-    stop[0] = 2 * gamma0[0]  # frozen
-    for alias in (False, True):
-        state = [t.clone() for t in (x0, r0, p0, gamma0)]
-        twin = [t.clone() for t in (x0, r0, p0, gamma0)]
-        twin64 = [t.double() for t in (x0, r0, p0, gamma0)]
-        one_launch("cg_update", lambda: solver_cuda.cg_update(
-            *state[:3], state[2] if alias else ap, state[3], stop))
-        solver_cuda.cg_update_plain(*twin[:3], twin[2] if alias else ap, twin[3], stop)
-        solver_cuda.cg_update_plain(*twin64[:3], twin64[2] if alias else ap.double(), twin64[3],
-                                    stop.double())
-        for what, got, w32, w64 in zip("xrpg", state, twin, twin64):
-            check(torch.equal(got[0], w32[0]), f"[update] cg_update moved a frozen system's {what}")
-            if what != "g":
-                err["cg_update"] = max(err["cg_update"], check_as_accurate(
-                    f"cg_update {what}{' (ap = p)' if alias else ''}", got[1:], w32[1:], w64[1:]))
-        rel = float(((state[3] - twin[3]).abs() / twin[3].abs()).max())
-        check(rel <= SOFT_TWIN_TOL, f"[update] cg_update gamma off its twin by {rel}")
+    x0, r0, p0, ap, gamma0, stop = cg_state(dev, shape, 9)
+    gen = torch.Generator(device=dev).manual_seed(10)
 
     count, lr = 3, 0.15
     grads = 1e-2 * torch.randn(shape, generator=gen, device=dev)
@@ -2076,8 +2143,9 @@ def update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms):
     got = one_launch("adam_update", lambda: solver_cuda.adam_update(*adam))
     want = solver_cuda.adam_update_plain(*adam)
     check(all(torch.equal(a, b) for a, b in zip(got, want)), "[update] adam kernel != its twin")
-    print(f"[update] cg_update == twin within {SOFT_TWIN_TOL} (frozen systems bit for bit, ap "
-          f"apart and ap = p); adam_update == twin bit for bit at {tuple(shape)}")
+    print(f"[update] cg_update == twin within {CG_TWIN_TOL} at {CG_SHAPES} (frozen systems "
+          f"bit for bit, ap apart and ap = p, two launches bit-equal); adam_update == twin bit "
+          f"for bit at {tuple(shape)}")
 
     state = [t.clone() for t in (x0, r0, p0, gamma0)]
 
@@ -2130,7 +2198,7 @@ def update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms):
               f"{ms[name]:.4f} ms, on the device {d:.4f} ms (SM clock {mhz} MHz), bound "
               f"{by_bytes:.4f} ms by bytes ({UPDATE_BOARDS_MOVED[name]} boards a cell-generation)"
               f" and {by_ops:.4f} ms by float32 operations, so {d / bounds[name][0]:.3g}x its "
-              f"bound; plain twin {plain_ms[name]:.3f} ms ({card})")
+              f"bound; plain twin {plain_ms[name]:.3f} ms{before_redesign(name, d)} ({card})")
     lib_ms["adam_update"] = paired_ms(fused_adam, lambda: None, reps=10, setup=restore_adam)[0]
     print(f"[update] adam_update beside torch._fused_adam_ on the same tensors, in place on "
           f"copies made before each call: {lib_ms['adam_update']:.4f} ms ({card})")
@@ -2159,6 +2227,51 @@ def composed_phase(dev, card):
     print(f"[composed] the plain sweeps through the composed objective, and the fused "
           f"objective on the same logits ({card})")
     return counts
+
+
+def cem_phase(dev, card):
+    """``solve_cem`` on the card at [sqp]'s problem and horizon, CEM_POP
+    samples an iteration over CEM_ITERS iterations from a card generator,
+    the counters reset just before: kernel [2] launched once an iteration
+    (each iteration's exact scoring), the best cost equal to the exact cost
+    of the best controls recomputed, by [2] and by its plain twin, and to
+    the least of the history, no toggle outside the control mask.  Returns
+    the solve's seconds."""
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import step_cuda
+
+    problem = sqp_problem(dev, SQP_HORIZON)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    reset_counters()
+    t0 = time.perf_counter()
+    mean, best_cost, best, history = solver.solve_cem(problem, gen, pop=CEM_POP, iters=CEM_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = read_counters("cem", ("controlled_rollout",))
+    check(counts == {"controlled_rollout": CEM_ITERS},
+          f"[cem] launches {counts}, not [2] once in each of {CEM_ITERS} iterations")
+    check(all(t.device.type == dev.type for t in (mean, best_cost, best, history)),
+          "[cem] a result off the card")
+    check(tuple(history.shape) == (CEM_ITERS,) and bool(torch.isfinite(history).all()),
+          f"[cem] history {tuple(history.shape)} not {CEM_ITERS} finite costs")
+    outside = int((best & ~problem.control_mask).sum())
+    check(outside == 0, f"[cem] {outside} toggles outside the control mask")
+    cost, _ = solver.hard_score(best.to(torch.float32), problem)
+    toggles = solver.candidate_toggles(best[None].to(torch.float32), problem)
+    starts = problem.initial.expand(1, 64).contiguous()
+    plain = solver.hard_cost(step_cuda.controlled_rollout_plain(starts, toggles), toggles, problem)
+    check(float(best_cost) == float(cost) == float(plain[0]),
+          f"[cem] best cost {float(best_cost)}, recomputed {float(cost)} by [2] and "
+          f"{float(plain[0])} by its twin")
+    check(float(best_cost) == float(history.min()),
+          f"[cem] best cost {float(best_cost)} is not the least of the history "
+          f"{float(history.min())}")
+    print(f"[cem] solve_cem on config 3 (horizon {SQP_HORIZON}, pop {CEM_POP}, {CEM_ITERS} "
+          f"iterations, card generator): {seconds:.3f} s; best cost {float(best_cost)} (= its "
+          f"controls' exact cost by [2] and by the twin, = the history's least), history "
+          f"{float(history[0]):.2f} -> {float(history[-1]):.2f}, {int(best.sum())} toggles, none "
+          f"outside the mask ({card})")
+    return seconds
 
 
 def receding_phase(dev, card):
@@ -3783,9 +3896,11 @@ def main():
     update_err, update_bounds = update_phase(dev, card, ms, plain_ms, lib_ms, dev_ms)
     bounds.update(update_bounds)
     composed_counts = composed_phase(dev, card)
-    mpc_times = {"sqp": sqp_s, "receding": receding_phase(dev, card),
-                 "symmetric": symmetric_phase(dev, card), "reach": reach_phase(dev, card)}
-    print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, run_fused {mpc_times['receding']:.3f} s "
+    mpc_times = {"sqp": sqp_s, "cem": cem_phase(dev, card),
+                 "receding": receding_phase(dev, card), "symmetric": symmetric_phase(dev, card),
+                 "reach": reach_phase(dev, card)}
+    print(f"[mpc] SQP solve {mpc_times['sqp']:.3f} s, CEM solve {mpc_times['cem']:.3f} s, "
+          f"run_fused {mpc_times['receding']:.3f} s "
           f"a replan round, D4 symmetric solve {mpc_times['symmetric']:.3f} s, reachability "
           f"{mpc_times['reach']:.4g} candidates/s ({card})")
     # -- 9. the sharded runners over NCCL (last: thousands of MPC kernels) ------------

@@ -25,14 +25,27 @@ and [11] and ``bitwise_or`` at 4096, [12] and the union again (``_l2``) with
 each call's inputs and outputs one of copies that together pass 100 MB, so
 that they come from device memory and not from the 50 MB L2; and the
 soft-Life rollout, VJP and HVP sweeps at 8, 64 and 192 candidates x
-horizon 32 (``soft_rollout_vjp_64`` etc.).  Each peel and sweep
-time has the SM clock read under it.  Prints one JSON line a
-tree; then, in one more process that loads every tree's package under a
-name of its own, the call times of that union and of
-``interaction_offsets(method="sparse")`` on the same pairs, the trees timed
-in turns, and whether each tree's three soft-Life sweeps give the first
-tree's outputs bit for bit on the same seeded inputs (with the largest
-absolute difference); then the card's name and power limit.
+horizon 32 (``soft_rollout_vjp_64`` etc.); and conjugate gradients'
+update at 8 and 64 systems x horizon 32, at 64 with ``ap`` the direction
+itself, and at 64 x horizon 64 (and at 15 and 60 systems: one and four
+whole waves of the clusters an H100 holds at once), system 0 frozen and
+the state restored before each call, as ``chip_smoke.py`` ``[update]``
+times it (``cg_update_64`` etc.).  Each peel, sweep and update time has the SM
+clock read under it.  Prints one JSON line a tree; then, in one more
+process that loads every tree's package under a name of its own, the call
+times of that union and of ``interaction_offsets(method="sparse")`` on the
+same pairs, the trees timed in turns, whether each tree's three soft-Life
+sweeps give the first tree's outputs bit for bit on the same seeded inputs
+(with the largest absolute difference), and each tree's CG update against
+the first tree's (the largest relative difference of each array); then
+the card's name and power limit.
+
+    python3 device_times.py --only cg_update [TREE ...]
+
+times only the cases whose names start with one of the comma-separated
+prefixes given (``rollout``, ``conv_sparse``, ``soft_rollout``,
+``cg_update``, ...), and of the last process's parts only those of the
+groups named (the union's calls with ``union_sparse``).
 """
 
 import importlib.util
@@ -49,6 +62,12 @@ ROOT = Path(__file__).resolve().parent
 SOFT_C, SOFT_TAU = (8, 64, 192), 0.25
 SOFT_KERNELS = {"soft_rollout": "soft_rollout_kernel", "soft_rollout_vjp": "soft_vjp_kernel",
                 "soft_rollout_hvp": "soft_hvp_kernel"}
+# conjugate gradients' update: (name, systems, horizon, ap is p); besides
+# [sqp]'s 64 systems and SOFT_FEW_C's 8, one wave and four whole waves of
+# the clusters an H100 holds at once (15)
+CG_CASES = (("cg_update_8", 8, 32, False), ("cg_update_15", 15, 32, False),
+            ("cg_update_60", 60, 32, False), ("cg_update_64", 64, 32, False),
+            ("cg_update_64_ap_is_p", 64, 32, True), ("cg_update_64_h64", 64, 64, False))
 # the peel at a batch where its bytes bound (100 MB, 0.030 ms) is above a
 # launch's fixed cost
 LARGE_B = 65536
@@ -185,7 +204,33 @@ def soft_calls(soft_cuda, p0, controls, traj, g_traj, w, lam):
                                                               SOFT_TAU)}
 
 
-def measure(tree):
+def needs(only, group):
+    """Whether the name prefixes ``only`` (None: every case) take in a case
+    of ``group``, the prefix of that group's names."""
+    return only is None or any(group.startswith(o) or o.startswith(group) for o in only)
+
+
+def cg_cases(S, dev):
+    """{name: (call, kernel pattern, counter, calls a trace, whole call)} of
+    the CG update at CG_CASES on ``chip_smoke.py``'s seeded state (system 0
+    frozen), each call on the state restored first."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    cases = {}
+    for name, systems, horizon, ap_is_p in CG_CASES:
+        x, r, p, ap, gamma, stop = S.cg_state(dev, (systems, horizon, 64, 64), 9)
+        state = [t.clone() for t in (x, r, p, gamma)]
+
+        def call(state=state, start=(x, r, p, gamma), ap=ap, stop=stop, ap_is_p=ap_is_p):
+            for t, t0 in zip(state, start):
+                t.copy_(t0)
+            solver_cuda.cg_update(*state[:3], state[2] if ap_is_p else ap, state[3], stop)
+
+        cases[name] = (call, "cg_update_kernel", "cg_update", 20, False)
+    return cases
+
+
+def measure(tree, only=None):
     import chip_smoke as S  # this checkout's, before the tree goes on the path
 
     sys.path.insert(0, str(tree))
@@ -227,17 +272,24 @@ def measure(tree):
         "propagate_fused_beam": (lambda: SC.propagate_fused_beam(fix_bst), "fixpoint_kernel",
                                  "propagate_fused_beam", 20, True),
     }
+
+    def wanted(name):
+        return only is None or name.startswith(only)
+
     out = {name: S.profiled_device_ms(fn, kernel, counter, n, whole)
-           for name, (fn, kernel, counter, n, whole) in cases.items()}
-    mhz = S.sm_clock_under(cases["rollout"][0])
-    peels, floors = peel_cases(S, dev)
-    clocks = {}
-    for name, (fn, kernel, counter, n, whole) in peels.items():
-        out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
+           for name, (fn, kernel, counter, n, whole) in cases.items() if wanted(name)}
+    mhz = S.sm_clock_under(cases["rollout"][0]) if wanted("rollout") else None
+    clocks, peels, floors = {}, {}, {}
+    if any(needs(only, k) for k in ("conv_sparse", "counts_sparse", "union_sparse", "bitwise_or")):
+        peels, floors = peel_cases(S, dev)
+    timed = {**peels, **(soft_cases(dev) if needs(only, "soft_rollout") else {}),
+             **(cg_cases(S, dev) if needs(only, "cg_update") else {})}
+    for name, (fn, kernel, counter, n, whole) in timed.items():
+        if wanted(name):
+            out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
     for name, fn in floors.items():
-        out[name], clocks[name] = S.operator_device_ms(fn), S.sm_clock_under(fn)
-    for name, (fn, kernel, counter, n, whole) in soft_cases(dev).items():
-        out[name], clocks[name] = S.device_ms_at(fn, kernel, counter, n, whole)
+        if wanted(name):
+            out[name], clocks[name] = S.operator_device_ms(fn), S.sm_clock_under(fn)
     return {"tree": str(tree), "device_ms": out, "sm_clock_mhz_under_rollout": mhz,
             "sm_clock_mhz": clocks}
 
@@ -285,55 +337,92 @@ def soft_outputs_agree(trees):
     return out
 
 
-def call_turns(trees):
+def cg_outputs_agree(trees):
+    """Each tree's CG update on the same seeded state at CG_CASES, against
+    the first tree's: the largest relative difference of each array over
+    its largest magnitude."""
+    import chip_smoke as S
+
+    dev = torch.device("cuda")
+    updates = [load_tree(tree, k, "ops.solver_cuda") for k, tree in enumerate(trees)]
+    out = {}
+    for name, systems, horizon, ap_is_p in CG_CASES:
+        x, r, p, ap, gamma, stop = S.cg_state(dev, (systems, horizon, 64, 64), 1)
+        results = []
+        for solver_cuda in updates:
+            state = [t.clone() for t in (x, r, p, gamma)]
+            solver_cuda.cg_update(*state[:3], state[2] if ap_is_p else ap, state[3], stop)
+            results.append(state)
+        torch.cuda.synchronize()
+        for k, got in enumerate(results[1:], start=1):
+            out[f"{name} tree{k} vs tree0"] = {
+                what: float((a.double() - b.double()).abs().max() / b.double().abs().max())
+                for what, a, b in zip(("x", "r", "p", "gamma"), got, results[0])}
+    return out
+
+
+def call_turns(trees, only=None):
     """Median CUDA-event milliseconds a call of union_interacting and of
     interaction_offsets, method "sparse", on the 1024 io pairs, for each
-    tree, the trees timed in turns after one warm-up call each."""
+    tree, the trees timed in turns after one warm-up call each; then the
+    sweeps' and the CG update's outputs against the first tree's.  With
+    ``only``, the parts its prefixes name."""
     import statistics
 
     import chip_smoke as S
 
-    dev = torch.device("cuda")
-    x = S.ConvInputs(dev)
-    convs = [load_tree(tree, k) for k, tree in enumerate(trees)]
-    calls = {}
-    for k, CV in enumerate(convs):
-        pairs = interaction_pairs(CV, x.io_a, x.io_b)
-        calls[f"union_interacting {k}"] = lambda CV=CV, p=pairs: CV.union_interacting(
-            p, method="sparse")
-        calls[f"interaction_offsets {k}"] = lambda CV=CV: CV.interaction_offsets(
-            x.io_a, x.io_b, method="sparse")
-    samples = {name: [] for name in calls}
-    for fn in calls.values():
-        fn()
-    for _ in range(TURNS):
-        for name, fn in calls.items():
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            start.record()
+    out = {"trees": [str(t) for t in trees]}
+    if needs(only, "union_sparse"):
+        dev = torch.device("cuda")
+        x = S.ConvInputs(dev)
+        convs = [load_tree(tree, k) for k, tree in enumerate(trees)]
+        calls = {}
+        for k, CV in enumerate(convs):
+            pairs = interaction_pairs(CV, x.io_a, x.io_b)
+            calls[f"union_interacting {k}"] = lambda CV=CV, p=pairs: CV.union_interacting(
+                p, method="sparse")
+            calls[f"interaction_offsets {k}"] = lambda CV=CV: CV.interaction_offsets(
+                x.io_a, x.io_b, method="sparse")
+        samples = {name: [] for name in calls}
+        for fn in calls.values():
             fn()
-            end.record()
-            end.synchronize()
-            samples[name].append(start.elapsed_time(end))
-    return {"trees": [str(t) for t in trees],
-            "call_ms": {name: statistics.median(v) for name, v in samples.items()},
-            "soft_sweeps_against_tree0": soft_outputs_agree(trees)}
+        for _ in range(TURNS):
+            for name, fn in calls.items():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                fn()
+                end.record()
+                end.synchronize()
+                samples[name].append(start.elapsed_time(end))
+        out["call_ms"] = {name: statistics.median(v) for name, v in samples.items()}
+    if needs(only, "soft_rollout"):
+        out["soft_sweeps_against_tree0"] = soft_outputs_agree(trees)
+    if needs(only, "cg_update"):
+        out["cg_update_against_tree0"] = cg_outputs_agree(trees)
+    return out
 
 
 def main():
     if not torch.cuda.is_available():
         print("device_times: no CUDA card", file=sys.stderr)
         return 1
-    if sys.argv[1:2] == ["--one"]:
-        print(json.dumps(measure(Path(sys.argv[2]).resolve())))
+    args = sys.argv[1:]
+    only = None
+    if args[:1] == ["--only"]:
+        only, args = tuple(args[1].split(",")), args[2:]
+    if args[:1] == ["--one"]:
+        print(json.dumps(measure(Path(args[1]).resolve(), only)))
         return 0
-    if sys.argv[1:2] == ["--turns"]:
-        print(json.dumps(call_turns([Path(t).resolve() for t in sys.argv[2:]])))
+    if args[:1] == ["--turns"]:
+        print(json.dumps(call_turns([Path(t).resolve() for t in args[1:]], only)))
         return 0
-    trees = sys.argv[1:] or [ROOT]
+    prefix = ["--only", ",".join(only)] if only else []
+    trees = args or [ROOT]
     for tree in trees:
-        subprocess.run([sys.executable, __file__, "--one", str(tree)], check=True)
+        subprocess.run([sys.executable, __file__, *prefix, "--one", str(tree)], check=True)
     distinct = list(dict.fromkeys(str(Path(t).resolve()) for t in trees))
-    subprocess.run([sys.executable, __file__, "--turns", *distinct], check=True)
+    subprocess.run([sys.executable, __file__, *prefix, "--turns", *distinct], check=True)
     import chip_smoke
 
     print(chip_smoke.card_line())

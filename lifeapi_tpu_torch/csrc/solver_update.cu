@@ -14,17 +14,35 @@
 // Bound: bytes.  The CG update reads x, r, p and A p and writes x, r and p
 // (a few flops an element); adam reads the logits, the gradient and the two
 // moments and writes the three.
-//  * cg_update_kernel: a candidate's system on a cluster of kCgCluster CTAs,
-//    each a contiguous share of its elements.  The two dot products a CG
-//    iteration needs (<p, A p> for the step, <r', r'> for the next
-//    direction) are reduced in a fixed order, a thread's elements in turn,
+//  * cg_update_kernel: a system on a cluster of kCgCluster CTAs, each a
+//    contiguous share of its elements in 16-byte pieces (the few elements
+//    before the system's first 16-byte boundary and after its last are held
+//    by CTA 0's first six threads, one each).  An iteration is three steps
+//    with a cluster-wide reduction between each two: <p, A p>; then
+//    alpha = gamma / <p, A p>, x += alpha p, r -= alpha A p and <r', r'>;
+//    then p = r' + (<r', r'> / gamma) p.  Each byte moves once: the CTA's
+//    share of p and A p is copied into shared memory by TMA (two
+//    cp.async.bulk copies on one mbarrier) and stays there across both
+//    reductions; its share of x and r is loaded into registers (8 pieces a
+//    thread) once the copies have landed, so those loads are in flight
+//    while the first reduction waits, and r' stays there across the
+//    second; x' and r' are stored before it.  (Asked for together with the
+//    copies, x and r land with them and the first reduction waits with
+//    nothing in flight: 4% longer over four whole waves on an H100.)  At
+//    horizon 32 (n = 131,072) a share is 16,384 floats: 128 KB of shared
+//    memory, one CTA of 512 threads an SM.  An H100 holds 15 such clusters
+//    at once (120 SMs; its SMs do not group into 16 clusters of 8), so 64
+//    systems are 4 waves of 15 and one of 4.  A share larger than a tile
+//    (kCgTile pieces, 64 KB an array) is walked in tiles, each step reading
+//    again what it needs.  The dot products are reduced in a fixed order: a
+//    thread's pieces in four running sums (one for each lane of a piece),
 //    a warp's butterfly, the CTA's warps in turn and the cluster's CTAs in
 //    rank order through distributed shared memory, so every CTA holds the
-//    same sum and a candidate's iterates are the same from run to run.  A
-//    converged candidate (<r, r> <= the stopping level) returns at once and
-//    keeps its state, as the eager loop's torch.where does.  The element
-//    updates round as the eager ops do (alpha p, then x + that); the dot
-//    products sum in another order than torch.sum.
+//    same sum and a system's iterates are the same from run to run (the
+//    order is not torch.sum's).  A converged system (<r, r> <= the stopping
+//    level) returns at once and keeps its state, as the eager loop's
+//    torch.where does.  The element updates round as the eager ops do
+//    (alpha p, then x + that).
 //  * adam_kernel: one elementwise pass, each operation rounded as the eager
 //    ops round it on the card (a Python scalar cast to float32, a division
 //    by a scalar a product with its float32 reciprocal, as aten's kernels
@@ -34,12 +52,20 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "tma.cuh"
+
 namespace {
 
 namespace cg = cooperative_groups;
+using namespace tma;
 
-constexpr int kCgCluster = 8;  // CTAs a candidate
+constexpr int kCgCluster = 8;  // CTAs a system
 constexpr int kCgThreads = 512;
+// 16-byte pieces of p and of A p a CTA holds in shared memory: 64 KB each,
+// a whole share at horizon 32
+constexpr int kCgTile = 4096;
+constexpr int kCgSlots = kCgTile / kCgThreads;  // a thread's pieces of a tile
+constexpr int kCgBarrierBytes = 128;  // the mbarrier, ahead of the tiles
 constexpr int kAdamThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -63,40 +89,184 @@ __device__ __forceinline__ float cluster_sum(float v, float* warp_sums, float* s
   return total;
 }
 
-// One iteration of conjugate gradients on candidate c's system of n
-// elements, in place: alpha = gamma / <p, ap>, x += alpha p, r -= alpha ap,
-// gamma' = <r, r>, p = r + (gamma' / gamma) p, gamma = gamma'; nothing where
-// gamma <= stop.  ap may alias p (an identity operator): each element is
-// read and written by one thread only, reads first.
-__global__ void __launch_bounds__(kCgThreads)
+// x + a p and r - a p as the eager ops round them: the product, then the sum
+__device__ __forceinline__ float add_scaled(float x, float a, float p) {
+  return __fadd_rn(x, __fmul_rn(a, p));
+}
+
+__device__ __forceinline__ float sub_scaled(float r, float a, float p) {
+  return __fsub_rn(r, __fmul_rn(a, p));
+}
+
+__device__ __forceinline__ float4 add_scaled(float4 x, float a, float4 p) {
+  return make_float4(add_scaled(x.x, a, p.x), add_scaled(x.y, a, p.y), add_scaled(x.z, a, p.z),
+                     add_scaled(x.w, a, p.w));
+}
+
+__device__ __forceinline__ float4 sub_scaled(float4 r, float a, float4 p) {
+  return make_float4(sub_scaled(r.x, a, p.x), sub_scaled(r.y, a, p.y), sub_scaled(r.z, a, p.z),
+                     sub_scaled(r.w, a, p.w));
+}
+
+// a piece's products into four running sums, one for each of its lanes
+__device__ __forceinline__ void dot_into(float (&acc)[4], float4 a, float4 b) {
+  acc[0] = fmaf(a.x, b.x, acc[0]);
+  acc[1] = fmaf(a.y, b.y, acc[1]);
+  acc[2] = fmaf(a.z, b.z, acc[2]);
+  acc[3] = fmaf(a.w, b.w, acc[3]);
+}
+
+// Thread 0: ``pieces`` of p, and of A p where ``with_ap``, from piece ``at``
+// of the share into the tiles in shared memory, counted on ``bar``.  Every
+// thread has passed a barrier since its last read of the tiles.
+__device__ __forceinline__ void fill_tiles(float4* p_s, float4* ap_s, const float4* p4,
+                                           const float4* ap4, int at, int pieces, bool with_ap,
+                                           uint64_t* bar) {
+  const unsigned bytes = static_cast<unsigned>(pieces) * sizeof(float4);
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+  expect_bytes(bar, with_ap ? 2 * bytes : bytes);
+  bulk_copy(p_s, p4 + at, bytes, bar);
+  if (with_ap) bulk_copy(ap_s, ap4 + at, bytes, bar);
+}
+
+// a thread's pieces of a tile of ``v`` (from piece ``at`` of the share) into
+// registers
+__device__ __forceinline__ void load_slots(float4 (&out)[kCgSlots], const float4* v, int at,
+                                           int pieces) {
+#pragma unroll
+  for (int m = 0; m < kCgSlots; ++m) {
+    const int j = static_cast<int>(threadIdx.x) + m * kCgThreads;
+    if (j < pieces) out[m] = v[at + j];
+  }
+}
+
+// One iteration of conjugate gradients on system c of n elements, in place:
+// alpha = gamma / <p, ap>, x += alpha p, r -= alpha ap, gamma' = <r, r>,
+// p = r + (gamma' / gamma) p, gamma = gamma'; nothing where gamma <= stop.
+// ap may be p (an identity operator): it is then copied once.  Every array
+// starts on 16 bytes; ``tile`` is the pieces of each tile in shared memory.
+__global__ void __launch_bounds__(kCgThreads, 1)
     cg_update_kernel(float* x, float* r, float* p, const float* ap, float* gamma,
-                     const float* stop, long long n) {
+                     const float* stop, long long n, int tile) {
+  extern __shared__ __align__(128) unsigned char shared[];
   __shared__ float warp_sums[kCgThreads / 32];
   __shared__ float slots[2][kCgCluster];
   const long long c = blockIdx.x / kCgCluster;
   const int rank = static_cast<int>(cg::this_cluster().block_rank());
   const float g = gamma[c];
   if (!(g > stop[c])) return;  // the whole cluster: it keeps its state
-  const long long lo = c * n + n * rank / kCgCluster;
-  const long long hi = c * n + n * (rank + 1) / kCgCluster;
-  float acc = 0.0f;
-#pragma unroll 4
-  for (long long i = lo + threadIdx.x; i < hi; i += kCgThreads) acc = fmaf(p[i], ap[i], acc);
-  const float alpha = g / cluster_sum(acc, warp_sums, slots[0]);
-  acc = 0.0f;
-#pragma unroll 4
-  for (long long i = lo + threadIdx.x; i < hi; i += kCgThreads) {
-    const float pi = p[i], api = ap[i];
-    x[i] = __fadd_rn(x[i], __fmul_rn(alpha, pi));
-    const float ri = __fsub_rn(r[i], __fmul_rn(alpha, api));
-    r[i] = ri;
-    acc = fmaf(ri, ri, acc);
+  cluster_arrive_relaxed();
+
+  // the system's elements [first, last): a head before its first 16-byte
+  // boundary, the body in pieces, shared out by rank, a tail after the body
+  const long long first = c * n, last = first + n;
+  const long long body = min((first + 3) & ~3LL, last);
+  const long long body_end = max(body, last & ~3LL);
+  const long long all_pieces = (body_end - body) / 4;
+  const long long piece0 = all_pieces * rank / kCgCluster;
+  const int pieces = static_cast<int>(all_pieces * (rank + 1) / kCgCluster - piece0);
+  const int tiles = (pieces + tile - 1) / tile;
+  const bool resident = tiles <= 1;  // the share is read once
+  float4* x4 = reinterpret_cast<float4*>(x + body) + piece0;
+  float4* r4 = reinterpret_cast<float4*>(r + body) + piece0;
+  float4* p4 = reinterpret_cast<float4*>(p + body) + piece0;
+  const float4* ap4 = reinterpret_cast<const float4*>(ap + body) + piece0;
+
+  // CTA 0's threads 0-2 hold the head's elements, threads 3-5 the tail's
+  long long e = -1;
+  if (rank == 0 && threadIdx.x < 6) {
+    const long long at = threadIdx.x < 3 ? first + threadIdx.x : body_end + threadIdx.x - 3;
+    if (at < (threadIdx.x < 3 ? body : last)) e = at;
   }
-  const float next = cluster_sum(acc, warp_sums, slots[1]);
+  const bool has_e = e >= 0;
+  float ex = 0.0f, er = 0.0f, ep = 0.0f, eap = 0.0f;
+  if (has_e) {
+    ex = x[e];
+    er = r[e];
+    ep = p[e];
+    eap = ap[e];
+  }
+
+  uint64_t* bar = reinterpret_cast<uint64_t*>(shared);
+  float4* p_s = reinterpret_cast<float4*>(shared + kCgBarrierBytes);
+  const bool alias = ap == p;
+  float4* ap_s = alias ? p_s : p_s + tile;
+  if (threadIdx.x == 0) barriers_init(bar, 1);
+  __syncthreads();
+  unsigned phase = 0;
+  float4 xv[kCgSlots], rv[kCgSlots];
+
+  // 1. <p, A p>; a resident share's x and r asked for once p and A p are in
+  float acc[4] = {has_e ? ep * eap : 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 0; t < tiles; ++t) {
+    const int at = t * tile, len = min(tile, pieces - at);
+    if (t) __syncthreads();
+    if (threadIdx.x == 0) fill_tiles(p_s, ap_s, p4, ap4, at, len, !alias, bar);
+    wait_phase<false>(bar, phase);
+    phase ^= 1;
+    if (resident) {
+      load_slots(xv, x4, 0, len);
+      load_slots(rv, r4, 0, len);
+    }
+#pragma unroll
+    for (int m = 0; m < kCgSlots; ++m) {
+      const int j = static_cast<int>(threadIdx.x) + m * kCgThreads;
+      if (j < len) dot_into(acc, p_s[j], ap_s[j]);
+    }
+  }
+  cluster_wait();  // every CTA of the cluster has started
+  const float alpha =
+      g / cluster_sum((acc[0] + acc[1]) + (acc[2] + acc[3]), warp_sums, slots[0]);
+
+  // 2. x += alpha p, r -= alpha A p and <r', r'>, x' and r' stored before
+  // the reduction; r' kept
+  if (has_e) {
+    x[e] = add_scaled(ex, alpha, ep);
+    er = sub_scaled(er, alpha, eap);
+    r[e] = er;
+  }
+  float acc2[4] = {has_e ? er * er : 0.0f, 0.0f, 0.0f, 0.0f};
+  for (int t = 0; t < tiles; ++t) {
+    const int at = t * tile, len = min(tile, pieces - at);
+    if (!resident) {
+      __syncthreads();
+      if (threadIdx.x == 0) fill_tiles(p_s, ap_s, p4, ap4, at, len, !alias, bar);
+      load_slots(xv, x4, at, len);
+      load_slots(rv, r4, at, len);
+      wait_phase<false>(bar, phase);
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int m = 0; m < kCgSlots; ++m) {
+      const int j = static_cast<int>(threadIdx.x) + m * kCgThreads;
+      if (j < len) {
+        x4[at + j] = add_scaled(xv[m], alpha, p_s[j]);
+        rv[m] = sub_scaled(rv[m], alpha, ap_s[j]);
+        r4[at + j] = rv[m];
+        dot_into(acc2, rv[m], rv[m]);
+      }
+    }
+  }
+  const float next = cluster_sum((acc2[0] + acc2[1]) + (acc2[2] + acc2[3]), warp_sums, slots[1]);
   const float beta = next / g;
-#pragma unroll 4
-  for (long long i = lo + threadIdx.x; i < hi; i += kCgThreads)
-    p[i] = __fadd_rn(r[i], __fmul_rn(beta, p[i]));
+
+  // 3. p = r' + beta p
+  if (has_e) p[e] = add_scaled(er, beta, ep);
+  for (int t = 0; t < tiles; ++t) {
+    const int at = t * tile, len = min(tile, pieces - at);
+    if (!resident) {  // r' as this thread stored it, p again
+      __syncthreads();
+      if (threadIdx.x == 0) fill_tiles(p_s, ap_s, p4, ap4, at, len, false, bar);
+      load_slots(rv, r4, at, len);
+      wait_phase<false>(bar, phase);
+      phase ^= 1;
+    }
+#pragma unroll
+    for (int m = 0; m < kCgSlots; ++m) {
+      const int j = static_cast<int>(threadIdx.x) + m * kCgThreads;
+      if (j < len) p4[at + j] = add_scaled(rv[m], beta, p_s[j]);
+    }
+  }
   // every CTA of the cluster read gamma[c] before the cluster's barriers
   if (rank == 0 && threadIdx.x == 0) gamma[c] = next;
 }
@@ -151,28 +321,76 @@ __global__ void __launch_bounds__(kAdamThreads)
 
 bool aligned(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
+// 16-byte pieces of p and of A p a CTA's tiles hold for systems of n
+// elements: a whole share where it fits (a share is at most this many)
+int cg_tile(long long n) {
+  const long long share = (n / 4 + kCgCluster - 1) / kCgCluster;
+  return static_cast<int>(share < 1 ? 1 : share < kCgTile ? share : kCgTile);
+}
+
+int cg_shared(int tile, bool alias) {
+  return kCgBarrierBytes + (alias ? 1 : 2) * tile * static_cast<int>(sizeof(float4));
+}
+
+cudaLaunchConfig_t cg_config(unsigned systems, int shared, cudaStream_t stream,
+                             cudaLaunchAttribute* attr) {
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = kCgCluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(systems * kCgCluster);
+  config.blockDim = dim3(kCgThreads);
+  config.dynamicSmemBytes = shared;
+  config.stream = stream;
+  config.attrs = attr;
+  config.numAttrs = 1;
+  return config;
+}
+
 }  // namespace
 
 // One CG iteration of `count` systems of n elements each, every array
-// [count, n] contiguous; gamma and stop [count]
+// [count, n] contiguous and starting on 16 bytes; gamma and stop [count]
 extern "C" cudaError_t life_cg_update(float* x, float* r, float* p, const float* ap,
                                       float* gamma, const float* stop, int count, long long n,
                                       cudaStream_t stream) {
   if (count <= 0 || n <= 0) return cudaErrorInvalidValue;
+  if (!aligned(x) || !aligned(r) || !aligned(p) || !aligned(ap))
+    return cudaErrorMisalignedAddress;
+  const int tile = cg_tile(n);
+  const int shared = cg_shared(tile, ap == p);
+  cudaError_t err =
+      cudaFuncSetAttribute(cg_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
   cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeClusterDimension;
-  attr.val.clusterDim.x = kCgCluster;
-  attr.val.clusterDim.y = 1;
-  attr.val.clusterDim.z = 1;
-  cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(static_cast<unsigned>(count) * kCgCluster);
-  config.blockDim = dim3(kCgThreads);
-  config.stream = stream;
-  config.attrs = &attr;
-  config.numAttrs = 1;
-  cudaError_t err = cudaLaunchKernelEx(&config, cg_update_kernel, x, r, p, ap, gamma, stop, n);
+  const cudaLaunchConfig_t config = cg_config(static_cast<unsigned>(count), shared, stream, &attr);
+  err = cudaLaunchKernelEx(&config, cg_update_kernel, x, r, p, ap, gamma, stop, n, tile);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// The CG update's launch shape for systems of n elements (A p apart from p,
+// or p itself where ``ap_is_p``): info = threads a CTA, CTAs a system,
+// dynamic shared bytes, pieces a tile, then the runtime occupancy
+// calculator's resident CTAs an SM and clusters resident at once
+extern "C" cudaError_t life_cg_update_info(long long n, int ap_is_p, int* info) {
+  if (n <= 0) return cudaErrorInvalidValue;
+  const int tile = cg_tile(n);
+  const int shared = cg_shared(tile, ap_is_p != 0);
+  cudaError_t err =
+      cudaFuncSetAttribute(cg_update_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, shared);
+  if (err != cudaSuccess) return err;
+  info[0] = kCgThreads;
+  info[1] = kCgCluster;
+  info[2] = shared;
+  info[3] = tile;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[4], cg_update_kernel, kCgThreads,
+                                                      shared);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t config = cg_config(1, shared, nullptr, &attr);
+  return cudaOccupancyMaxActiveClusters(&info[5], cg_update_kernel, &config);
 }
 
 // One adam step over n elements into new arrays

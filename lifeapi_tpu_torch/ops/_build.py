@@ -61,6 +61,7 @@ SIGNATURES = {
                                 _P, _P, _P, _I, _I, _F, _P),
     "life_soft_objective_hvp": (_P, _P, _P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P),
     "life_cg_update": (_P, _P, _P, _P, _P, _P, _I, _L, _P),
+    "life_cg_update_info": (_L, _I, _P),
     "life_adam_update": (_P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _F, _F, _F, _P),
 }
 

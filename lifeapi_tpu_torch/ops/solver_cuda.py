@@ -12,10 +12,14 @@ over the logits' ``[C, T, 64, 64]``; on the card each is one launch of
   independent systems, one per leading index, in place: the step
   ``alpha = gamma / <p, ap>``, ``x += alpha p``, ``r -= alpha ap``, the
   next ``gamma = <r, r>`` and direction ``p = r + (gamma' / gamma) p``,
-  each system frozen once ``gamma <= stop``.  The kernel reduces both dot
-  products in a fixed order (a cluster of CTAs a system), so a solve gives
-  the same iterates from run to run; it sums them in another order than
-  ``torch.sum``, so it is held to its twin within a tolerance.
+  each system frozen once ``gamma <= stop``.  The kernel runs a system on
+  a cluster of CTAs that keep their share of ``p`` and ``ap`` in shared
+  memory and of ``x`` and ``r`` in registers across both dot products, so
+  it reads each element once and writes it once (up to horizon 32 at
+  64 x 64 cells; a longer system is walked in tiles); :func:`cg_update_info` gives its
+  launch shape.  It reduces both dot products in a fixed order, so a solve
+  gives the same iterates from run to run; it sums them in another order
+  than ``torch.sum``, so it is held to its twin within a tolerance.
 - :func:`adam_update`: optax's adam step, the moments and the logits into
   new tensors; the kernel rounds every operation as the eager ops do on the
   card and equals its twin bit for bit.
@@ -35,7 +39,7 @@ import numpy as np
 import torch
 
 from . import _build
-from .step_cuda import _launch, _stream
+from .step_cuda import _aligned, _launch, _stream
 
 LAUNCHES = {"cg_update": 0, "adam_update": 0}
 
@@ -104,7 +108,9 @@ def cg_update(x, r, p, ap, gamma, stop):
     ``p`` and ``ap`` (``[S, ...]``, one system per leading index), in place
     on ``x``, ``r``, ``p`` and ``gamma`` (``[S]``); ``stop`` ``[S]`` is each
     system's stopping level.  ``x``, ``r`` and ``p`` must not overlap; ``ap``
-    may be ``p``.  On the card one launch, on contiguous state."""
+    may be ``p``.  On the card one launch, on contiguous state; state that
+    does not start on 16 bytes (the kernel's pieces) is updated in a copy
+    and copied back."""
     if not x.is_cuda:
         return cg_update_plain(x, r, p, ap, gamma, stop)
     _float32_on({"x": x, "r": r, "p": p, "ap": ap, "gamma": gamma, "stop": stop}, x.device,
@@ -124,12 +130,28 @@ def cg_update(x, r, p, ap, gamma, stop):
     n = x.numel() // systems
     if n == 0:
         return
-    ap, stop = ap.contiguous(), stop.contiguous()
+    state = [_aligned(t) for t in (x, r, p)]
+    ap = state[2] if ap is p else _aligned(ap.contiguous())
+    stop = stop.contiguous()
     with torch.cuda.device(x.device):
-        _launch(_build.library().life_cg_update, x.data_ptr(), r.data_ptr(), p.data_ptr(),
-                ap.data_ptr(), gamma.data_ptr(), stop.data_ptr(), systems, n,
-                _stream(x.device))
+        _launch(_build.library().life_cg_update, *(t.data_ptr() for t in state), ap.data_ptr(),
+                gamma.data_ptr(), stop.data_ptr(), systems, n, _stream(x.device))
     LAUNCHES["cg_update"] += 1
+    for t, copy in zip((x, r, p), state):
+        if copy is not t:
+            t.copy_(copy)
+
+
+def cg_update_info(n, ap_is_p=False):
+    """How the current CUDA device runs :func:`cg_update` on systems of
+    ``n`` elements (``ap`` apart from ``p``, or ``p`` itself): {threads a
+    CTA, ctas (a system's cluster), shared (dynamic bytes a CTA) and tile
+    (16-byte pieces of ``p`` and of ``ap`` a CTA holds in shared memory), as
+    launched; ctas_per_sm and clusters (resident at once over the card),
+    from the runtime's occupancy calculator}."""
+    info = (ctypes.c_int * 6)()
+    _launch(_build.library().life_cg_update_info, n, int(ap_is_p), info)
+    return dict(zip(("threads", "ctas", "shared", "tile", "ctas_per_sm", "clusters"), info))
 
 
 def _f32(value):

@@ -1276,24 +1276,51 @@ def test_objective_sweeps_never_spill(device):
         assert info["clusters"] >= 64, (name, info)
 
 
-@pytest.mark.parametrize("systems,horizon", [(5, 3), (64, 32)])
-def test_cg_update_kernel_matches_twin(device, systems, horizon):
+def _cg_state(gen, shape, device, offset=0):
+    """x, r, p and an A p near 2 p, seeded, each ``offset`` floats into an
+    allocation of its own (so 4 bytes off 16 where ``offset`` is 1)."""
+    n = int(np.prod(shape))
+    x, r, p, noise = (torch.empty(n + offset, device=device)[offset:].view(shape)
+                      .copy_(torch.randn(shape, generator=gen, device=device)) for _ in range(4))
+    return x, r, p, p * 2 + 0.1 * noise
+
+
+def _assert_cg_as_accurate(got, w32, w64):
+    """Within a relative 1e-5 of the float32 twin, and no further from the
+    float64 twin than twice the float32 twin (plus 1e-6 of its norm)."""
+    err = float((got - w32).norm() / w32.norm())
+    own, mine = float((got.double() - w64).norm()), float((w32.double() - w64).norm())
+    assert err <= 1e-5 and own <= 2 * mine + 1e-6 * float(w64.norm()), (err, own, mine)
+
+
+@pytest.mark.parametrize("shape,frozen,offset", [
+    ((5, 3, 64, 64), (0,), 0), ((8, 32, 64, 64), (0,), 0), ((64, 32, 64, 64), (0,), 0),
+    ((64, 32, 64, 64), (37, 63), 0), ((3, 5, 7), (1,), 0), ((5, 3, 7), (4,), 1),
+    ((8, 64, 64, 64), (3,), 0), ((6, 200, 64, 64), (2,), 0)])
+def test_cg_update_kernel_matches_twin(device, shape, frozen, offset):
     """One launch updates every active system in place as the twin does, up
     to the dot products' order (a relative 1e-5 of each array, and no
     further from the float64 twin than twice the float32 twin plus 1e-6);
-    a frozen system keeps its state bit for bit; ``ap`` may be ``p``."""
+    a frozen system keeps its state bit for bit; ``ap`` may be ``p``.  The
+    shapes: [sqp]'s at 8 and 64 systems, systems of 35 elements (not a
+    multiple of the kernel's 16-byte pieces, so most start off 16 bytes),
+    state 4 bytes off 16 (updated in a copy), and shares longer than a
+    CTA's tiles (horizon 64 and 200)."""
     from lifeapi_tpu_torch.ops import solver_cuda
 
-    gen = torch.Generator(device=device).manual_seed(systems)
-    shape = (systems, horizon, 64, 64)
-    x, r, p = (torch.randn(shape, generator=gen, device=device) for _ in range(3))
-    ap = p * 2 + 0.1 * torch.randn(shape, generator=gen, device=device)
+    gen = torch.Generator(device=device).manual_seed(shape[0] + offset)
+    x, r, p, ap = _cg_state(gen, shape, device, offset)
     gamma = solver_cuda.batch_dot(r, r)
     stop = torch.zeros_like(gamma)
-    stop[0] = gamma[0] * 2  # frozen
+    for k in frozen:
+        stop[k] = gamma[k] * 2
+    active = [k for k in range(shape[0]) if k not in frozen]
     for alias in (False, True):
         a = p if alias else ap
         state = [t.clone() for t in (x, r, p, gamma)]
+        if offset:
+            state[:3] = [torch.empty(t.numel() + offset, device=device)[offset:].view(t.shape)
+                         .copy_(t) for t in state[:3]]
         twin = [t.clone() for t in (x, r, p, gamma)]
         twin64 = [t.double() for t in (x, r, p, gamma)]
         before = solver_cuda.LAUNCHES["cg_update"]
@@ -1304,11 +1331,76 @@ def test_cg_update_kernel_matches_twin(device, systems, horizon):
         solver_cuda.cg_update_plain(*twin64[:3], twin64[2] if alias else a.double(), twin64[3],
                                     stop.double())
         for got, w32, w64 in zip(state, twin, twin64):
-            assert torch.equal(got[0], w32[0])
-            got, w32, w64 = got[1:], w32[1:], w64[1:]
-            err = float((got - w32).norm() / w32.norm())
-            own, mine = float((got.double() - w64).norm()), float((w32.double() - w64).norm())
-            assert err <= 1e-5 and own <= 2 * mine + 1e-6 * float(w64.norm()), (err, own, mine)
+            for k in frozen:
+                assert torch.equal(got[k], w32[k])
+            _assert_cg_as_accurate(got[active], w32[active], w64[active])
+
+
+@pytest.mark.parametrize("shape", [(64, 32, 64, 64), (6, 200, 64, 64), (3, 5, 7)])
+def test_cg_update_kernel_gives_the_same_bits_twice(device, shape):
+    """Two launches on the same inputs give equal bits: the dot products are
+    reduced in a fixed order."""
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    gen = torch.Generator(device=device).manual_seed(11)
+    x, r, p, ap = _cg_state(gen, shape, device)
+    gamma = solver_cuda.batch_dot(r, r)
+    stop = torch.zeros_like(gamma)
+    runs = []
+    for _ in range(2):
+        state = [t.clone() for t in (x, r, p, gamma)]
+        solver_cuda.cg_update(*state[:3], ap, state[3], stop)
+        runs.append(state)
+    torch.cuda.synchronize()
+    for one, two in zip(*runs):
+        assert torch.equal(one, two)
+
+
+def test_conjugate_gradients_on_the_card_matches_the_twin_loop(device):
+    """12 iterations of ``conjugate_gradients`` on a diagonal positive-definite
+    operator at [sqp]'s 64 x 32, one launch an iteration, within the update's
+    tolerance of the same loop over the twin, and no further from the loop
+    in float64 than twice that loop in float32."""
+    from lifeapi_tpu_torch.mpc import solver
+    from lifeapi_tpu_torch.ops import solver_cuda
+
+    gen = torch.Generator(device=device).manual_seed(5)
+    shape = (64, 32, 64, 64)
+    diag = 1 + 9 * torch.rand(shape, generator=gen, device=device)
+    b = torch.randn(shape, generator=gen, device=device)
+
+    def twin_loop(diag, b):
+        stop = solver.CG_TOL ** 2 * solver_cuda.batch_dot(b, b)
+        x, r, p = torch.zeros_like(b), b.clone(), b.clone()
+        gamma = solver_cuda.batch_dot(r, r)
+        for _ in range(12):
+            solver_cuda.cg_update_plain(x, r, p, diag * p, gamma, stop)
+        return x
+
+    before = solver_cuda.LAUNCHES["cg_update"]
+    got = solver.conjugate_gradients(lambda v: diag * v, b, 12)
+    torch.cuda.synchronize()
+    assert solver_cuda.LAUNCHES["cg_update"] == before + 12
+    _assert_cg_as_accurate(got, twin_loop(diag, b), twin_loop(diag.double(), b.double()))
+
+
+def test_cg_update_kernel_launch_shape_and_no_spills(device):
+    """At [sqp]'s 64 x 32 a CTA's share of p and A p fills its tiles (128 KB
+    of shared memory, one CTA of 512 threads an SM), and the card holds at
+    least 15 clusters of 8 at once (120 SMs; an H100 holds 15, so 64
+    systems are four waves of 15 and one of 4).  The kernel does not spill."""
+    import chip_smoke
+    from lifeapi_tpu_torch.ops import _build, solver_cuda
+
+    report = chip_smoke.ptxas_report(_build.library_path().with_suffix(".log").read_text())
+    regs, spill = next((regs, spill) for name, regs, spill in report
+                       if name == "cg_update_kernel")
+    assert regs <= 128 and spill == 0, (regs, spill)
+    info = solver_cuda.cg_update_info(32 * 4096)
+    assert info["threads"] == 512 and info["ctas"] == 8 and info["tile"] == 4096, info
+    assert info["shared"] == 128 + 2 * 4096 * 16 and info["ctas_per_sm"] == 1, info
+    assert info["clusters"] >= 15, info
+    assert solver_cuda.cg_update_info(32 * 4096, ap_is_p=True)["shared"] == 128 + 4096 * 16
 
 
 @pytest.mark.parametrize("lr,shape,offset", [(0.15, (64, 32, 64, 64), 0), (0.3, (64, 32, 64, 64), 0),
