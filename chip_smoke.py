@@ -262,15 +262,21 @@ HBM_BYTES_PER_S = 3.35e12
 # this run built (cuobjdump -sass), one warp per board, over the card's issue
 # peak: one warp instruction per clock per scheduler, four schedulers per SM,
 # at the SM clock's maximum.  A loop's generations are told by its shuffles:
-# 16 a generation where lane l holds columns l and l + 32 (4 column exchanges
-# x (lo, hi) x two 32-bit halves), 8 where it holds columns 2l and 2l + 1
-# (the controlled kernel's life_step_pair: 2 exchanges x (even, odd) x 2).
+# 16 a generation where lane l holds columns l and l + 32 (life_step, the
+# catalyst kernel's: 4 column exchanges x (lo, hi) x two 32-bit halves), 8
+# where it holds columns 2l and 2l + 1 (life_step_pair, the rollout, the
+# half-word rollout and the controlled kernel's: 2 exchanges x (even, odd) x
+# 2).  The pair layout needs no select for the torus wrap, so the generation
+# loop of a kernel of 8 shuffles a generation must hold no SEL.
 SCHEDULERS_PER_SM = 4
 SHFL_PER_GENERATION = 16
-ROLLOUT_KERNELS = {"rollout": ("rollout_kernel", 16),
-                   "rollout_lohi": ("rollout_lohi_kernel", 16),
+ROLLOUT_KERNELS = {"rollout": ("rollout_kernel", 8),
+                   "rollout_lohi": ("rollout_lohi_kernel", 8),
                    "controlled_rollout": ("controlled_kernel", 8),
                    "catalyst_rollout": ("catalyst_kernel", 16)}
+# the generation loop's instructions by kind: the integer pipe's logic
+# (LOP3), funnel shifts (SHF), shuffles (SHFL), selects (SEL), the rest
+LOOP_MIX_KINDS = ("LOP3", "SHF", "SHFL", "SEL")
 # Hand counts of life_stable.cu, printed beside the SASS bounds of kernels
 # A-D: stable_step: sync 26, two count9 46 (8
 # shuffles and selects each), nibble sums 21, update 55, signal 53, two
@@ -528,20 +534,39 @@ def loops(code):
     return found
 
 
-def instructions_per_generation(code, shuffles_per_generation=SHFL_PER_GENERATION):
-    """Instructions per generation of the generation loop: of the loops
-    that hold shuffles but no other such loop, the one with the most.  Its
-    shuffles count its generations, so a body unrolled k times counts k
-    (and a loop around the generation loops, a chunk loop, is passed
-    over)."""
+def generation_loop(code, shuffles_per_generation=SHFL_PER_GENERATION):
+    """(generations, first address, last address) of the generation loop:
+    of the loops that hold shuffles but no other such loop, the one with
+    the most.  Its shuffles count its generations, so a body unrolled k
+    times counts k (and a loop around the generation loops, a chunk loop,
+    is passed over)."""
     shuffling = [lp for lp in loops(code) if lp[0]]
-    innermost = [(n_shfl, n) for n_shfl, n, first, last in shuffling
-                 if not any(first <= o[2] and o[3] <= last and (o[2], o[3]) != (first, last)
+    innermost = [lp for lp in shuffling
+                 if not any(lp[2] <= o[2] and o[3] <= lp[3] and (o[2], o[3]) != lp[2:]
                             for o in shuffling)]
-    shuffles, n = max(innermost, default=(0, 0))
+    shuffles, _, first, last = max(innermost, default=(0, 0, 0, -1))
     check(shuffles > 0 and shuffles % shuffles_per_generation == 0,
           f"no generation loop found in the SASS ({shuffles} shuffles)")
-    return n * shuffles_per_generation / shuffles
+    return shuffles // shuffles_per_generation, first, last
+
+
+def instructions_per_generation(code, shuffles_per_generation=SHFL_PER_GENERATION):
+    """Instructions per generation of the generation loop (generation_loop)."""
+    generations, first, last = generation_loop(code, shuffles_per_generation)
+    return sum(first <= a <= last for a, _, _ in code) / generations
+
+
+def generation_loop_mix(code, shuffles_per_generation=SHFL_PER_GENERATION):
+    """{kind: instructions per generation} of the generation loop, for each
+    of LOOP_MIX_KINDS (an opcode counts under its mnemonic, the part before
+    its first dot) and "other"."""
+    generations, first, last = generation_loop(code, shuffles_per_generation)
+    mix = dict.fromkeys((*LOOP_MIX_KINDS, "other"), 0)
+    for a, op, _ in code:
+        if first <= a <= last:
+            kind = op.split(".")[0]
+            mix[kind if kind in LOOP_MIX_KINDS else "other"] += 1
+    return {k: n / generations for k, n in mix.items()}
 
 
 def library_sass(lib_path):
@@ -577,10 +602,30 @@ def peel_sass_counts(funcs):
     return {name: round_instructions(funcs[fn]) for name, fn in PEEL_KERNELS.items()}
 
 
-def rollout_sass_counts(funcs):
-    """Warp instructions per board-generation of each rollout kernel."""
-    return {name: instructions_per_generation(funcs[fn], shuffles)
-            for name, (fn, shuffles) in ROLLOUT_KERNELS.items()}
+def rollout_step_shuffles(source):
+    """{kernel: shuffles a generation} of each kernel of a rollout source
+    (csrc/life_rollout.cu) that steps with one of the two generations: 8
+    where its body calls life_step_pair, 16 where it calls life_step."""
+    found = {}
+    for m in re.finditer(r"__global__ void(?: __launch_bounds__\([^)]*\))?\s+(\w+)\(", source):
+        body = source[m.end():source.index("\n}\n", m.end())]
+        pair = re.search(r"\blife_step_pair\b", body) is not None
+        split = re.search(r"\blife_step\b", body) is not None
+        if pair != split:
+            found[m.group(1)] = 8 if pair else 16
+    return found
+
+
+def rollout_loop_mixes(funcs):
+    """{rollout kernel: generation_loop_mix} of its SASS; fail where a
+    kernel of the pair layout (8 shuffles a generation) selects in its
+    generation loop."""
+    mixes = {name: generation_loop_mix(funcs[fn], shuffles)
+             for name, (fn, shuffles) in ROLLOUT_KERNELS.items()}
+    for name, (fn, shuffles) in ROLLOUT_KERNELS.items():
+        check(shuffles != 8 or mixes[name]["SEL"] == 0,
+              f"{fn}: {mixes[name]['SEL']:g} SEL a generation in the pair layout's loop")
+    return mixes
 
 
 def basic_blocks(code):
@@ -654,11 +699,18 @@ def issue_peak():
 
 def print_occupancy():
     """Resident blocks an SM (the CUDA runtime's occupancy calculator),
-    registers and local bytes a thread of every NTT instantiation, of the
-    beam kernel at each frontier and of the fixpoint kernels B and C; fail
-    if the beam or a fixpoint kernel spills."""
-    from lifeapi_tpu_torch.ops import conv_cuda, stable_cuda
+    registers and local bytes a thread of the rollouts [1] and [4], every
+    NTT instantiation, the beam kernel at each frontier and the fixpoint
+    kernels B and C; fail if [1], [4], the beam or a fixpoint kernel spills,
+    or if [1] or [4] holds fewer than 8 blocks of 8 warps an SM."""
+    from lifeapi_tpu_torch.ops import conv_cuda, stable_cuda, step_cuda
 
+    for name in ("rollout", "rollout_lohi"):
+        blocks, regs, local = step_cuda.rollout_kernel_info(name)
+        print(f"[env] occupancy: {ROLLOUT_KERNELS[name][0]}: {blocks} resident blocks of 8 "
+              f"warps an SM ({8 * blocks} warps), {regs} registers, {local} local bytes a thread")
+        check(local == 0 and blocks >= 8,
+              f"{name}: {blocks} blocks an SM, {local} local bytes a thread")
     for priorities in (0, 1):
         blocks, regs, local = stable_cuda.fixpoint_kernel_info(priorities)
         print(f"[env] occupancy: fixpoint_kernel<{priorities}>: {blocks} resident blocks of 4 "
@@ -3547,7 +3599,8 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
 
     fix_steps, beam_steps, beam_prio = solver_work(stable_inputs)
     funcs = library_sass(lib_path)
-    sass = rollout_sass_counts(funcs)
+    mixes = rollout_loop_mixes(funcs)
+    sass = {name: sum(mix.values()) for name, mix in mixes.items()}  # a board-generation
     solver = solver_sass_counts(funcs)
     peel = peel_sass_counts(funcs)
     step_a = block_instructions(funcs["step_kernel"], STEP_SHUFFLES)
@@ -3628,6 +3681,12 @@ def kernel_bounds(ceilings, stable_inputs, x, ms, dev_ms, lib_path):
               f"({by_ops:.4f} ms): bound {bounds[name][0]:.4f} ms by "
               f"{bounds[name][1]}; the kernel's call {ms[name]:.4f} ms is "
               f"{ms[name] / bounds[name][0]:.3g}x it{on_device(name, bounds[name][0])}")
+    for name, mix in mixes.items():
+        fn, shuffles = ROLLOUT_KERNELS[name]
+        print(f"[bound] {fn}'s generation loop ({shuffles} SHFL a generation), warp "
+              f"instructions a generation: " + ", ".join(f"{k} {v:g}" for k, v in mix.items())
+              + f"; the integer pipe's LOP3, SHF and SEL {mix['LOP3'] + mix['SHF'] + mix['SEL']:g}"
+              f" of {sass[name]:g}; bound {bounds[name][0]:.4f} ms{on_device(name, bounds[name][0])}")
     d_or, d_or_rot = x.or_floor_ms, x.or_floor_rotated_ms
     by_bytes = peel_moves["convolve_sparse_fused"] / HBM_BYTES_PER_S * 1e3
     print(f"[bound] convolve_sparse_fused beside torch.bitwise_or on its operands (the same "

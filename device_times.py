@@ -34,11 +34,14 @@ times it (``cg_update_64`` etc.).  Each peel, sweep and update time has the SM
 clock read under it.  Prints one JSON line a tree; then, in one more
 process that loads every tree's package under a name of its own, the call
 times of that union and of ``interaction_offsets(method="sparse")`` on the
-same pairs, the trees timed in turns, whether each tree's three soft-Life
-sweeps give the first tree's outputs bit for bit on the same seeded inputs
-(with the largest absolute difference), and each tree's CG update against
-the first tree's (the largest relative difference of each array); then
-the card's name and power limit.
+same pairs, the trees timed in turns, whether each tree's rollouts [1]-[4]
+and three soft-Life sweeps give the first tree's outputs bit for bit on the
+same seeded inputs (the sweeps with the largest absolute difference), and
+each tree's CG update against the first tree's (the largest relative
+difference of each array); then the card's name and power limit.  Beside a
+tree's rollout times, each rollout kernel's generation-loop mix of SASS
+instructions a generation (LOP3, SHF, SHFL, SEL, other) and its ptxas
+registers and spill bytes, from that tree's build.
 
     python3 device_times.py --only cg_update [TREE ...]
 
@@ -230,25 +233,34 @@ def cg_cases(S, dev):
     return cases
 
 
-def measure(tree, only=None):
-    import chip_smoke as S  # this checkout's, before the tree goes on the path
-
-    sys.path.insert(0, str(tree))
+def rollout_inputs(S, dev):
+    """The rollouts' inputs, drawn from seed 0: the headline boards, 64
+    empty boards and 32 generations of random toggles, and the catalyst
+    rollout's inputs for the glider and eater over the 4096 offsets."""
     from lifeapi_tpu_torch import search
     from lifeapi_tpu_torch.core import board as B
-    from lifeapi_tpu_torch.ops import stable_cuda as SC
-    from lifeapi_tpu_torch.ops import step_cuda
-    from lifeapi_tpu_torch.stable import bitplane as BP
 
-    dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     boards = B.random(gen, (S.HEADLINE_B,), device=dev)
-    lo, hi = step_cuda.to_kernel_layout(boards)
     starts = B.empty(device=dev).expand(64, 64).contiguous()
     toggles = B.random(gen, (32, 64), device=dev)
     offsets = torch.tensor([[dx, dy] for dx in range(64) for dy in range(64)], device=dev)
     inputs = search.rollout_inputs(B.from_cells(S.GLIDER, device=dev),
                                    B.from_cells(S.EATER, device=dev), offsets, 64)
+    return boards, starts, toggles, inputs
+
+
+def measure(tree, only=None):
+    import chip_smoke as S  # this checkout's, before the tree goes on the path
+
+    sys.path.insert(0, str(tree))
+    from lifeapi_tpu_torch.ops import stable_cuda as SC
+    from lifeapi_tpu_torch.ops import step_cuda
+    from lifeapi_tpu_torch.stable import bitplane as BP
+
+    dev = torch.device("cuda")
+    boards, starts, toggles, inputs = rollout_inputs(S, dev)
+    lo, hi = step_cuda.to_kernel_layout(boards)
     known, unknown = S.eater_problem(dev, hide_cells=(), ring2=True)
     fix_bst = BP.make(state=known.expand(S.FIX_B, 64), unknown=unknown.expand(S.FIX_B, 64))
     fix_planes = BP.to_planes(fix_bst).contiguous()
@@ -291,7 +303,30 @@ def measure(tree, only=None):
         if wanted(name):
             out[name], clocks[name] = S.operator_device_ms(fn), S.sm_clock_under(fn)
     return {"tree": str(tree), "device_ms": out, "sm_clock_mhz_under_rollout": mhz,
-            "sm_clock_mhz": clocks}
+            "sm_clock_mhz": clocks, **rollout_sass(S, tree, wanted)}
+
+
+def rollout_sass(S, tree, wanted):
+    """The generation-loop mix (chip_smoke.generation_loop_mix) and the
+    ptxas registers and spill bytes of each rollout kernel timed, from the
+    tree's own build and its source's shuffles a generation."""
+    from lifeapi_tpu_torch.ops import _build
+
+    names = [name for name in S.ROLLOUT_KERNELS if wanted(name)]
+    if not names:
+        return {}
+    lib = _build.library_path()
+    funcs = S.library_sass(lib)
+    shuffles = S.rollout_step_shuffles(
+        (Path(tree) / "lifeapi_tpu_torch" / "csrc" / "life_rollout.cu").read_text())
+    ptxas = {fn: (regs, spill) for fn, regs, spill in
+             S.ptxas_report(lib.with_suffix(".log").read_text())}
+    mixes, registers = {}, {}
+    for name in names:
+        fn = S.ROLLOUT_KERNELS[name][0]
+        mixes[name] = S.generation_loop_mix(funcs[fn], shuffles[fn])
+        registers[name] = ptxas[fn]
+    return {"loop_mix_a_generation": mixes, "ptxas_registers_spill_bytes": registers}
 
 
 def load_tree(tree, k, module="core.convolve"):
@@ -335,6 +370,29 @@ def soft_outputs_agree(trees):
                 "max_rel_diff": {what: float((a.double() - b.double()).abs().max()
                                              / b.double().abs().max()) for what, a, b in pairs}}
     return out
+
+
+def rollout_outputs_agree(trees):
+    """Each tree's rollouts [1]-[4] on measure()'s inputs (rollout_inputs;
+    the headline boards over 512 generations), against the first tree's:
+    whether every output is equal bit for bit."""
+    import chip_smoke as S
+
+    boards, starts, toggles, inputs = rollout_inputs(S, torch.device("cuda"))
+    results = []
+    for k, tree in enumerate(trees):
+        step_cuda = load_tree(tree, k, "ops.step_cuda")
+        lo, hi = step_cuda.to_kernel_layout(boards)
+        results.append((step_cuda.rollout(boards, S.HEADLINE_T),
+                        *step_cuda.rollout_lohi(lo, hi, S.HEADLINE_T),
+                        step_cuda.controlled_rollout(starts, toggles),
+                        *step_cuda.catalyst_rollout(*inputs)))
+    torch.cuda.synchronize()
+    names = ("rollout", "rollout_lohi low", "rollout_lohi high", "controlled_rollout",
+             "catalyst_rollout final", "catalyst_rollout interacted")
+    return {f"tree{k} vs tree0": {name: bool(torch.equal(a, b))
+                                  for name, a, b in zip(names, got, results[0])}
+            for k, got in enumerate(results[1:], start=1)}
 
 
 def cg_outputs_agree(trees):
@@ -396,6 +454,8 @@ def call_turns(trees, only=None):
                 end.synchronize()
                 samples[name].append(start.elapsed_time(end))
         out["call_ms"] = {name: statistics.median(v) for name, v in samples.items()}
+    if needs(only, "rollout"):
+        out["rollouts_against_tree0"] = rollout_outputs_agree(trees)
     if needs(only, "soft_rollout"):
         out["soft_sweeps_against_tree0"] = soft_outputs_agree(trees)
     if needs(only, "cg_update"):

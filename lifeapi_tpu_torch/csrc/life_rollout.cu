@@ -8,26 +8,35 @@
 // bit y = cell (x, y) (the reference's LifeState layout); rollout_lohi_kernel
 // alone takes the JAX kernels' half-word layout, two uint32[64, B] arrays.
 //
-// Design, shared by the four kernels:
-//  * One warp steps one board.  Lane l keeps columns l and l + 32 in two
-//    64-bit registers for the whole horizon, so device-memory traffic is one
-//    read and one write of the board per rollout; only the controlled kernel
-//    streams more (its toggles).  This is what the TPU kernels get from
-//    holding the batch tile in VMEM.
+// Design:
+//  * One warp steps one board, held in registers for the whole horizon, so
+//    device-memory traffic is one read and one write of the board per
+//    rollout; only the controlled kernel streams more (its toggles).  This
+//    is what the TPU kernels get from holding the batch tile in VMEM.
 //  * Vertical neighbours are native 64-bit rotates of the lane's own words;
 //    the TPU's even/odd interleave (lifeapi_tpu/core/bitops.py
 //    interleave_split) only saved 32-bit funnel shifts and is not used.
-//  * Horizontal neighbours come from __shfl_sync of the vertical 3-sums; at
-//    the warp's ends (lanes 0 and 31) the torus wrap swaps the two registers
-//    (warp_board.cuh).  The controlled kernel alone gives lane l the
-//    adjacent columns 2l and 2l + 1 instead (life_step_pair), which halves
-//    the shuffles and drops the selects.
-//  * Bound: integer-ALU and shuffle issue per board-step (about 50 64-bit
-//    logic ops and 8 64-bit shuffles per lane per generation); the board
-//    never leaves registers, so bytes are not the limit for T >> 1.
+//  * The rollout [1], the controlled rollout [2] and the half-word rollout
+//    [4] give lane l the adjacent columns 2l (even) and 2l + 1 (odd)
+//    (life_step_pair).  A column's horizontal neighbours are then its
+//    partner in the lane and one column of the previous or next lane: 4
+//    64-bit shuffles of the vertical 3-sums a generation and no selects,
+//    since column 63 (lane 31's odd) sits next to column 0 (lane 0's even)
+//    as the lanes wrap.  A lane's two columns are 16 contiguous bytes, so a
+//    warp reads and writes its board in one coalesced access.
+//  * The catalyst kernel [3] keeps the split layout of warp_board.cuh, lane
+//    l on columns l and l + 32 (life_step): 8 64-bit shuffles a generation,
+//    and at the warp's ends (lanes 0 and 31) the torus wrap swaps the two
+//    registers.
+//  * Bound: integer-ALU and shuffle issue per board-step; the board never
+//    leaves registers, so bytes are not the limit for T >> 1.  LOP3 issues
+//    at most every other clock, so [1] and [4] take Rokicki's terms as six
+//    explicit LOP3 a 32-bit half (rokicki_lop3): a generation is 40 LOP3, 8
+//    funnel shifts (the vertical rotates) and 8 32-bit shuffles a lane.
 //  * No padding: the B % 128 batch padding of the TPU wrappers goes away.  A
 //    warp whose board index is past B leaves at once, as a whole, so every
-//    shuffle in the warps that remain has all 32 lanes.
+//    shuffle in the warps that remain has all 32 lanes ([4] excepted, whose
+//    warps past B step an empty board: its block shares barriers).
 
 #include "warp_board.cuh"
 
@@ -44,6 +53,9 @@ using warp_board::rotr1;
 
 constexpr int kWarpsPerBlock = 8;
 constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
+// resident blocks an SM asked of ptxas for [1] and [4]: 64 warps, the most
+// an SM holds, at 32 registers a thread
+constexpr int kBlocksPerSM = 8;
 
 // Rokicki's next-state formula (reference LifeAPI.hpp:837-848) for one
 // column a: (s0, s1) is the sum of its two vertical neighbours, (u0, u1) and
@@ -55,8 +67,37 @@ __device__ __forceinline__ u64 rokicki(u64 a, u64 s0, u64 s1, u64 u0, u64 u1,
   return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | a);
 }
 
-// One generation of the warp's board: the CSA netlist of
-// lifeapi_tpu_torch/core/step.py step(), bit for bit.
+// The three-input logic function kLut of each bit of a, b and c (PTX's
+// lop3 truth table: a is 0xf0, b 0xcc, c 0xaa), one LOP3 a 32-bit half.
+template <int kLut>
+__device__ __forceinline__ u64 lop3(u64 a, u64 b, u64 c) {
+  unsigned lo, hi;
+  asm("lop3.b32 %0, %1, %2, %3, %4;" : "=r"(lo)
+      : "r"(static_cast<unsigned>(a)), "r"(static_cast<unsigned>(b)),
+        "r"(static_cast<unsigned>(c)), "n"(kLut));
+  asm("lop3.b32 %0, %1, %2, %3, %4;" : "=r"(hi)
+      : "r"(static_cast<unsigned>(a >> 32)), "r"(static_cast<unsigned>(b >> 32)),
+        "r"(static_cast<unsigned>(c >> 32)), "n"(kLut));
+  return (static_cast<u64>(hi) << 32) | lo;
+}
+
+// rokicki's function of the same inputs as six explicit LOP3 a 32-bit half,
+// where nvcc's own fusion of rokicki's expression takes eight.  The
+// neighbour count is t0 + 2 (ts1 + b1 + u1 + s1); the cell lives where the
+// twos sum to 1 and t0 | a.
+__device__ __forceinline__ u64 rokicki_lop3(u64 a, u64 s0, u64 s1, u64 u0, u64 u1,
+                                            u64 b0, u64 b1) {
+  const u64 t0 = lop3<0x96>(b0, u0, s0);     // b0 ^ u0 ^ s0
+  const u64 ts1 = lop3<0xe8>(b0, u0, s0);    // their majority: the carry
+  const u64 one = lop3<0x16>(b1, u1, s1);    // exactly one of b1, u1, s1
+  const u64 none = lop3<0x01>(b1, u1, s1);   // none of them
+  const u64 twos = lop3<0xca>(ts1, none, one);  // ts1 ? none : one
+  return lop3<0xe0>(twos, t0, a);               // twos & (t0 | a)
+}
+
+// One generation of the warp's board in the split layout, lane l on
+// columns l ("lo") and l + 32 ("hi"), the catalyst kernel's: the CSA netlist
+// of lifeapi_tpu_torch/core/step.py step(), bit for bit.
 __device__ __forceinline__ void life_step(u64& lo, u64& hi, int lane) {
   const u64 wl = rotl1(lo), el = rotr1(lo);
   const u64 wh = rotl1(hi), eh = rotr1(hi);
@@ -74,33 +115,15 @@ __device__ __forceinline__ void life_step(u64& lo, u64& hi, int lane) {
   hi = rokicki(hi, s0h, s1h, u0h, u1h, b0h, b1h);
 }
 
-// Replaces lifeapi_tpu/ops/step_pallas.py rollout_eo (_rollout_kernel_eo):
-// T generations of every board.  Bound: integer-ALU and shuffle issue per
-// board-step; device memory sees 1 KB per board per rollout, whatever T is.
-// The design keeps the board in registers for the whole horizon and gives
-// the card B warps to hide each step's shuffle latency behind other warps.
-__global__ void __launch_bounds__(kThreadsPerBlock)
-rollout_kernel(const u64* __restrict__ in, u64* __restrict__ out,
-               int B, int T) {
-  const int lane = threadIdx.x & 31;
-  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (board >= B) return;
-  const size_t at = static_cast<size_t>(board) * 64 + lane;
-  u64 lo = in[at], hi = in[at + 32];
-#pragma unroll 4
-  for (int t = 0; t < T; ++t) life_step(lo, hi, lane);
-  out[at] = lo;
-  out[at + 32] = hi;
-}
-
-// -- controlled rollout ---------------------------------------------------------
-
 // One generation of a board whose lane l holds the adjacent columns 2l
-// (even) and 2l + 1 (odd), the controlled kernel's layout.  A column's
+// (even) and 2l + 1 (odd), the layout of [1], [2] and [4].  A column's
 // neighbours are then its partner in the lane and one column of the previous
 // or next lane: 4 64-bit shuffles a generation, not 8, and no selects, since
 // column 63 (lane 31's odd) sits next to column 0 (lane 0's even) as the
-// lanes wrap.  The same netlist as life_step.
+// lanes wrap.  The same netlist as life_step; kLop3 takes Rokicki's terms as
+// rokicki_lop3 ([1] and [4]: 40 LOP3 a generation, not 48), else as rokicki
+// ([2]).
+template <bool kLop3>
 __device__ __forceinline__ void life_step_pair(u64& even, u64& odd, int lane) {
   const u64 we = rotl1(even), ee = rotr1(even);
   const u64 wo = rotl1(odd), eo = rotr1(odd);
@@ -114,9 +137,39 @@ __device__ __forceinline__ void life_step_pair(u64& even, u64& odd, int lane) {
   const u64 u1 = __shfl_sync(kFullMask, c1o, prev);
   const u64 b0 = __shfl_sync(kFullMask, c0e, next);
   const u64 b1 = __shfl_sync(kFullMask, c1e, next);
-  even = rokicki(even, s0e, s1e, u0, u1, c0o, c1o);
-  odd = rokicki(odd, s0o, s1o, c0e, c1e, b0, b1);
+  if constexpr (kLop3) {
+    even = rokicki_lop3(even, s0e, s1e, u0, u1, c0o, c1o);
+    odd = rokicki_lop3(odd, s0o, s1o, c0e, c1e, b0, b1);
+  } else {
+    even = rokicki(even, s0e, s1e, u0, u1, c0o, c1o);
+    odd = rokicki(odd, s0o, s1o, c0e, c1e, b0, b1);
+  }
 }
+
+// Replaces lifeapi_tpu/ops/step_pallas.py rollout_eo (_rollout_kernel_eo):
+// T generations of every board.  Bound: integer-ALU and shuffle issue per
+// board-step; device memory sees 1 KB per board per rollout, whatever T is.
+// The design keeps the board in registers for the whole horizon, lane l on
+// columns 2l and 2l + 1 (life_step_pair), and gives the card B warps to hide
+// each step's shuffle latency behind other warps: 8 warps a block, at most
+// 32 registers a thread so that 8 blocks (64 warps) fit an SM.  A lane reads
+// and writes its two columns as one 16-byte word, so in and out must start
+// on 16 bytes (the launcher refuses them otherwise).
+__global__ void __launch_bounds__(kThreadsPerBlock, kBlocksPerSM)
+rollout_kernel(const u64* __restrict__ in, u64* __restrict__ out,
+               int B, int T) {
+  const int lane = threadIdx.x & 31;
+  const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (board >= B) return;
+  const size_t at = static_cast<size_t>(board) * 64 + 2 * lane;
+  const ulonglong2 cols = *reinterpret_cast<const ulonglong2*>(in + at);
+  u64 even = cols.x, odd = cols.y;
+#pragma unroll 4
+  for (int t = 0; t < T; ++t) life_step_pair<true>(even, odd, lane);
+  *reinterpret_cast<ulonglong2*>(out + at) = make_ulonglong2(even, odd);
+}
+
+// -- controlled rollout ---------------------------------------------------------
 
 // Toggle rows a stage of the controlled kernel holds: 4 KB a stage, two
 // stages a block, so that blocks of one warp are not held back by shared
@@ -174,7 +227,7 @@ controlled_kernel(const u64* __restrict__ in,
       const ulonglong2 t = *reinterpret_cast<const ulonglong2*>(&rows[i][2 * lane]);
       even ^= t.x;
       odd ^= t.y;
-      life_step_pair(even, odd, lane);
+      life_step_pair<false>(even, odd, lane);
     }
   }
   out[at] = even;
@@ -224,18 +277,21 @@ catalyst_kernel(const u64* __restrict__ in,
 // 32..63 of column x of board b.  The kernel reads and writes that layout
 // itself.  A block takes kWarpsPerBlock consecutive boards: its threads copy
 // the block's 64 x 8 low and high words into shared memory (each row of a
-// block is 32 contiguous bytes, one sector), join the halves into 64-bit
-// columns, step them in registers exactly as rollout_kernel does, and copy
-// the results back the same way.  Warps past B step an empty board instead
-// of leaving, so every thread reaches both barriers.  Bound: as
-// rollout_kernel, integer-ALU and shuffle issue per board-step; device
-// memory sees 4 x 64 x 4 bytes per board per rollout, whatever T is.
-__global__ void __launch_bounds__(kThreadsPerBlock)
+// block is 32 contiguous bytes, one sector), lane l joins the halves of
+// columns 2l and 2l + 1 into two 64-bit words, steps them in registers
+// exactly as rollout_kernel does (life_step_pair), and the results go back
+// the same way.  The staging runs once a rollout, against T generations, and
+// is not tuned (the pair's rows, 18 words apart, meet 2-way bank conflicts).
+// Warps past B step an empty board instead of leaving, so every thread
+// reaches both barriers.  Bound: as rollout_kernel, integer-ALU and shuffle
+// issue per board-step; device memory sees 4 x 64 x 4 bytes per board per
+// rollout, whatever T is.
+__global__ void __launch_bounds__(kThreadsPerBlock, kBlocksPerSM)
 rollout_lohi_kernel(const uint32_t* __restrict__ low32_in,
                     const uint32_t* __restrict__ high32_in,
                     uint32_t* __restrict__ low32_out,
                     uint32_t* __restrict__ high32_out, int B, int T) {
-  // a row of 9 words: the lanes' column accesses (stride 9) hit 32 banks
+  // a row of 9 words: the copies' column accesses (stride 9) hit 32 banks
   __shared__ uint32_t low32[64][kWarpsPerBlock + 1];
   __shared__ uint32_t high32[64][kWarpsPerBlock + 1];
   const int first = blockIdx.x * kWarpsPerBlock;
@@ -250,16 +306,16 @@ rollout_lohi_kernel(const uint32_t* __restrict__ low32_in,
   __syncthreads();
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  // this lane's columns x = lane and x = lane + 32, as 64-bit words
-  u64 col_a = (static_cast<u64>(high32[lane][warp]) << 32) | low32[lane][warp];
-  u64 col_b = (static_cast<u64>(high32[lane + 32][warp]) << 32) | low32[lane + 32][warp];
+  const int col = 2 * lane;  // this lane's columns col and col + 1, as 64-bit words
+  u64 even = (static_cast<u64>(high32[col][warp]) << 32) | low32[col][warp];
+  u64 odd = (static_cast<u64>(high32[col + 1][warp]) << 32) | low32[col + 1][warp];
 #pragma unroll 4
-  for (int t = 0; t < T; ++t) life_step(col_a, col_b, lane);
+  for (int t = 0; t < T; ++t) life_step_pair<true>(even, odd, lane);
   __syncthreads();  // every warp has read its words before any is replaced
-  low32[lane][warp] = static_cast<uint32_t>(col_a);
-  high32[lane][warp] = static_cast<uint32_t>(col_a >> 32);
-  low32[lane + 32][warp] = static_cast<uint32_t>(col_b);
-  high32[lane + 32][warp] = static_cast<uint32_t>(col_b >> 32);
+  low32[col][warp] = static_cast<uint32_t>(even);
+  high32[col][warp] = static_cast<uint32_t>(even >> 32);
+  low32[col + 1][warp] = static_cast<uint32_t>(odd);
+  high32[col + 1][warp] = static_cast<uint32_t>(odd >> 32);
   __syncthreads();
   for (int i = threadIdx.x; i < 64 * kWarpsPerBlock; i += kThreadsPerBlock) {
     const int x = i / kWarpsPerBlock, k = i % kWarpsPerBlock;
@@ -273,15 +329,32 @@ rollout_lohi_kernel(const uint32_t* __restrict__ low32_in,
 
 inline dim3 grid_for(int B) { return dim3((B + kWarpsPerBlock - 1) / kWarpsPerBlock); }
 
+// info = {resident blocks of kThreadsPerBlock an SM, registers a thread,
+// local (spilled) bytes a thread} of a kernel.
+template <typename Kernel>
+cudaError_t block_info(Kernel kernel, int* info) {
+  cudaFuncAttributes attr;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&info[0], kernel, kThreadsPerBlock, 0);
+  if (err == cudaSuccess) err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  info[1] = attr.numRegs;
+  info[2] = static_cast<int>(attr.localSizeBytes);
+  return cudaSuccess;
+}
+
 }  // namespace
 
 // The launchers run on the caller's stream, do not synchronise, allocate
 // nothing, and return the launch's cudaError_t (0 on success).  B must be
 // positive and T non-negative.
 
+// in and out start on 16 bytes.
 extern "C" cudaError_t life_rollout(const u64* in, u64* out, int B,
                                     int T, cudaStream_t stream) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(out)) % 16)
+    return cudaErrorMisalignedAddress;
   rollout_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(in, out, B, T);
   return cudaGetLastError();
 }
@@ -294,6 +367,15 @@ extern "C" cudaError_t life_rollout_lohi(const uint32_t* low32_in,
   rollout_lohi_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
       low32_in, high32_in, low32_out, high32_out, B, T);
   return cudaGetLastError();
+}
+
+// kernel: 0 rollout_kernel, 1 rollout_lohi_kernel; info as block_info's, 3 ints.
+extern "C" cudaError_t life_rollout_info(int kernel, int* info) {
+  switch (kernel) {
+    case 0: return block_info(rollout_kernel, info);
+    case 1: return block_info(rollout_lohi_kernel, info);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 extern "C" cudaError_t life_controlled_rollout(const u64* in,

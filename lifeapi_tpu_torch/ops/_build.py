@@ -35,6 +35,7 @@ _F = ctypes.c_float
 SIGNATURES = {
     "life_rollout": (_P, _P, _I, _I, _P),
     "life_rollout_lohi": (_P, _P, _P, _P, _I, _I, _P),
+    "life_rollout_info": (_I, _P),
     "life_controlled_rollout": (_P, _P, _P, _I, _I, _P),
     "life_catalyst_rollout": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "life_stable_step": (_P, _P, _P, _P, _I, _P),

@@ -19,6 +19,8 @@ that its main path went through the kernels.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..core import board as B
@@ -85,19 +87,35 @@ def rollout_plain(boards, steps):
 
 
 def rollout(boards, steps):
-    """Advance ``int64[B, 64]`` boards ``steps`` generations."""
+    """Advance ``int64[B, 64]`` boards ``steps`` generations.  The kernel
+    reads a lane's two adjacent columns as one 16-byte word, so boards whose
+    data starts 8 bytes past 16 are copied first."""
     b = _batch(boards)
     steps = int(steps)
     if not 0 <= steps < 2**31:
         raise ValueError(f"steps {steps} out of range")
     if not boards.is_cuda:
         return rollout_plain(boards, steps)
+    boards = _aligned(boards)
     out = torch.empty_like(boards)
     with torch.cuda.device(boards.device):
         _launch(_build.library().life_rollout, boards.data_ptr(),
                 out.data_ptr(), b, steps, _stream(boards.device))
     LAUNCHES["rollout"] += 1
     return out
+
+
+_KERNEL_INDEX = {"rollout": 0, "rollout_lohi": 1}
+
+
+def rollout_kernel_info(name):
+    """How the current CUDA device runs the ``name`` kernel (``rollout`` or
+    ``rollout_lohi``), 8 warps a block: (resident blocks an SM, from the
+    runtime's occupancy calculator, registers a thread, local (spilled)
+    bytes a thread)."""
+    info = (ctypes.c_int * 3)()
+    _launch(_build.library().life_rollout_info, _KERNEL_INDEX[name], info)
+    return tuple(info)
 
 
 # ---------------------------------------------------------------------------

@@ -152,6 +152,78 @@ def test_sass_loop_without_whole_generations_is_refused(shuffles):
         chip_smoke.instructions_per_generation(code)
 
 
+def _pair_loop(sel):
+    """A rollout of the pair layout: a prologue with a select, then a loop
+    of two generations (16 shuffles; 80 LOP3, 16 funnel shifts, ``sel``
+    selects, 3 more and the branch) and a one-generation remainder."""
+    shfl, lop = ("SHFL.IDX", "PT, R10, R23, R6, 0x1f"), ("LOP3.LUT", "R4, R2, R3, R5, 0x96, !PT")
+    shf = ("SHF.L.W.U32.HI", "R8, R9, 0x1, R8")
+    code = [("SEL", "R1, R2, R3, !P1"), ("IMAD.SHL.U32", "R6, R7, 0x2, RZ")]
+    loop = len(code)
+    code += [shfl] * 16 + [lop] * 80 + [shf] * 16 + [("SEL", "R1, R2, R3, P1")] * sel
+    code += [("IADD3", "R5, R5, 0x2, RZ"), ("ISETP.GE.AND", "P1, PT, R5, R4, PT"),
+             ("MOV", "R2, R3"), ("@!P1 BRA", f"{16 * loop:#x}")]
+    rest = len(code)
+    code += [shfl] * 8 + [lop] * 40 + [("@P2 BRA", f"{16 * rest:#x}"), ("EXIT", "")]
+    return code
+
+
+def test_sass_generation_loop_mix_counts_each_kind():
+    code = chip_smoke.sass_functions(_sass(ROLLOUT, _pair_loop(sel=0)))["rollout_kernel"]
+    mix = chip_smoke.generation_loop_mix(code, 8)
+    assert mix == {"LOP3": 40, "SHF": 8, "SHFL": 8, "SEL": 0, "other": 2}
+    assert sum(mix.values()) == chip_smoke.instructions_per_generation(code, 8) == 116 / 2
+    # the same loop read as the split layout's (16 shuffles a generation)
+    assert chip_smoke.generation_loop_mix(code)["SHFL"] == 16
+
+
+@pytest.mark.parametrize("sel", [0, 2])
+def test_pair_layout_loop_with_selects_is_refused(sel):
+    """Each rollout kernel's mix, read from its own listing; a select in the
+    generation loop of a kernel of the pair layout fails the run."""
+    listing = "".join(_sass(f"_Z{len(fn)}{fn}PKyPyii", _pair_loop(sel if fn == "rollout_kernel"
+                                                                  else 0))
+                      for fn, _ in chip_smoke.ROLLOUT_KERNELS.values())
+    funcs = chip_smoke.sass_functions(listing)
+    if sel:
+        with pytest.raises(AssertionError, match="rollout_kernel: 1 SEL a generation"):
+            chip_smoke.rollout_loop_mixes(funcs)
+    else:
+        mixes = chip_smoke.rollout_loop_mixes(funcs)
+        assert mixes["rollout"]["SHFL"] == mixes["rollout_lohi"]["SHFL"] == 8
+        assert mixes["catalyst_rollout"]["SHFL"] == 16  # the same loop, 16 a generation
+
+
+def test_rollout_kernels_table_follows_the_source():
+    """ROLLOUT_KERNELS gives a kernel 8 shuffles a generation where its body
+    steps with life_step_pair (lane l on columns 2l and 2l + 1) and 16 where
+    it steps with life_step (columns l and l + 32), so the SASS bound's
+    generations cannot drift from the source."""
+    found = chip_smoke.rollout_step_shuffles((_build.CSRC / "life_rollout.cu").read_text())
+    assert found == {fn: shuffles for fn, shuffles in chip_smoke.ROLLOUT_KERNELS.values()}
+    assert found["rollout_kernel"] == found["rollout_lohi_kernel"] == 8
+    assert found["catalyst_kernel"] == 16
+
+
+def test_rollout_step_shuffles_reads_each_body():
+    source = """
+__global__ void __launch_bounds__(256, 8)
+a_kernel(int T) {
+  for (int t = 0; t < T; ++t) life_step_pair<true>(even, odd, lane);
+}
+
+__global__ void b_kernel(int T) {
+  if (T) { life_step(lo, hi, lane); }
+}
+
+__global__ void c_kernel(int T) {
+  life_step(lo, hi, lane);
+  life_step_pair(even, odd, lane);
+}
+"""
+    assert chip_smoke.rollout_step_shuffles(source) == {"a_kernel": 8, "b_kernel": 16}
+
+
 NTT_ARGS = ((2, 0), (1, 1), (1, 2), (1, 3))
 
 

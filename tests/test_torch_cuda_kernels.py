@@ -118,6 +118,65 @@ def test_rollout_lohi_kernel_matches_twin_and_rollout(device, batch):
     assert torch.equal(step_cuda.from_kernel_layout(*step_cuda.rollout_lohi(lo, hi, 0)), boards)
 
 
+def _launched_once(name, fn, *args):
+    before = step_cuda.LAUNCHES[name]
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert step_cuda.LAUNCHES[name] == before + 1
+    return got
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 3, 5, 512])
+@pytest.mark.parametrize("batch", [1, 7, 9, 8191])
+def test_pair_layout_rollouts_at_every_batch_and_horizon(device, batch, steps):
+    """Kernels [1] and [4], lane l on columns 2l and 2l + 1, against their
+    twins bit for bit: a partial block, one block and one board past it, a
+    full grid less one board; no generation, the remainders of the loop
+    unrolled by 4, and the headline horizon.  One launch each, and a
+    second launch gives the same bits."""
+    boards = _random_boards(torch.Generator().manual_seed(batch * 1000 + steps), batch, 0.35,
+                            device)
+    got = _launched_once("rollout", step_cuda.rollout, boards, steps)
+    assert torch.equal(got, step_cuda.rollout_plain(boards, steps))
+    assert torch.equal(step_cuda.rollout(boards, steps), got)
+    lo, hi = step_cuda.to_kernel_layout(boards)
+    got_lohi = _launched_once("rollout_lohi", step_cuda.rollout_lohi, lo, hi, steps)
+    for g, w, again in zip(got_lohi, step_cuda.rollout_lohi_plain(lo, hi, steps),
+                           step_cuda.rollout_lohi(lo, hi, steps)):
+        assert torch.equal(g, w) and torch.equal(again, g)
+
+
+def test_rollout_reads_boards_that_start_8_bytes_in(device):
+    """Kernel [1] reads a lane's two columns as one 16-byte word: a board
+    view whose data starts 8 bytes past 16 is copied by the wrapper and
+    gives the same bits; the launcher refuses such a pointer itself."""
+    boards = _random_boards(torch.Generator().manual_seed(8), 77, 0.35, device)
+    store = torch.zeros(77 * 64 + 1, dtype=torch.int64, device=device)
+    shifted = store[1:].view(77, 64)
+    shifted.copy_(boards)
+    assert shifted.data_ptr() % 16 == 8
+    got = _launched_once("rollout", step_cuda.rollout, shifted, 37)
+    assert torch.equal(got, step_cuda.rollout_plain(boards, 37))
+    out = torch.empty_like(boards)
+    with pytest.raises(RuntimeError, match="life_rollout failed"):
+        step_cuda._launch(step_cuda._build.library().life_rollout, shifted.data_ptr(),
+                          out.data_ptr(), 77, 3, step_cuda._stream(device))
+
+
+@pytest.mark.parametrize("batch", [1, 7, 8193])
+def test_rollout_lohi_equals_rollout_through_the_layout(device, batch):
+    boards = _random_boards(torch.Generator().manual_seed(batch), batch, 0.4, device)
+    got = step_cuda.rollout_lohi(*step_cuda.to_kernel_layout(boards), 61)
+    want = step_cuda.to_kernel_layout(step_cuda.rollout(boards, 61))
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("name", ["rollout", "rollout_lohi"])
+def test_pair_layout_rollouts_fill_an_sm_without_spilling(device, name):
+    blocks, regs, local = step_cuda.rollout_kernel_info(name)
+    assert blocks >= 8 and regs <= 32 and local == 0
+
+
 def test_rollout_lohi_kernel_rejects_bad_input(device):
     boards = _random_boards(torch.Generator().manual_seed(2), 40, 0.3, device)
     lo, hi = step_cuda.to_kernel_layout(boards)
