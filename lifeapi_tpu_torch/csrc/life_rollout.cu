@@ -16,21 +16,19 @@
 //  * Vertical neighbours are native 64-bit rotates of the lane's own words;
 //    the TPU's even/odd interleave (lifeapi_tpu/core/bitops.py
 //    interleave_split) only saved 32-bit funnel shifts and is not used.
-//  * The rollout [1], the controlled rollout [2] and the half-word rollout
-//    [4] give lane l the adjacent columns 2l (even) and 2l + 1 (odd)
-//    (life_step_pair).  A column's horizontal neighbours are then its
-//    partner in the lane and one column of the previous or next lane: 4
-//    64-bit shuffles of the vertical 3-sums a generation and no selects,
-//    since column 63 (lane 31's odd) sits next to column 0 (lane 0's even)
-//    as the lanes wrap.  A lane's two columns are 16 contiguous bytes, so a
-//    warp reads and writes its board in one coalesced access.
-//  * The catalyst kernel [3] keeps the split layout of warp_board.cuh, lane
-//    l on columns l and l + 32 (life_step): 8 64-bit shuffles a generation,
-//    and at the warp's ends (lanes 0 and 31) the torus wrap swaps the two
-//    registers.
+//  * Every rollout kernel gives lane l the adjacent columns 2l (even) and
+//    2l + 1 (odd), and steps them with one circuit (life_step_pair).  A
+//    column's horizontal neighbours are then its partner in the lane and one
+//    column of the previous or next lane: 4 64-bit shuffles of the vertical
+//    3-sums a generation and no selects, since column 63 (lane 31's odd) sits
+//    next to column 0 (lane 0's even) as the lanes wrap.  A lane's two
+//    columns are 16 contiguous bytes, so a warp reads and writes its board in
+//    one coalesced access.  The split layout of warp_board.cuh (lane l on
+//    columns l and l + 32) is left to the still-life, convolution and
+//    calibration kernels.
 //  * Bound: integer-ALU and shuffle issue per board-step; the board never
 //    leaves registers, so bytes are not the limit for T >> 1.  LOP3 issues
-//    at most every other clock, so [1] and [4] take Rokicki's terms as six
+//    at most every other clock, so the step takes Rokicki's terms as six
 //    explicit LOP3 a 32-bit half (rokicki_lop3): a generation is 40 LOP3, 8
 //    funnel shifts (the vertical rotates) and 8 32-bit shuffles a lane.
 //  * No padding: the B % 128 batch padding of the TPU wrappers goes away.  A
@@ -45,8 +43,6 @@ namespace {
 using warp_board::cp_async16;
 using warp_board::cp_async_commit;
 using warp_board::cp_async_wait_one;
-using warp_board::from_left;
-using warp_board::from_right;
 using warp_board::kFullMask;
 using warp_board::rotl1;
 using warp_board::rotr1;
@@ -56,16 +52,6 @@ constexpr int kThreadsPerBlock = kWarpsPerBlock * 32;
 // resident blocks an SM asked of ptxas for [1] and [4]: 64 warps, the most
 // an SM holds, at 32 registers a thread
 constexpr int kBlocksPerSM = 8;
-
-// Rokicki's next-state formula (reference LifeAPI.hpp:837-848) for one
-// column a: (s0, s1) is the sum of its two vertical neighbours, (u0, u1) and
-// (b0, b1) the vertical 3-sums of the columns to its left and right.
-__device__ __forceinline__ u64 rokicki(u64 a, u64 s0, u64 s1, u64 u0, u64 u1,
-                                       u64 b0, u64 b1) {
-  const u64 ts0 = b0 ^ u0;
-  const u64 ts1 = (b0 & u0) | (ts0 & s0);
-  return (b1 ^ u1 ^ ts1 ^ s1) & ((b1 | u1) ^ (ts1 | s1)) & ((ts0 ^ s0) | a);
-}
 
 // The three-input logic function kLut of each bit of a, b and c (PTX's
 // lop3 truth table: a is 0xf0, b 0xcc, c 0xaa), one LOP3 a 32-bit half.
@@ -81,10 +67,13 @@ __device__ __forceinline__ u64 lop3(u64 a, u64 b, u64 c) {
   return (static_cast<u64>(hi) << 32) | lo;
 }
 
-// rokicki's function of the same inputs as six explicit LOP3 a 32-bit half,
-// where nvcc's own fusion of rokicki's expression takes eight.  The
-// neighbour count is t0 + 2 (ts1 + b1 + u1 + s1); the cell lives where the
-// twos sum to 1 and t0 | a.
+// Rokicki's next-state formula (reference LifeAPI.hpp:837-848) for one
+// column a, as six explicit LOP3 a 32-bit half, where nvcc's own fusion of
+// the formula written in C takes eight: (s0, s1) is the sum of its two
+// vertical neighbours, (u0, u1) and (b0, b1) the vertical 3-sums of the
+// columns to its left and right.  The neighbour count is
+// t0 + 2 (ts1 + b1 + u1 + s1); the cell lives where the twos sum to 1 and
+// t0 | a.
 __device__ __forceinline__ u64 rokicki_lop3(u64 a, u64 s0, u64 s1, u64 u0, u64 u1,
                                             u64 b0, u64 b1) {
   const u64 t0 = lop3<0x96>(b0, u0, s0);     // b0 ^ u0 ^ s0
@@ -95,35 +84,13 @@ __device__ __forceinline__ u64 rokicki_lop3(u64 a, u64 s0, u64 s1, u64 u0, u64 u
   return lop3<0xe0>(twos, t0, a);               // twos & (t0 | a)
 }
 
-// One generation of the warp's board in the split layout, lane l on
-// columns l ("lo") and l + 32 ("hi"), the catalyst kernel's: the CSA netlist
-// of lifeapi_tpu_torch/core/step.py step(), bit for bit.
-__device__ __forceinline__ void life_step(u64& lo, u64& hi, int lane) {
-  const u64 wl = rotl1(lo), el = rotr1(lo);
-  const u64 wh = rotl1(hi), eh = rotr1(hi);
-  const u64 s0l = wl ^ el, s1l = wl & el;
-  const u64 s0h = wh ^ eh, s1h = wh & eh;
-  // vertical 3-sums (count_rows) as bit planes c0, c1
-  const u64 c0l = s0l ^ lo, c1l = (s0l & lo) | s1l;
-  const u64 c0h = s0h ^ hi, c1h = (s0h & hi) | s1h;
-  u64 u0l, u0h, u1l, u1h, b0l, b0h, b1l, b1h;
-  from_left(c0l, c0h, lane, u0l, u0h);
-  from_left(c1l, c1h, lane, u1l, u1h);
-  from_right(c0l, c0h, lane, b0l, b0h);
-  from_right(c1l, c1h, lane, b1l, b1h);
-  lo = rokicki(lo, s0l, s1l, u0l, u1l, b0l, b1l);
-  hi = rokicki(hi, s0h, s1h, u0h, u1h, b0h, b1h);
-}
-
 // One generation of a board whose lane l holds the adjacent columns 2l
-// (even) and 2l + 1 (odd), the layout of [1], [2] and [4].  A column's
-// neighbours are then its partner in the lane and one column of the previous
-// or next lane: 4 64-bit shuffles a generation, not 8, and no selects, since
-// column 63 (lane 31's odd) sits next to column 0 (lane 0's even) as the
-// lanes wrap.  The same netlist as life_step; kLop3 takes Rokicki's terms as
-// rokicki_lop3 ([1] and [4]: 40 LOP3 a generation, not 48), else as rokicki
-// ([2]).
-template <bool kLop3>
+// (even) and 2l + 1 (odd), the layout of every rollout kernel: the CSA
+// netlist of lifeapi_tpu_torch/core/step.py step(), bit for bit.  A column's
+// neighbours are its partner in the lane and one column of the previous or
+// next lane: 4 64-bit shuffles a generation and no selects, since column 63
+// (lane 31's odd) sits next to column 0 (lane 0's even) as the lanes wrap.
+// 40 LOP3 a generation.
 __device__ __forceinline__ void life_step_pair(u64& even, u64& odd, int lane) {
   const u64 we = rotl1(even), ee = rotr1(even);
   const u64 wo = rotl1(odd), eo = rotr1(odd);
@@ -137,13 +104,8 @@ __device__ __forceinline__ void life_step_pair(u64& even, u64& odd, int lane) {
   const u64 u1 = __shfl_sync(kFullMask, c1o, prev);
   const u64 b0 = __shfl_sync(kFullMask, c0e, next);
   const u64 b1 = __shfl_sync(kFullMask, c1e, next);
-  if constexpr (kLop3) {
-    even = rokicki_lop3(even, s0e, s1e, u0, u1, c0o, c1o);
-    odd = rokicki_lop3(odd, s0o, s1o, c0e, c1e, b0, b1);
-  } else {
-    even = rokicki(even, s0e, s1e, u0, u1, c0o, c1o);
-    odd = rokicki(odd, s0o, s1o, c0e, c1e, b0, b1);
-  }
+  even = rokicki_lop3(even, s0e, s1e, u0, u1, c0o, c1o);
+  odd = rokicki_lop3(odd, s0o, s1o, c0e, c1e, b0, b1);
 }
 
 // Replaces lifeapi_tpu/ops/step_pallas.py rollout_eo (_rollout_kernel_eo):
@@ -165,7 +127,7 @@ rollout_kernel(const u64* __restrict__ in, u64* __restrict__ out,
   const ulonglong2 cols = *reinterpret_cast<const ulonglong2*>(in + at);
   u64 even = cols.x, odd = cols.y;
 #pragma unroll 4
-  for (int t = 0; t < T; ++t) life_step_pair<true>(even, odd, lane);
+  for (int t = 0; t < T; ++t) life_step_pair(even, odd, lane);
   *reinterpret_cast<ulonglong2*>(out + at) = make_ulonglong2(even, odd);
 }
 
@@ -227,23 +189,40 @@ controlled_kernel(const u64* __restrict__ in,
       const ulonglong2 t = *reinterpret_cast<const ulonglong2*>(&rows[i][2 * lane]);
       even ^= t.x;
       odd ^= t.y;
-      life_step_pair<false>(even, odd, lane);
+      life_step_pair(even, odd, lane);
     }
   }
   out[at] = even;
   out[at + 1] = odd;
 }
 
+// The catalyst rollout's interaction term for one word: acc | (x ^ (base |
+// p)) & z, where x is a column of the board, base the baseline's and p, z
+// the placed catalyst's and its ZOI's.  Two explicit LOP3 a 32-bit half.
+__device__ __forceinline__ u64 interaction(u64 acc, u64 x, u64 base, u64 p, u64 z) {
+  const u64 t = lop3<0x1e>(x, base, p);  // x ^ (base | p)
+  return lop3<0xf8>(acc, t, z);          // acc | (t & z)
+}
+
 // Replaces lifeapi_tpu/ops/step_pallas.py catalyst_rollout_eo
 // (_catalyst_kernel_eo): step the placed boards; after step t + 1 OR
 // (board ^ (base_traj[t] | placed)) & placed_zoi into an accumulator, where
 // base_traj[t] is the baseline reaction after t + 1 generations, shared by
-// every board ([T, 64], read through the read-only cache).  The accumulator
-// is reduced to one flag per board in-kernel (the TPU kernel wrote its acc
-// planes out and search.py reduced them).  Bound: integer-ALU work per
-// board-step, as for rollout_kernel, plus 4 logic ops per word; base_traj
-// (T x 512 bytes) is shared by every warp, so it stays in L1/L2 and adds no
-// device-memory traffic per board.
+// every board ([T, 64]).  The accumulator is reduced to one flag per board
+// in-kernel (the TPU kernel wrote its acc planes out and search.py reduced
+// them).  Bound: integer-ALU issue per board-step, as for rollout_kernel,
+// plus the interaction's 8 LOP3 a generation; base_traj (T x 512 bytes) is
+// shared by every warp, so it stays in L1/L2 and adds no device-memory
+// traffic per board.
+//
+// Design: one warp a board, 8 a block, the board in registers for the whole
+// horizon with lane l on columns 2l and 2l + 1 of the board, of placed and
+// of placed_zoi (life_step_pair), and one 64-bit accumulator a lane.  A lane
+// reads its two columns of each input, and writes the final board's, as one
+// 16-byte word, and reads its 16 bytes of the baseline row through the
+// read-only cache each generation; the generation loop is unrolled by 4.
+// Every pointer but out_interacted starts on 16 bytes (the launcher refuses
+// it otherwise; the wrapper copies).
 __global__ void __launch_bounds__(kThreadsPerBlock)
 catalyst_kernel(const u64* __restrict__ in,
                 const u64* __restrict__ placed,
@@ -254,19 +233,20 @@ catalyst_kernel(const u64* __restrict__ in,
   const int lane = threadIdx.x & 31;
   const int board = blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (board >= B) return;
-  const size_t at = static_cast<size_t>(board) * 64 + lane;
-  u64 lo = in[at], hi = in[at + 32];
-  const u64 p_lo = placed[at], p_hi = placed[at + 32];
-  const u64 z_lo = placed_zoi[at], z_hi = placed_zoi[at + 32];
-  u64 acc = 0;
-  const u64* base = base_traj + lane;
-  for (int t = 0; t < T; ++t, base += 64) {
-    life_step(lo, hi, lane);
-    acc |= ((lo ^ (__ldg(base) | p_lo)) & z_lo) |
-           ((hi ^ (__ldg(base + 32) | p_hi)) & z_hi);
+  const size_t at = static_cast<size_t>(board) * 64 + 2 * lane;
+  const ulonglong2 cols = *reinterpret_cast<const ulonglong2*>(in + at);
+  const ulonglong2 p = *reinterpret_cast<const ulonglong2*>(placed + at);
+  const ulonglong2 z = *reinterpret_cast<const ulonglong2*>(placed_zoi + at);
+  const ulonglong2* base = reinterpret_cast<const ulonglong2*>(base_traj) + lane;
+  u64 even = cols.x, odd = cols.y, acc = 0;
+#pragma unroll 4
+  for (int t = 0; t < T; ++t, base += 32) {
+    life_step_pair(even, odd, lane);
+    const ulonglong2 row = __ldg(base);  // base_traj[t][2l .. 2l + 1]
+    acc = interaction(acc, even, row.x, p.x, z.x);
+    acc = interaction(acc, odd, row.y, p.y, z.y);
   }
-  out_final[at] = lo;
-  out_final[at + 32] = hi;
+  *reinterpret_cast<ulonglong2*>(out_final + at) = make_ulonglong2(even, odd);
   const bool interacted = __any_sync(kFullMask, acc != 0);
   if (lane == 0) out_interacted[board] = interacted ? 1 : 0;
 }
@@ -310,7 +290,7 @@ rollout_lohi_kernel(const uint32_t* __restrict__ low32_in,
   u64 even = (static_cast<u64>(high32[col][warp]) << 32) | low32[col][warp];
   u64 odd = (static_cast<u64>(high32[col + 1][warp]) << 32) | low32[col + 1][warp];
 #pragma unroll 4
-  for (int t = 0; t < T; ++t) life_step_pair<true>(even, odd, lane);
+  for (int t = 0; t < T; ++t) life_step_pair(even, odd, lane);
   __syncthreads();  // every warp has read its words before any is replaced
   low32[col][warp] = static_cast<uint32_t>(even);
   high32[col][warp] = static_cast<uint32_t>(even >> 32);
@@ -369,11 +349,13 @@ extern "C" cudaError_t life_rollout_lohi(const uint32_t* low32_in,
   return cudaGetLastError();
 }
 
-// kernel: 0 rollout_kernel, 1 rollout_lohi_kernel; info as block_info's, 3 ints.
+// kernel: 0 rollout_kernel, 1 rollout_lohi_kernel, 2 catalyst_kernel; info as
+// block_info's, 3 ints.
 extern "C" cudaError_t life_rollout_info(int kernel, int* info) {
   switch (kernel) {
     case 0: return block_info(rollout_kernel, info);
     case 1: return block_info(rollout_lohi_kernel, info);
+    case 2: return block_info(catalyst_kernel, info);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -388,6 +370,8 @@ extern "C" cudaError_t life_controlled_rollout(const u64* in,
   return cudaGetLastError();
 }
 
+// in, placed, placed_zoi, out_final and (for T > 0) base_traj start on 16
+// bytes.
 extern "C" cudaError_t life_catalyst_rollout(const u64* in,
                                              const u64* placed,
                                              const u64* placed_zoi,
@@ -396,6 +380,10 @@ extern "C" cudaError_t life_catalyst_rollout(const u64* in,
                                              uint8_t* out_interacted, int B,
                                              int T, cudaStream_t stream) {
   if (B <= 0 || T < 0) return cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(in) | reinterpret_cast<uintptr_t>(placed) |
+       reinterpret_cast<uintptr_t>(placed_zoi) | reinterpret_cast<uintptr_t>(out_final) |
+       (T > 0 ? reinterpret_cast<uintptr_t>(base_traj) : 0)) % 16)
+    return cudaErrorMisalignedAddress;
   catalyst_kernel<<<grid_for(B), kThreadsPerBlock, 0, stream>>>(
       in, placed, placed_zoi, base_traj, out_final, out_interacted, B, T);
   return cudaGetLastError();

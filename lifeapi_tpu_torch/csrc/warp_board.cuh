@@ -1,17 +1,17 @@
 // One 64x64 torus board per warp: the column helpers of the split layout
-// (the catalyst kernel in life_rollout.cu, life_stable.cu, life_conv.cu,
-// life_calibrate.cu), and the cp.async copies into shared memory
-// (life_rollout.cu, life_conv.cu).
+// (from_left and from_right, used by life_stable.cu alone; life_conv.cu and
+// life_calibrate.cu hold their boards in the same layout), and the cp.async
+// copies into shared memory (life_rollout.cu, life_conv.cu).
 //
 // Layout: a board is 64 words of 64 bits, one per column x, bit y = cell
 // (x, y) (the reference's LifeState layout).  In the split layout lane l of
 // the warp holds columns l and l + 32 ("lo" and "hi") in two registers.
 // Vertical neighbours are native 64-bit rotates of a lane's own words;
 // horizontal neighbours are __shfl_sync of the neighbouring lane's words,
-// with the torus wrap at lanes 0 and 31 swapping the two registers.  The
-// rollout [1], the controlled rollout [2] and the half-word rollout [4]
-// (life_rollout.cu life_step_pair) instead give lane l the adjacent columns
-// 2l and 2l + 1, which halves the shuffles and needs no swap at the wrap.
+// with the torus wrap at lanes 0 and 31 swapping the two registers.  Every
+// rollout kernel (life_rollout.cu life_step_pair) instead gives lane l the
+// adjacent columns 2l and 2l + 1, which halves the shuffles and needs no
+// swap at the wrap, and uses only rotl1, rotr1 and the copies from here.
 
 #pragma once
 

@@ -105,14 +105,14 @@ def rollout(boards, steps):
     return out
 
 
-_KERNEL_INDEX = {"rollout": 0, "rollout_lohi": 1}
+_KERNEL_INDEX = {"rollout": 0, "rollout_lohi": 1, "catalyst_rollout": 2}
 
 
 def rollout_kernel_info(name):
-    """How the current CUDA device runs the ``name`` kernel (``rollout`` or
-    ``rollout_lohi``), 8 warps a block: (resident blocks an SM, from the
-    runtime's occupancy calculator, registers a thread, local (spilled)
-    bytes a thread)."""
+    """How the current CUDA device runs the ``name`` kernel (``rollout``,
+    ``rollout_lohi`` or ``catalyst_rollout``), 8 warps a block: (resident
+    blocks an SM, from the runtime's occupancy calculator, registers a
+    thread, local (spilled) bytes a thread)."""
     info = (ctypes.c_int * 3)()
     _launch(_build.library().life_rollout_info, _KERNEL_INDEX[name], info)
     return tuple(info)
@@ -169,7 +169,9 @@ def catalyst_rollout_plain(boards, placed, placed_zoi, base_traj):
 def catalyst_rollout(boards, placed, placed_zoi, base_traj):
     """``int64[B, 64]`` boards, placed catalysts and their ZOIs, and the
     baseline reaction ``int64[T, 64]`` after each of T generations ->
-    (final boards ``int64[B, 64]``, interacted ``bool[B]``)."""
+    (final boards ``int64[B, 64]``, interacted ``bool[B]``).  The kernel
+    reads a lane's two adjacent columns of each input as one 16-byte word,
+    so an input whose data starts 8 bytes past 16 is copied first."""
     b = _batch(boards)
     _check("placed", placed, (b, 64), device=boards.device)
     _check("placed_zoi", placed_zoi, (b, 64), device=boards.device)
@@ -179,6 +181,8 @@ def catalyst_rollout(boards, placed, placed_zoi, base_traj):
     _check("base_traj", base_traj, (steps, 64), device=boards.device)
     if not boards.is_cuda:
         return catalyst_rollout_plain(boards, placed, placed_zoi, base_traj)
+    boards, placed, placed_zoi, base_traj = map(_aligned, (boards, placed, placed_zoi,
+                                                           base_traj))
     final = torch.empty_like(boards)
     interacted = torch.empty(b, dtype=torch.bool, device=boards.device)
     with torch.cuda.device(boards.device):

@@ -191,7 +191,7 @@ def test_pair_layout_loop_with_selects_is_refused(sel):
     else:
         mixes = chip_smoke.rollout_loop_mixes(funcs)
         assert mixes["rollout"]["SHFL"] == mixes["rollout_lohi"]["SHFL"] == 8
-        assert mixes["catalyst_rollout"]["SHFL"] == 16  # the same loop, 16 a generation
+        assert mixes["catalyst_rollout"]["SHFL"] == mixes["controlled_rollout"]["SHFL"] == 8
 
 
 def test_rollout_kernels_table_follows_the_source():
@@ -202,7 +202,21 @@ def test_rollout_kernels_table_follows_the_source():
     found = chip_smoke.rollout_step_shuffles((_build.CSRC / "life_rollout.cu").read_text())
     assert found == {fn: shuffles for fn, shuffles in chip_smoke.ROLLOUT_KERNELS.values()}
     assert found["rollout_kernel"] == found["rollout_lohi_kernel"] == 8
-    assert found["catalyst_kernel"] == 16
+    assert found["catalyst_kernel"] == found["controlled_kernel"] == 8
+
+
+def test_rollout_source_has_one_step_circuit():
+    """Every rollout kernel steps with the one pair-layout circuit: no body
+    in life_rollout.cu calls the split layout's life_step, nvcc's C form of
+    Rokicki's terms (rokicki) or the split column helpers, and the pair step
+    takes no circuit argument."""
+    source = (_build.CSRC / "life_rollout.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", source)
+    assert re.search(r"\blife_step\s*\(", code) is None
+    assert re.search(r"\brokicki\s*\(", code) is None
+    assert re.search(r"\b(from_left|from_right|kLop3)\b", code) is None
+    assert re.search(r"\blife_step_pair\s*<", code) is None
+    assert len(re.findall(r"\brokicki_lop3\s*\(", code)) == 3  # defined, then even and odd
 
 
 def test_rollout_step_shuffles_reads_each_body():

@@ -177,6 +177,72 @@ def test_pair_layout_rollouts_fill_an_sm_without_spilling(device, name):
     assert blocks >= 8 and regs <= 32 and local == 0
 
 
+def _catalyst_inputs(batch, steps, device):
+    """The catalyst rollout's inputs for the glider and eater: at 4096 boards
+    the full grid's offsets (the main path's), else seeded random ones."""
+    glider = B.from_cells([(8, 10), (9, 8), (9, 10), (10, 9), (10, 10)], device="cpu")
+    eater = B.from_cells([(24, 21), (24, 22), (25, 21), (25, 23), (26, 23),
+                          (27, 23), (27, 24)], device="cpu")
+    if batch == 4096:
+        offsets = torch.tensor([[dx, dy] for dx in range(64) for dy in range(64)])
+    else:
+        offsets = torch.randint(-16, 16, (batch, 2),
+                                generator=torch.Generator().manual_seed(batch * 1000 + steps))
+    return [t.to(device) for t in rollout_inputs(glider, eater, offsets, steps)]
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 3, 5, 64, 100])
+@pytest.mark.parametrize("batch", [1, 33, 4096])
+def test_catalyst_kernel_at_every_batch_and_horizon(device, batch, steps):
+    """Kernel [3], lane l on columns 2l and 2l + 1, against its twin bit for
+    bit, final boards and flags: one board, a block and a partial one, the
+    main path's 4096 offsets; no generation, the remainders of the loop
+    unrolled by 4, and the main path's horizons 64 and 100.  One launch,
+    and a second launch gives the same bits."""
+    inputs = _catalyst_inputs(batch, steps, device)
+    got = _launched_once("catalyst_rollout", step_cuda.catalyst_rollout, *inputs)
+    want = step_cuda.catalyst_rollout_plain(*inputs)
+    again = step_cuda.catalyst_rollout(*inputs)
+    for g, w, a in zip(got, want, again):
+        assert g.dtype == w.dtype and torch.equal(g, w) and torch.equal(a, g)
+    if steps == 0:
+        assert not got[1].any() and torch.equal(got[0], inputs[0])
+    if batch == 4096 and steps >= 64:
+        assert 0 < int(got[1].sum()) < batch  # the grid holds both kinds
+
+
+@pytest.mark.parametrize("which", range(4))
+def test_catalyst_kernel_reads_inputs_that_start_8_bytes_in(device, which):
+    """Kernel [3] reads a lane's two columns of each input as one 16-byte
+    word: an input (boards, placed, placed_zoi or base_traj) whose data
+    starts 8 bytes past 16 is copied by the wrapper and gives the same bits;
+    the launcher refuses such a pointer itself."""
+    inputs = _catalyst_inputs(33, 64, device)
+    store = torch.zeros(inputs[which].numel() + 1, dtype=torch.int64, device=device)
+    shifted = store[1:].view(inputs[which].shape)
+    shifted.copy_(inputs[which])
+    assert shifted.data_ptr() % 16 == 8
+    args = list(inputs)
+    args[which] = shifted
+    got = _launched_once("catalyst_rollout", step_cuda.catalyst_rollout, *args)
+    want = step_cuda.catalyst_rollout_plain(*inputs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    final = torch.empty_like(inputs[0])
+    interacted = torch.empty(33, dtype=torch.bool, device=device)
+    with pytest.raises(RuntimeError, match="life_catalyst_rollout failed"):
+        step_cuda._launch(step_cuda._build.library().life_catalyst_rollout,
+                          *(a.data_ptr() for a in args), final.data_ptr(),
+                          interacted.data_ptr(), 33, 64, step_cuda._stream(device))
+
+
+def test_catalyst_kernel_never_spills(device):
+    """Kernel [3] holds the board, placed, placed_zoi and the accumulator in
+    registers without spilling, and the main path's 512 blocks of 8 warps
+    fit the card at once (4 an SM)."""
+    blocks, regs, local = step_cuda.rollout_kernel_info("catalyst_rollout")
+    assert local == 0 and blocks >= 4
+
+
 def test_rollout_lohi_kernel_rejects_bad_input(device):
     boards = _random_boards(torch.Generator().manual_seed(2), 40, 0.3, device)
     lo, hi = step_cuda.to_kernel_layout(boards)
